@@ -1,0 +1,55 @@
+// Helpers shared by the port's kernels. This header compiles under nvcc
+// (device code) and under a host C++ compiler, which is how the CPU tests
+// run the fused kernel's generated row functions.
+//
+// Integer arithmetic mirrors the plain PyTorch versions and the JAX
+// reference bit for bit: 32-bit lanes wrap in two's complement, `//` and
+// `%` of numpy floor, the query language's `%` truncates (C, jax.lax.rem).
+#pragma once
+
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define ARES_DEV __device__ __forceinline__
+#else
+#define ARES_DEV inline
+#endif
+
+ARES_DEV int ares_add(int a, int b) { return (int)((uint32_t)a + (uint32_t)b); }
+ARES_DEV int ares_sub(int a, int b) { return (int)((uint32_t)a - (uint32_t)b); }
+ARES_DEV int ares_mul(int a, int b) { return (int)((uint32_t)a * (uint32_t)b); }
+ARES_DEV int ares_neg(int a) { return (int)(0u - (uint32_t)a); }
+
+// numpy floor division and modulo; b > 0 at every call site.
+ARES_DEV int ares_floordiv(int a, int b) {
+  int q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+ARES_DEV int ares_floormod(int a, int b) {
+  int r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+// Truncating remainder; 0 where b is 0 (the emitters also mark that row
+// invalid) or -1 (where C's `%` would trap).
+ARES_DEV int ares_rem(int a, int b) {
+  return (b == 0 || b == -1) ? 0 : a % b;
+}
+
+// Shifts as XLA defines them for an amount outside [0, 31].
+ARES_DEV int ares_shl(int a, int b) {
+  return (b < 0 || b > 31) ? 0 : (int)((uint32_t)a << b);
+}
+ARES_DEV int ares_shr(int a, int b) {
+  return (b < 0 || b > 31) ? (a < 0 ? -1 : 0) : (a >> b);
+}
+
+// float -> int32, truncating toward zero; saturates, and NaN gives 0.
+ARES_DEV int ares_f2i(float f) {
+  if (f != f) return 0;
+  if (f >= 2147483648.0f) return INT_MAX;
+  if (f <= -2147483648.0f) return INT_MIN;
+  return (int)f;
+}

@@ -1,0 +1,563 @@
+"""K1: the fused dense group-by kernel.
+
+Port of `aresdb_tpu/query/fused_dense.py`. One pass over a batch's staged
+columns evaluates the plan's filters, dimensions and measure, maps each
+row to its dense slot, counts out-of-domain rows and reduces (measure sum,
+valid-measure count, row count) per slot — the unfused dense kernel's ABI
+exactly.
+
+The Pallas body is traced per plan. Here the per-row work is EMITTED per
+plan as C (`emit_cuda`, one `ares_row` function per plan) and compiled
+into the fixed template `csrc/fused_dense_template.cuh`, built with nvcc
+and cached by the SHA-256 of its source. The same source builds with g++
+for the CPU test of the row logic. The plain PyTorch version
+(`FusedDenseKernel.reduce_plain`) is the torch emitter, then
+kernels.dense_slot_lane, then K2's plain version.
+
+Eligibility is the JAX package's (`plan_fused`), and so is FD_MIN_ROWS,
+so the same batches reach the same kernel. Plans with joined columns are
+not ported yet and stay unfused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from aresdb_tpu_torch.common import data_types as mdt
+from aresdb_tpu_torch.query import expr as E
+from aresdb_tpu_torch.query import kernels as K
+from aresdb_tpu_torch.query import pallas_ops as P
+from aresdb_tpu_torch.query.compiler import CompiledQuery, QueryError
+from aresdb_tpu_torch.utils import cuda_build
+
+FD_MAX_SLOTS = 1 << 16   # FD_MAX_KHI * FD_KLO in the JAX package
+_MAX_COLS = 24           # csrc/fused_dense_template.cuh ARES_MAX_COLS
+
+_4B_DTS = (mdt.Uint32, mdt.Int32)
+_2B_DTS = (mdt.Uint16, mdt.BigEnum, mdt.Int16)
+_1B_DTS = (mdt.Bool, mdt.Uint8, mdt.SmallEnum, mdt.Int8)
+
+_ALLOWED_CALLS = (E.HOUR, E.DAY_OF_WEEK, E.CONVERT_TZ, "__numeric_bucket")
+
+FD_MIN_ROWS = 1 << 16   # the JAX package's floor for the fused kernel
+
+
+@dataclass
+class FusedSpec:
+    col_ids: List[int]   # referenced main-table columns, kernel input order
+    n_slots: int
+    source: str = ""     # the plan's generated kernel source (emit_cuda)
+
+
+def _domain_i32_safe(dom) -> bool:
+    if dom.kind != "affine":
+        return False
+    if isinstance(dom.step, float) or isinstance(dom.base, float):
+        return True  # float affine path computes in f32
+    lo = dom.base
+    hi = dom.base + dom.size * max(dom.step, 1)
+    return -(2**31) < lo < 2**31 and -(2**31) < hi < 2**31
+
+
+def plan_fused(plan: CompiledQuery, dense_plan) -> Optional[FusedSpec]:
+    """Check kernel eligibility and build the spec (or None)."""
+    m = plan.measure
+    if m is None or m.agg not in ("sum", "avg", "count"):
+        return None
+    if m.agg == "sum" and not m.out_float:
+        return None  # integer sums keep their wide accumulator
+    if plan.geo is not None or not plan.dimensions:
+        return None
+    if any(d.geo_dim for d in plan.dimensions):
+        return None
+    for dom in dense_plan.domains:
+        if not _domain_i32_safe(dom):
+            return None
+    if dense_plan.n_slots > FD_MAX_SLOTS:
+        return None
+
+    ok = [True]
+    cols: List[int] = []
+    lane_dts = _4B_DTS + _2B_DTS + _1B_DTS + (mdt.Float32,)
+
+    def visit(node):
+        if isinstance(node, E.VarRef):
+            if node.data_type not in lane_dts or node.table_id != 0:
+                ok[0] = False  # joined columns are not ported yet
+            elif node.column_id not in cols:
+                cols.append(node.column_id)
+        elif isinstance(node, E.NumberLiteral):
+            if node.type != E.FLOAT and not (
+                    -(2**31) <= node.int_val < 2**31):
+                ok[0] = False
+        elif isinstance(node, E.StringLiteral):
+            ok[0] = False  # UUID literal lanes need 64-bit compares
+        elif isinstance(node, E.UnaryExpr):
+            if node.op.startswith("GET_"):
+                ok[0] = False  # calendar math needs int64 lanes
+        elif isinstance(node, E.Call):
+            if node.name not in _ALLOWED_CALLS and node.name != "":
+                ok[0] = False  # "" = IN-list args (expr.parse_in_list)
+            if node.name == "__numeric_bucket":
+                b = getattr(node, "bucketizer", None)
+                if b is None or not b.bucket_width:
+                    ok[0] = False  # manual partitions use searchsorted
+
+    exprs = (list(plan.filters) + list(plan.time_filter_expr)
+             + [d.expr for d in plan.dimensions] + [m.expr])
+    for e in exprs:
+        E.walk(e, visit)
+        if not ok[0]:
+            return None
+    if len(cols) > _MAX_COLS:
+        return None
+    spec = FusedSpec(col_ids=sorted(cols), n_slots=dense_plan.n_slots)
+    spec.source = emit_cuda(plan, dense_plan, spec)
+    return spec
+
+
+# ---------------------------------------------------------------------------
+# C emission of the per-row function
+# ---------------------------------------------------------------------------
+
+class _C:
+    """A C value: its type ("bool", "int" or "float") and the C
+    expressions of its value and validity."""
+
+    __slots__ = ("ctype", "v", "b")
+
+    def __init__(self, ctype: str, v: str, b: str):
+        self.ctype = ctype
+        self.v = v
+        self.b = b
+
+
+def _ctype_for_expr_type(t: int) -> str:
+    if t == E.FLOAT:
+        return "float"
+    if t == E.BOOLEAN:
+        return "bool"
+    return "int"
+
+
+def _c_int(v: int) -> str:
+    v = int(v)
+    if not -(2**31) <= v < 2**31:
+        raise QueryError(f"integer literal {v} outside int32 in fused kernel")
+    return "(-2147483647 - 1)" if v == -(2**31) else f"({v})"
+
+
+def _c_float(x) -> str:
+    f = float(np.float32(x))
+    if np.isnan(f):
+        return "NAN"
+    if np.isinf(f):
+        return "INFINITY" if f > 0 else "(-INFINITY)"
+    return f"({f.hex()}f)"
+
+
+# staged value type of each lane data type: (C element type, C lane type)
+_LOADS = {
+    mdt.Float32: ("float", "float"),
+    mdt.Bool: ("bool", "bool"),
+    mdt.Uint32: ("int", "int"),    # two's complement, as the JAX lanes
+    mdt.Int32: ("int", "int"),
+    mdt.Uint16: ("unsigned short", "int"),
+    mdt.BigEnum: ("unsigned short", "int"),
+    mdt.Int16: ("short", "int"),
+    mdt.Uint8: ("unsigned char", "int"),
+    mdt.SmallEnum: ("unsigned char", "int"),
+    mdt.Int8: ("signed char", "int"),
+}
+
+
+class _CEmitter:
+    """Mirrors kernels._emit for the fused-eligible forms, one C statement
+    per intermediate lane, in the same types and with the same semantics."""
+
+    def __init__(self, plan: CompiledQuery, spec: FusedSpec):
+        self.plan = plan
+        self.col_index = {cid: j for j, cid in enumerate(spec.col_ids)}
+        self.lines: List[str] = []
+        self._n = 0
+        self._cols: Dict[int, _C] = {}
+
+    def tmp(self, ctype: str, expr: str) -> str:
+        name = f"t{self._n}"
+        self._n += 1
+        self.lines.append(f"  const {ctype} {name} = {expr};")
+        return name
+
+    def val(self, ctype: str, v: str, b: str) -> _C:
+        return _C(ctype, self.tmp(ctype, v), self.tmp("bool", b))
+
+    def to(self, c: _C, ctype: str) -> _C:
+        if c.ctype == ctype:
+            return c
+        if ctype == "bool":
+            v = f"({c.v} != 0)"
+        elif ctype == "float":
+            v = f"(float)({c.v})"
+        elif c.ctype == "float":
+            v = f"ares_f2i({c.v})"
+        else:
+            v = f"(int)({c.v})"
+        return _C(ctype, self.tmp(ctype, v), c.b)
+
+    def truthy(self, c: _C) -> _C:
+        return c if c.ctype == "bool" else self.to(c, "bool")
+
+    def emit(self, node: E.Expr) -> _C:
+        if isinstance(node, E.ParenExpr):
+            return self.emit(node.expr)
+        if isinstance(node, E.NumberLiteral):
+            if node.type == E.FLOAT:
+                return _C("float", _c_float(node.val), "true")
+            return _C("int", _c_int(node.int_val), "true")
+        if isinstance(node, E.BooleanLiteral):
+            return _C("bool", "true" if node.val else "false", "true")
+        if isinstance(node, E.NullLiteral):
+            return _C("int", "0", "false")
+        if isinstance(node, E.VarRef):
+            return self.column(node)
+        if isinstance(node, E.UnaryExpr):
+            return self.unary(node)
+        if isinstance(node, E.BinaryExpr):
+            return self.binary(node)
+        if isinstance(node, E.Call):
+            return self.call(node)
+        if isinstance(node, E.Case):
+            return self.case(node)
+        raise QueryError(f"cannot emit expression node {node!r} in C")
+
+    def column(self, node: E.VarRef) -> _C:
+        c = self._cols.get(node.column_id)
+        if c is None:
+            j = self.col_index[node.column_id]
+            elem, lane = _LOADS[node.data_type]
+            load = f"((const {elem}*)V[{j}])[i]"
+            if elem != lane:
+                load = f"({lane}){load}"
+            c = self.val(lane, load, f"B[{j}][i]")
+            self._cols[node.column_id] = c
+        return c
+
+    def unary(self, node: E.UnaryExpr) -> _C:
+        op = node.op
+        c = self.emit(node.expr)
+        if op == "-":
+            v = self.to(c, _ctype_for_expr_type(node.type))
+            if v.ctype == "bool":
+                raise QueryError("unary minus of a boolean")
+            neg = f"ares_neg({v.v})" if v.ctype == "int" else f"(-{v.v})"
+            return _C(v.ctype, self.tmp(v.ctype, neg), v.b)
+        if op == "~":
+            v = self.to(c, "int")
+            return _C("int", self.tmp("int", f"(~{v.v})"), v.b)
+        if op == "NOT":
+            t = self.truthy(c)
+            return _C("bool", self.tmp("bool", f"(!{t.v})"), t.b)
+        if op == "IS_NULL":
+            return _C("bool", self.tmp("bool", f"(!{c.b})"), "true")
+        if op == "IS_NOT_NULL":
+            return _C("bool", c.b, "true")
+        if op == "IS_TRUE":
+            t = self.truthy(c)
+            return _C("bool", self.tmp("bool", f"({t.v} && {t.b})"), "true")
+        if op == "IS_FALSE":
+            t = self.truthy(c)
+            return _C("bool", self.tmp("bool", f"(!{t.v} && {t.b})"), "true")
+        raise QueryError(f"unsupported unary op {op!r} in fused kernel")
+
+    @staticmethod
+    def _common(a: _C, b: _C) -> str:
+        return "float" if "float" in (a.ctype, b.ctype) else "int"
+
+    def binary(self, node: E.BinaryExpr) -> _C:
+        op = node.op
+        if op in ("AND", "OR"):
+            l = self.truthy(self.emit(node.lhs))
+            r = self.truthy(self.emit(node.rhs))
+            if op == "AND":
+                return self.val("bool", f"({l.v} && {r.v})",
+                                f"({l.b} && {r.b})")
+            true_side = self.tmp("bool",
+                                 f"(({l.v} && {l.b}) || ({r.v} && {r.b}))")
+            return _C("bool", true_side,
+                      self.tmp("bool", f"({true_side} || ({l.b} && {r.b}))"))
+        if op in ("IN", "NOT IN"):
+            l = self.emit(node.lhs)
+            hits = "false"
+            for arg in node.rhs.args:
+                r = self.emit(arg)
+                dt = self._common(l, r)
+                hits = self.tmp("bool", f"({hits} || ({self.to(l, dt).v} == "
+                                        f"{self.to(r, dt).v}))")
+            if op == "NOT IN":
+                hits = self.tmp("bool", f"(!{hits})")
+            return _C("bool", hits, l.b)
+
+        l = self.emit(node.lhs)
+        r = self.emit(node.rhs)
+        valid = f"({l.b} && {r.b})"
+        cmp_ops = {"=": "==", "!=": "!=", "<>": "!=", "<": "<", "<=": "<=",
+                   ">": ">", ">=": ">="}
+        if op in cmp_ops:
+            dt = self._common(l, r)
+            a, b = self.to(l, dt).v, self.to(r, dt).v
+            return self.val("bool", f"({a} {cmp_ops[op]} {b})", valid)
+        if op == "/":
+            a, b = self.to(l, "float").v, self.to(r, "float").v
+            nz = self.tmp("bool", f"({b} != 0.0f)")
+            return self.val("float", f"({nz} ? {a} / {b} : 0.0f)",
+                            f"({valid} && {nz})")
+        if op in ("+", "-", "*", "%", "FLOOR"):
+            dt = _ctype_for_expr_type(node.type)
+            if dt == "bool":
+                dt = "int"
+            a, b = self.to(l, dt).v, self.to(r, dt).v
+            if op in ("+", "-", "*"):
+                if dt == "int":
+                    fn = {"+": "ares_add", "-": "ares_sub", "*": "ares_mul"}
+                    return self.val("int", f"{fn[op]}({a}, {b})", valid)
+                return self.val("float", f"({a} {op} {b})", valid)
+            nz = self.tmp("bool", f"({b} != 0)")
+            if dt == "int":
+                rem = f"ares_rem({a}, {b})"
+                out = rem if op == "%" else \
+                    f"({nz} ? ares_sub({a}, {rem}) : 0)"
+            else:
+                rem = f"({nz} ? fmodf({a}, {b}) : 0.0f)"
+                out = rem if op == "%" else \
+                    f"({nz} ? {a} - fmodf({a}, {b}) : 0.0f)"
+            return self.val(dt, out, f"({valid} && {nz})")
+        if op in ("&", "|", "^", "<<", ">>"):
+            a, b = self.to(l, "int").v, self.to(r, "int").v
+            if op == "<<":
+                return self.val("int", f"ares_shl({a}, {b})", valid)
+            if op == ">>":
+                return self.val("int", f"ares_shr({a}, {b})", valid)
+            return self.val("int", f"({a} {op} {b})", valid)
+        raise QueryError(f"unsupported binary op {op!r} in fused kernel")
+
+    def call(self, node: E.Call) -> _C:
+        name = node.name
+        if name == E.HOUR:
+            c = self.to(self.emit(node.args[0]), "int")
+            return _C("int", self.tmp(
+                "int", f"ares_floordiv(ares_floormod({c.v}, 86400), 3600)"),
+                c.b)
+        if name == E.DAY_OF_WEEK:
+            c = self.to(self.emit(node.args[0]), "int")
+            return _C("int", self.tmp(
+                "int", f"(ares_floormod(ares_add(ares_floordiv({c.v}, 86400),"
+                       f" 3), 7) + 1)"), c.b)
+        if name == E.CONVERT_TZ:
+            base = self.emit(node.args[0])
+            if len(node.args) < 2:
+                return base
+            off = self.to(self.emit(node.args[1]), "int")
+            base = self.to(base, "int")
+            return self.val("int", f"ares_add({base.v}, {off.v})",
+                            f"({base.b} && {off.b})")
+        if name == "__numeric_bucket":
+            c = self.to(self.emit(node.args[0]), "float")
+            w = _c_float(node.bucketizer.bucket_width)
+            return _C("float", self.tmp("float", f"(floorf({c.v} / {w}) * {w})"),
+                      c.b)
+        raise QueryError(f"unsupported function {name!r} in fused kernel")
+
+    def case(self, node: E.Case) -> _C:
+        dt = _ctype_for_expr_type(node.type)
+        if node.else_expr is not None:
+            out = self.to(self.emit(node.else_expr), dt)
+            value, valid = out.v, out.b
+        else:
+            value, valid = {"bool": "false", "int": "0",
+                            "float": "0.0f"}[dt], "false"
+        for cond, res in reversed(node.when_thens):
+            c = self.truthy(self.emit(cond))
+            r = self.to(self.emit(res), dt)
+            take = self.tmp("bool", f"({c.v} && {c.b})")
+            value = self.tmp(dt, f"({take} ? {r.v} : {value})")
+            valid = self.tmp("bool", f"({take} ? {r.b} : {valid})")
+        return _C(dt, value, valid)
+
+    def slot_lane(self, dims: List[_C], dense_plan) -> Tuple[str, str]:
+        """kernels.dense_slot_lane for affine domains."""
+        slot, bad = "0", "false"
+        for dv, dom, stride in zip(dims, dense_plan.domains,
+                                   dense_plan.strides):
+            v = dv
+            if v.ctype == "bool" or (v.ctype == "float"
+                                     and dom.post_div == 0.0):
+                v = self.to(v, "int")
+            if isinstance(dom.step, float) or isinstance(dom.base, float):
+                vf = self.to(v, "float").v
+                idxw = self.tmp("int", f"ares_f2i(rintf(({vf} - "
+                                       f"{_c_float(dom.base)}) / "
+                                       f"{_c_float(dom.step)}))")
+            else:
+                if dom.post_div:
+                    vf = self.to(v, "float").v
+                    v = _C("int", self.tmp("int", f"ares_f2i(rintf({vf} * "
+                                                  f"{_c_float(dom.post_div)}))"),
+                           v.b)
+                idxw = self.tmp("int", f"ares_floordiv(ares_sub({v.v}, "
+                                       f"{_c_int(dom.base)}), "
+                                       f"{max(dom.step, 1)})")
+            in_range = self.tmp("bool", f"({idxw} >= 0 && {idxw} < "
+                                        f"{dom.size})")
+            idx = self.tmp("int", f"({idxw} < 0 ? 0 : ({idxw} > {dom.size - 1}"
+                                  f" ? {dom.size - 1} : {idxw}))")
+            ok = f"({dv.b} && {in_range})"
+            bad = self.tmp("bool", f"({bad} || ({dv.b} && !{in_range}))")
+            slot = self.tmp("int", f"ares_add({slot}, ares_mul({ok} ? {idx} "
+                                   f"+ 1 : 0, {stride}))")
+        return slot, bad
+
+
+def emit_cuda(plan: CompiledQuery, dense_plan, spec: FusedSpec) -> str:
+    """The plan's kernel source: the fused template plus one generated
+    `ares_row` evaluating the plan's filters, dimensions and measure."""
+    em = _CEmitter(plan, spec)
+    keep = "true"
+    for f in plan.filters + plan.time_filter_expr:
+        t = em.truthy(em.emit(f))
+        keep = em.tmp("bool", f"({keep} && {t.v} && {t.b})")
+    dims = [em.emit(d.expr) for d in plan.dimensions]
+    m = em.to(em.emit(plan.measure.expr), "float")
+    slot, bad = em.slot_lane(dims, dense_plan)
+    body = "\n".join(em.lines)
+    return f"""// Generated by aresdb_tpu_torch.query.fused_dense.emit_cuda.
+#include "fused_dense_template.cuh"
+
+ARES_DEV void ares_row(const void* const* V, const bool* const* B,
+                       long long i, AresRow& r) {{
+{body}
+  r.keep = {keep};
+  r.bad = {bad};
+  r.slot = {slot};
+  r.mval = {m.v};
+  r.mvalid = {m.b};
+}}
+"""
+
+
+# ---------------------------------------------------------------------------
+# the kernel wrapper
+# ---------------------------------------------------------------------------
+
+class FusedDenseKernel:
+    """K1 for one plan, dense plan and padded batch size. Called with the
+    unfused dense kernel's ABI: fn(columns, n_valid, live_cutoff, acc) ->
+    ((agg, cnt, rows) folded into acc, overflow)."""
+
+    launches = 0  # kernel launches, all instances
+
+    def __init__(self, plan: CompiledQuery, n_rows: int, dense_plan,
+                 spec: FusedSpec, device: torch.device):
+        self.plan = plan
+        self.n_rows = n_rows
+        self.dense_plan = dense_plan
+        self.spec = spec
+        self.device = device
+        self._fn = None   # the built kernel's entry point, at first launch
+
+    def _lanes(self, columns):
+        return [columns[(0, cid)] for cid in self.spec.col_ids]
+
+    def reduce_plain(self, columns, n_valid: int, live_cutoff):
+        """Plain PyTorch version: (out float32 [3, n_slots], overflow)."""
+        lanes = self._lanes(columns)
+        device = lanes[0][0].device if lanes else self.device
+        ctx = K._EvalCtx(columns, self.n_rows, device)
+        mask, dim_vals = K._eval_common(self.plan, ctx, n_valid, live_cutoff)
+        mlane = K._measure_lane(self.plan, ctx)
+        slot, bad = K.dense_slot_lane(dim_vals, self.dense_plan, self.n_rows,
+                                      device)
+        keep = mask & ~bad
+        mvalid = mlane.valid & keep
+        stacked = torch.stack(
+            [torch.where(mvalid, mlane.value, torch.zeros_like(mlane.value)),
+             mvalid.to(torch.float32), keep.to(torch.float32)], dim=1)
+        dropped = torch.where(keep, slot, torch.full_like(slot, -1))
+        out = P.segment_sum_plain(dropped, stacked, self.spec.n_slots)
+        return out.t().contiguous(), (mask & bad).sum(dtype=torch.int32)
+
+    def reduce(self, columns, n_valid: int, live_cutoff):
+        """K1: (out float32 [3, n_slots], overflow int32 scalar tensor).
+        CPU tensors take the plain version; CUDA tensors launch the kernel
+        or raise."""
+        lanes = self._lanes(columns)
+        device = lanes[0][0].device if lanes else self.device
+        if device.type == "cpu":
+            return self.reduce_plain(columns, n_valid, live_cutoff)
+        if device.type != "cuda":
+            raise ValueError(f"fused_dense: unsupported device {device}")
+        for values, validity in lanes:
+            for t in (values, validity):
+                if t.device != device or not t.is_contiguous() or \
+                        t.shape[0] != self.n_rows:
+                    raise ValueError(
+                        f"fused_dense: lane {tuple(t.shape)} on {t.device} "
+                        f"(contiguous={t.is_contiguous()}) does not match "
+                        f"[{self.n_rows}] on {device}")
+        tptr = None
+        schema = self.plan.main_schema.table
+        if (live_cutoff is not None and schema.is_fact_table
+                and (0, 0) in columns):
+            tvals = columns[(0, 0)][0]
+            if tvals.dtype != torch.int32 or tvals.device != device:
+                raise ValueError("fused_dense: the time column must be a "
+                                 f"staged Uint32 lane on {device}")
+            tptr = tvals.data_ptr()
+        n_slots = self.spec.n_slots
+        out = torch.zeros((3, n_slots), dtype=torch.float32, device=device)
+        ovf = torch.zeros(1, dtype=torch.int32, device=device)
+        n_cols = len(lanes)
+        vals = (ctypes.c_void_p * max(n_cols, 1))(
+            *[v.data_ptr() for v, _ in lanes])
+        valids = (ctypes.c_void_p * max(n_cols, 1))(
+            *[b.data_ptr() for _, b in lanes])
+        if self._fn is None:
+            self._fn = _launcher(self.spec.source)
+        stream = torch.cuda.current_stream(device)
+        rc = self._fn(vals, valids, n_cols, self.n_rows, int(n_valid), tptr,
+                int(live_cutoff or 0), n_slots, out.data_ptr(),
+                ovf.data_ptr(), device.index or 0, stream.cuda_stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"fused_dense kernel launch failed: CUDA error {rc}")
+        FusedDenseKernel.launches += 1
+        return out, ovf[0]
+
+    def __call__(self, columns, n_valid: int, live_cutoff, acc):
+        out, overflow = self.reduce(columns, n_valid, live_cutoff)
+        return K.dense_fold_epilogue(self.plan.measure.agg, acc, out[0],
+                                     out[1], out[2], overflow)
+
+
+def _launcher(source: str):
+    fn = cuda_build.load_library("fused_dense", source).ares_fused_dense
+    if fn.argtypes is None:
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = [p, p, ctypes.c_int, ll, ll, p, ll, ctypes.c_int, p, p,
+                       ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def maybe_make_fused_kernel(plan: CompiledQuery, n_rows: int, dense_plan,
+                            device: torch.device):
+    if n_rows < FD_MIN_ROWS:
+        return None
+    spec = plan_fused(plan, dense_plan)
+    if spec is None:
+        return None
+    return FusedDenseKernel(plan, n_rows, dense_plan, spec, device)

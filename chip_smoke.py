@@ -1,0 +1,483 @@
+"""Smoke run of the PyTorch/CUDA port (`aresdb_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py [--rows N] [--seed S]
+
+Builds the port's hand-written CUDA kernels from `aresdb_tpu_torch/csrc/`,
+holds each against its plain PyTorch version on the card at the main
+path's shapes, then drives the main path end to end: N rows (default 32M,
+16 live batches of 2,097,152) of the demo trips table are ingested through
+the upsert wire format into a `TableShard`, and the headline dense
+group-by queries run through `QueryService.handle_aql` on `cuda`, checked
+against the same service on the CPU (the kernels' plain versions).
+
+Kernels and what they replace:
+  K1 fused_dense  (csrc/fused_dense_template.cuh, one row function emitted
+                   per plan) <- aresdb_tpu/query/fused_dense.py _make_kernel
+  K2 segment_sum  (csrc/segment_sum.cu)
+                   <- aresdb_tpu/query/pallas_ops.py _make_factored_pallas_kernel
+
+Prints the card's name and power limit, per-phase results, one
+`{"kernels": [...]}` line and, last, `{"ok": true, "device": {...}}`.
+Exits non-zero, with no result line, when there is no CUDA device or any
+check fails. Needs one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+BATCH_ROWS = 1 << 21          # the default live batch size (batchSize)
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
+F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
+# float sums: atomics add in another order than the plain version (and
+# the JAX package's own tolerance, tests/test_fused_dense.py); counts exact
+RTOL, ATOL = 2e-4, 1e-3
+K2_SLOTS = (13_338, 16_416, 65_536)   # Q1, Q2, and the global-memory branch
+GLOBAL_K1_CASE = "Q1 over 1,000 cities (global branch)"
+
+
+def q2_query(demo) -> dict:
+    """Q2: the headline query bucketed by day of month, which the fused
+    kernel does not take (calendar math needs int64 lanes)."""
+    q = json.loads(json.dumps(demo.DEMO_QUERY))
+    q["dimensions"][0]["timeBucketizer"] = "day of month"
+    return q
+
+
+def k1_cases(demo) -> dict:
+    """The plans K1 is checked on, each with the largest city id its dense
+    plan assumes: the main path's Q1, then the other forms the emitter
+    writes (avg with a post-division slot, count, CASE and IN, a numeric
+    bucket, arithmetic with % and NOT), Q1 over a city domain that the
+    data overflows, and Q1 over 1,000 cities, whose 26,650 slots do not
+    fit a block's shared memory (K1's global-atomic branch)."""
+    def q(measure, filters=(), dims=None):
+        out = json.loads(json.dumps(demo.DEMO_QUERY))
+        out["measures"] = [{"sqlExpression": measure,
+                            "rowFilters": list(filters)}]
+        if dims is not None:
+            out["dimensions"] = dims
+        return out
+
+    dow = [{"sqlExpression": "request_at", "timeBucketizer": "day of week"},
+           {"sqlExpression": "city_id"}]
+    bucket = [{"sqlExpression": "fare",
+               "numericBucketizer": {"bucketWidth": 5.0}}]
+    return {
+        "Q1 sum(fare) hour x city": (demo.DEMO_QUERY, 300),
+        "avg(fare) day-of-week x city": (q("avg(fare)", dims=dow), 300),
+        "count(*) hour x city": (q("count(*)"), 300),
+        "case and in": (q("sum(case when status='completed' then fare "
+                          "else 0 end)",
+                          ["status in ('completed', 'canceled')"]), 300),
+        "numeric bucket": (q("count(*)", dims=bucket), 300),
+        "arithmetic, % and NOT": (q("sum(fare * 2 - 7)",
+                                    ["city_id % 7 != 3",
+                                     "NOT (status = 'rejected')"]), 300),
+        "Q1 overflowing city domain": (demo.DEMO_QUERY, 100),
+        GLOBAL_K1_CASE: (demo.DEMO_QUERY, 1000),
+    }
+
+
+def k1_spec(demo, FD, plan_dense, query, city_max):
+    """(plan, dense plan, fused spec) of one K1 case."""
+    plan = demo.demo_plan(query)
+    stats = {(0, plan.main_schema.column_id("city_id")): (1, city_max),
+             (0, plan.main_schema.column_id("fare")): (0.0, 50.0)}
+    dp = plan_dense(plan, stats)
+    spec = FD.plan_fused(plan, dp)
+    if spec is None:
+        raise AssertionError(f"{query}: plan does not take K1")
+    return plan, dp, spec
+
+
+def wall_ms(fn, iters: int = 20) -> float:
+    """Mean milliseconds per call of fn() between CUDA events around iters
+    back-to-back calls, after a warm-up: the device time, or the host's
+    launch cost where that is larger."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_events(fn, iters: int):
+    """The CUDA activity (kernels, memsets, copies) of iters calls of fn(),
+    from a torch.profiler trace: a list of (name, microseconds)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call of fn(): the summed time of the
+    device work it ran, from the profiler. Raises where the profiler
+    records no device activity, so that `ms` is always device time."""
+    for _ in range(3):
+        fn()
+    total_us = sum(us for _, us in device_events(fn, iters))
+    if total_us <= 0:
+        raise RuntimeError("the profiler saw no device activity")
+    return total_us / iters / 1e3
+
+
+def bound_ms(nbytes: int, flops: int) -> tuple:
+    """(least time in ms, what bounds it) for moving nbytes and doing flops
+    float32 operations on the card."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                exact_rows=()) -> float:
+    """Raise unless got matches want: rows listed in exact_rows exactly,
+    the others within RTOL/ATOL. Returns the largest absolute error."""
+    g = got.double().cpu().numpy()
+    w = want.double().cpu().numpy()
+    if g.shape != w.shape or not np.all(np.isfinite(g)):
+        raise AssertionError(f"{name}: shape {g.shape} vs {w.shape} or "
+                             "non-finite values")
+    for r in exact_rows:
+        if not np.array_equal(g[r], w[r]):
+            raise AssertionError(f"{name}: channel {r} differs")
+    np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, err_msg=name)
+    return float(np.max(np.abs(g - w))) if g.size else 0.0
+
+
+def phase_k2(P, device, rng) -> dict:
+    """K2 against its plain version at n = one batch, C = 3."""
+    n, c = BATCH_ROWS, 3
+    results = {}
+    for n_slots in K2_SLOTS:
+        slots_np = rng.randint(-1, n_slots, n).astype(np.int32)
+        vals_np = np.stack([(rng.rand(n) * 50).astype(np.float32),
+                            (rng.rand(n) > 0.02).astype(np.float32),
+                            np.ones(n, np.float32)], axis=1)
+        slots = torch.from_numpy(slots_np).to(device)
+        vals = torch.from_numpy(vals_np).to(device)
+        got = P.segment_sum(slots, vals, n_slots)
+        want = P.segment_sum_plain(slots, vals, n_slots)
+        torch.cuda.synchronize()
+        err = check_close(f"K2 n_slots={n_slots}", got.t(), want.t(),
+                          exact_rows=(1, 2))
+        call = lambda: P.segment_sum(slots, vals, n_slots)  # noqa: E731
+        ms, call_ms = device_ms(call), wall_ms(call)
+        plain_ms = device_ms(lambda: P.segment_sum_plain(slots, vals,
+                                                         n_slots))
+        idx = torch.where(slots < 0, torch.full_like(slots, n_slots),
+                          slots).long()
+        lib_out = torch.zeros((n_slots + 1, c), device=device)
+        library_ms = device_ms(lambda: lib_out.index_add_(0, idx, vals))
+        b_ms, b_by = bound_ms(n * (4 + 4 * c) + n_slots * c * 4, n * c)
+        results[n_slots] = dict(max_abs_err=err, ms=ms, wall_ms=call_ms,
+                                plain_ms=plain_ms, library_ms=library_ms,
+                                bound_ms=b_ms, bound_by=b_by)
+        print(f"K2 segment_sum n={n} C={c} n_slots={n_slots}: ok, "
+              f"max_abs_err={err:.3g} device ms={ms:.4f} (per call "
+              f"{call_ms:.4f}) plain_ms={plain_ms:.4f} "
+              f"index_add_ms={library_ms:.4f} bound_ms={b_ms:.4f}",
+              flush=True)
+    return results
+
+
+def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
+             device) -> dict:
+    """K1 against its plain version at n = one batch for each plan; the
+    1,000-city case must take the global-atomic branch, the others the
+    shared-memory histogram."""
+    n = BATCH_ROWS
+    results = {}
+    for name, (query, city_max) in k1_cases(demo).items():
+        plan, dp, spec = k1_spec(demo, FD, plan_dense, query, city_max)
+        smem = cuda_build.load_library("fused_dense", spec.source) \
+            .ares_fused_dense_smem(spec.n_slots, device.index or 0)
+        if (smem == 0) != (name == GLOBAL_K1_CASE):
+            raise AssertionError(f"K1 {name}: {spec.n_slots} slots take "
+                                 f"{smem} B of shared memory")
+        cols_np, _ = demo.demo_columns(plan, n, seed=3,
+                                       n_cities=max(city_max, 300))
+        kern = FD.FusedDenseKernel(plan, n, dp, spec, device)
+        columns = columns_from_numpy(cols_np, n, device)
+        n_valid = n - 777
+        cutoff = demo.DEMO_NOW - 15 * 3600
+        got, got_ovf = kern.reduce(columns, n_valid, cutoff)
+        want, want_ovf = kern.reduce_plain(columns, n_valid, cutoff)
+        torch.cuda.synchronize()
+        if int(got_ovf) != int(want_ovf) or \
+                (city_max < 300) != (int(want_ovf) > 0):
+            raise AssertionError(f"{name}: overflow {int(got_ovf)} vs "
+                                 f"{int(want_ovf)}")
+        err = check_close(f"K1 {name}", got, want, exact_rows=(1, 2))
+        rows_in = int(want[2].sum().item())
+        call = lambda: kern.reduce(columns, n_valid, cutoff)  # noqa: E731
+        ms, call_ms = device_ms(call), wall_ms(call)
+        plain_ms = device_ms(lambda: kern.reduce_plain(columns, n_valid,
+                                                       cutoff))
+        nbytes = sum(columns[(0, cid)][0].element_size() * n + n
+                     for cid in spec.col_ids)
+        if 0 not in spec.col_ids:
+            nbytes += 4 * n      # the time column read for the cutoff
+        nbytes += 3 * spec.n_slots * 4
+        b_ms, b_by = bound_ms(nbytes, 3 * n)
+        results[name] = dict(n_slots=spec.n_slots, max_abs_err=err, ms=ms,
+                             wall_ms=call_ms, plain_ms=plain_ms,
+                             library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        print(f"K1 fused_dense {name}: n={n} n_slots={spec.n_slots} "
+              f"shared histogram bytes={smem} ok, "
+              f"rows kept={rows_in} overflow={int(got_ovf)} "
+              f"max_abs_err={err:.3g} device ms={ms:.4f} (per call "
+              f"{call_ms:.4f}) plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f}", flush=True)
+    return results
+
+
+class Store:
+    """The store protocol ShardExecutor uses: schemas and table shards."""
+
+    def __init__(self, schemas, shards):
+        self.schemas = schemas
+        self.shards = shards
+
+    def get_schemas(self):
+        return dict(self.schemas)
+
+    def get_table_shard(self, name, shard_id=0):
+        return self.shards[(name, shard_id)]
+
+
+def ingest_trips(n_rows: int, seed: int) -> tuple:
+    """A trips TableShard holding n_rows demo rows, ingested through the
+    upsert wire format in batch-sized upserts. Returns (store, seconds)."""
+    from aresdb_tpu_torch import demo
+    from aresdb_tpu_torch.common import data_types as mdt
+    from aresdb_tpu_torch.common.schema import Table, TableSchema
+    from aresdb_tpu_torch.common.upsert_batch import (UpsertBatch,
+                                                      build_columnar_upsert)
+    from aresdb_tpu_torch.memstore.table_shard import TableShard
+
+    schema_json = dict(demo.TRIPS_SCHEMA_JSON)
+    # rows are timed at DEMO_NOW (2020): the default 90-day retention
+    # would drop every one of them
+    schema_json["config"] = {"batchSize": BATCH_ROWS,
+                             "recordRetentionInDays": 0}
+    ts = TableSchema(Table.from_json(schema_json))
+    ts.extend_enum("status", ["completed", "canceled", "rejected"])
+    shard = TableShard(ts)
+    rng = np.random.RandomState(seed)
+    t0 = time.perf_counter()
+    for lo in range(0, n_rows, BATCH_ROWS):
+        n = min(BATCH_ROWS, n_rows - lo)
+        keys = np.arange(lo + 1, lo + n + 1, dtype=np.uint64)
+        cols = [
+            (0, mdt.Uint32, (demo.DEMO_NOW - rng.randint(0, 20 * 3600, n))
+             .astype(np.uint32), None, 0),
+            (1, mdt.UUID, np.stack([keys, keys * np.uint64(2654435761)], 1),
+             None, 0),
+            (2, mdt.Uint16, rng.randint(1, 301, n).astype(np.uint16),
+             rng.rand(n) > 0.02, 0),
+            (3, mdt.SmallEnum, rng.randint(0, 3, n).astype(np.uint8),
+             rng.rand(n) > 0.02, 0),
+            (4, mdt.Float32, (rng.rand(n) * 50).astype(np.float32),
+             rng.rand(n) > 0.02, 0),
+        ]
+        shard.save_upsert_batch(UpsertBatch(build_columnar_upsert(cols, n)))
+    secs = time.perf_counter() - t0
+    return Store({"trips": ts}, {("trips", 0): shard}), secs
+
+
+def flatten(result, prefix=()) -> dict:
+    """{(dim values...): measure} of one AQL result."""
+    out = {}
+    for k, v in result.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def same_result(name: str, got: dict, want: dict) -> None:
+    """Keys exact, measures within RTOL/ATOL."""
+    g, w = flatten(got), flatten(want)
+    if set(g) != set(w):
+        raise AssertionError(f"{name}: group keys differ "
+                             f"({len(g)} vs {len(w)} groups)")
+    keys = sorted(w)
+    gv = np.array([np.nan if g[k] is None else g[k] for k in keys], float)
+    wv = np.array([np.nan if w[k] is None else w[k] for k in keys], float)
+    np.testing.assert_allclose(gv, wv, rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def phase_e2e(n_rows: int, seed: int, warm: int = 5) -> dict:
+    """Ingest, then Q1 and Q2 through QueryService on cuda (cold + warm
+    runs) against the CPU service; returns each kernel's launches in the
+    cuda runs."""
+    from aresdb_tpu_torch import demo
+    from aresdb_tpu_torch.query import fused_dense as FD
+    from aresdb_tpu_torch.query import pallas_ops as P
+    from aresdb_tpu_torch.query.executor import GLOBAL_DEVICE_CACHE
+    from aresdb_tpu_torch.query.kernels import round_up_pow2
+    from aresdb_tpu_torch.query.service import QueryService
+
+    store, ingest_s = ingest_trips(n_rows, seed)
+    batch_rows = [min(BATCH_ROWS, n_rows - lo)
+                  for lo in range(0, n_rows, BATCH_ROWS)]
+    # K1 takes Q1's batches of at least FD_MIN_ROWS padded rows, K2 the rest
+    q1_k1 = sum(round_up_pow2(r) >= FD.FD_MIN_ROWS for r in batch_rows)
+    print(f"ingest: {n_rows} rows in {len(batch_rows)} batches, "
+          f"{ingest_s:.3f} s, {n_rows / ingest_s:.0f} rows/s", flush=True)
+
+    gpu = QueryService(store)
+    cpu = QueryService(store, device="cpu")
+    queries = {"Q1": demo.DEMO_QUERY, "Q2": q2_query(demo)}
+    answers, warm_ms, stages = {}, {}, {}
+    FD.FusedDenseKernel.launches = 0
+    P.segment_sum.launches = 0
+    for name, q in queries.items():
+        k1_0, k2_0 = FD.FusedDenseKernel.launches, P.segment_sum.launches
+        times = []
+        for i in range(1 + warm):
+            t0 = time.perf_counter()
+            # the last run also returns the executor's per-stage seconds
+            resp = gpu.handle_aql({"queries": [q], "verbose": i == warm})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if "errors" in resp:
+                raise AssertionError(f"{name}: {resp['errors']}")
+            answers[name] = resp["results"][0]
+        stages[name] = resp["context"][0]
+        k1 = FD.FusedDenseKernel.launches - k1_0
+        k2 = P.segment_sum.launches - k2_0
+        runs = 1 + warm
+        want = (runs * q1_k1, runs * (len(batch_rows) - q1_k1)) \
+            if name == "Q1" else (0, runs * len(batch_rows))
+        if (k1, k2) != want:
+            raise AssertionError(f"{name}: K1/K2 launches {(k1, k2)}, "
+                                 f"expected {want}")
+        warm_ms[name] = 1e3 * float(np.median(times[1:]))
+        print(f"{name}: cold {1e3 * times[0]:.3f} ms, warm median "
+              f"{warm_ms[name]:.3f} ms "
+              f"({n_rows / warm_ms[name] * 1e3:.0f} rows/s), "
+              f"{len(flatten(answers[name]))} groups, launches K1={k1} "
+              f"K2={k2}", flush=True)
+        print(f"{name} last warm run, seconds by stage: "
+              + ", ".join(f"{k}={v:.6f}" for k, v in stages[name].items()
+                          if isinstance(v, float)), flush=True)
+    launches = {"fused_dense": FD.FusedDenseKernel.launches,
+                "segment_sum": P.segment_sum.launches}
+    for name, q in queries.items():
+        t0 = time.perf_counter()
+        events = device_events(lambda: gpu.handle_aql({"queries": [q]}), 1)
+        wall = 1e3 * (time.perf_counter() - t0)
+        busy = sum(us for _, us in events) / 1e3
+        by_name = {}
+        for ev_name, us in events:
+            by_name[ev_name] = by_name.get(ev_name, 0.0) + us / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"{name} warm run under the profiler: wall {wall:.3f} ms, "
+              f"device busy {busy:.3f} ms = "
+              f"{100 * busy / warm_ms[name]:.1f}% of the unprofiled warm "
+              f"median, {len(events)} device ops; top: "
+              + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top),
+              flush=True)
+    print(f"device column cache: {GLOBAL_DEVICE_CACHE.stats()}", flush=True)
+
+    for name, q in queries.items():
+        t0 = time.perf_counter()
+        resp = cpu.handle_aql({"queries": [q]})
+        if "errors" in resp:
+            raise AssertionError(f"{name} on cpu: {resp['errors']}")
+        same_result(name, answers[name], resp["results"][0])
+        print(f"{name}: cuda result matches the cpu run "
+              f"({time.perf_counter() - t0:.1f} s on the cpu)", flush=True)
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=16 * BATCH_ROWS)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+
+    from aresdb_tpu_torch import demo
+    from aresdb_tpu_torch.query import fused_dense as FD
+    from aresdb_tpu_torch.query import pallas_ops as P
+    from aresdb_tpu_torch.query.dense import plan_dense
+    from aresdb_tpu_torch.query.executor import columns_from_numpy
+    from aresdb_tpu_torch.utils import cuda_build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+    device = torch.device("cuda")
+
+    # build every kernel of the path at once, one nvcc per source
+    sources = [("segment_sum", cuda_build.csrc_text(P.SOURCE), "nvcc")]
+    for query, city_max in k1_cases(demo).values():
+        spec = k1_spec(demo, FD, plan_dense, query, city_max)[2]
+        sources.append(("fused_dense", spec.source, "nvcc"))
+    build_s = cuda_build.build_all(sources)
+    print(f"built {len(sources)} kernel libraries in {build_s:.1f} s",
+          flush=True)
+
+    rng = np.random.RandomState(args.seed)
+    k2 = phase_k2(P, device, rng)
+    k1 = phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
+                  device)
+    launches = phase_e2e(args.rows, args.seed)
+
+    k1_main = k1["Q1 sum(fare) hour x city"]
+    k2_main = k2[16_416]
+    kernels = [
+        {"name": "fused_dense", "route": "cuda",
+         "source": "aresdb_tpu_torch/csrc/fused_dense_template.cuh",
+         "replaces": "aresdb_tpu/query/fused_dense.py:286",
+         "launches": launches["fused_dense"],
+         **{k: k1_main[k] for k in ("max_abs_err", "ms", "wall_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}},
+        {"name": "segment_sum", "route": "cuda",
+         "source": "aresdb_tpu_torch/csrc/segment_sum.cu",
+         "replaces": "aresdb_tpu/query/pallas_ops.py:308",
+         "launches": launches["segment_sum"],
+         **{k: k2_main[k] for k in ("max_abs_err", "ms", "wall_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,196 @@
+"""K1, the fused dense group-by kernel, against the JAX package.
+
+`FusedDenseKernel.reduce` on CPU tensors takes the plain PyTorch version
+(torch expression emitter, dense slot lane, K2's plain version). It is
+held against the Pallas kernel `make_fused_dense_kernel` run in interpret
+mode, over the query matrix of tests/test_fused_dense.py, on the same
+numpy columns.
+
+The CUDA kernel's per-plan row function (`fused_dense.emit_cuda`) also
+compiles with the host C++ compiler; a small ctypes harness runs it over
+the staged lanes, and its per-row keep mask, out-of-domain flag, slot and
+measure must equal the torch emitter's. That is the check of K1's logic
+that runs without a GPU.
+
+Tolerances are the JAX package's: counts, row totals and overflow exact,
+float sums within rtol=2e-4, atol=1e-3.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from aresdb_tpu import demo as JD
+from aresdb_tpu.query import fused_dense as JFD
+from aresdb_tpu.query import kernels as JK
+from aresdb_tpu.query.dense import plan_dense as j_plan_dense
+from aresdb_tpu_torch import demo as TD
+from aresdb_tpu_torch.query import fused_dense as FD
+from aresdb_tpu_torch.query import kernels as K
+from aresdb_tpu_torch.query.dense import plan_dense
+from aresdb_tpu_torch.query.executor import columns_from_numpy
+from aresdb_tpu_torch.utils import cuda_build
+
+N_ROWS = 4096
+RTOL, ATOL = 2e-4, 1e-3
+CPU = torch.device("cpu")
+
+
+def _q(**changes):
+    q = json.loads(json.dumps(JD.DEMO_QUERY))
+    q.update(changes)
+    return q
+
+
+def _dims(first_bucket):
+    return [{"sqlExpression": "request_at", "timeBucketizer": first_bucket},
+            {"sqlExpression": "city_id"}]
+
+
+# name -> (query, seed, n_valid, cutoff, n_cities, city stat override)
+CASES = {
+    "headline": (JD.DEMO_QUERY, 3, None, 0, 40, None),
+    "avg_null_measures": (_q(measures=[{"sqlExpression": "avg(fare)"}]),
+                          11, None, 0, 40, None),
+    "count_no_filters": (_q(measures=[{"sqlExpression": "count(*)"}]),
+                         3, None, 0, 40, None),
+    "partial_n_valid_and_cutoff": (JD.DEMO_QUERY, 3, N_ROWS - 777,
+                                   JD.DEMO_NOW - 5 * 3600, 40, None),
+    "case_and_in_filter": (_q(measures=[{
+        "sqlExpression":
+            "sum(case when status='completed' then fare else 0 end)",
+        "rowFilters": ["status in ('completed', 'canceled')"]}]),
+        3, None, 0, 40, None),
+    "single_dim_city": (_q(dimensions=[{"sqlExpression": "city_id"}]),
+                        3, None, 0, 40, None),
+    "numeric_bucket_dim": (_q(dimensions=[{
+        "sqlExpression": "fare", "numericBucketizer": {"bucketWidth": 5.0}}]),
+        3, None, 0, 40, None),
+    "avg_day_of_week": (_q(measures=[{"sqlExpression": "avg(fare)"}],
+                           dimensions=_dims("day of week")),
+                        5, None, 0, 300, None),
+    "arithmetic_and_modulo": (_q(measures=[{
+        "sqlExpression": "sum(fare * 2 - 7)",
+        "rowFilters": ["city_id % 7 != 3", "NOT (status = 'rejected')"]}]),
+        9, None, 0, 40, None),
+    "overflow_rows_counted": (JD.DEMO_QUERY, 3, None, 0, 60, (0, 20)),
+}
+
+
+def _setup(name):
+    query, seed, n_valid, cutoff, n_cities, city_stat = CASES[name]
+    jplan = JD.demo_plan(query)
+    tplan = TD.demo_plan(query)
+    cols_np, _ = JD.demo_columns(jplan, N_ROWS, seed=seed, n_cities=n_cities)
+    stats = {}
+    city_key = (0, jplan.main_schema.column_id("city_id"))
+    if city_key in cols_np:
+        stats[city_key] = city_stat or (0, int(cols_np[city_key][0].max()))
+    fare_key = (0, jplan.main_schema.column_id("fare"))
+    if fare_key in cols_np:
+        fv = cols_np[fare_key][0]
+        stats[fare_key] = (float(fv.min()), float(fv.max()))
+    jdp, tdp = j_plan_dense(jplan, stats), plan_dense(tplan, stats)
+    assert jdp is not None and tdp is not None
+    assert jdp.n_slots == tdp.n_slots
+    jspec, tspec = JFD.plan_fused(jplan, jdp), FD.plan_fused(tplan, tdp)
+    assert jspec is not None and tspec is not None
+    assert tspec.col_ids == jspec.col_ids
+    nv = N_ROWS if n_valid is None else n_valid
+    return (jplan, jdp, jspec, tplan, tdp, tspec, cols_np, nv, cutoff)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_k1_matches_pallas_kernel(name, monkeypatch):
+    monkeypatch.setenv("ARES_FUSED", "interp")
+    import jax.numpy as jnp
+
+    (jplan, jdp, jspec, tplan, tdp, tspec, cols_np, nv,
+     cutoff) = _setup(name)
+    jcols = {k: (jnp.asarray(v), jnp.asarray(b))
+             for k, (v, b) in cols_np.items()}
+    jfn = JFD.make_fused_dense_kernel(jplan, N_ROWS, jdp, jspec,
+                                      interpret=True)
+    ja, jc, jr, jo = [np.asarray(x) for x in JK.run_dense_kernel(
+        jfn, jplan, jdp.n_slots, jcols, (), np.int32(nv), np.int64(cutoff))]
+
+    kern = FD.FusedDenseKernel(tplan, N_ROWS, tdp, tspec, CPU)
+    tcols = columns_from_numpy(cols_np, N_ROWS, CPU)
+    ta, tc, tr, to = [x.numpy() for x in K.run_dense_kernel(
+        kern, tplan, tdp.n_slots, tcols, nv, cutoff, CPU)]
+
+    np.testing.assert_array_equal(tc, jc)
+    np.testing.assert_array_equal(tr, jr)
+    assert int(to) == int(jo)
+    np.testing.assert_allclose(ta, ja, rtol=RTOL, atol=ATOL)
+    if name == "overflow_rows_counted":
+        assert int(to) > 0
+    else:
+        assert tr.sum() > 0
+
+
+@pytest.fixture(scope="module")
+def gxx_build_dir(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.fail("the host C++ compiler g++ is required for this test")
+    return tmp_path_factory.mktemp("fused_rows")
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_emitted_row_function_matches_torch_emitter(name, gxx_build_dir):
+    _, _, _, tplan, tdp, tspec, cols_np, _, _ = _setup(name)
+    cols = columns_from_numpy(cols_np, N_ROWS, CPU)
+    lib = cuda_build.load_library("fused_rows", tspec.source, "g++",
+                                  gxx_build_dir)
+    fn = lib.ares_rows_host
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, ctypes.c_longlong, p, p, p, p, p]
+    fn.restype = None
+    lanes = [cols[(0, cid)] for cid in tspec.col_ids]
+    vals = (p * len(lanes))(*[v.data_ptr() for v, _ in lanes])
+    valids = (p * len(lanes))(*[b.data_ptr() for _, b in lanes])
+    keep = np.zeros(N_ROWS, np.uint8)
+    bad = np.zeros(N_ROWS, np.uint8)
+    slot = np.zeros(N_ROWS, np.int32)
+    mval = np.zeros(N_ROWS, np.float32)
+    mvalid = np.zeros(N_ROWS, np.uint8)
+    fn(vals, valids, N_ROWS, keep.ctypes.data, bad.ctypes.data,
+       slot.ctypes.data, mval.ctypes.data, mvalid.ctypes.data)
+
+    ctx = K._EvalCtx(cols, N_ROWS, CPU)
+    mask, dim_vals = K._eval_common(tplan, ctx, N_ROWS, None)
+    want_slot, want_bad = K.dense_slot_lane(dim_vals, tdp, N_ROWS, CPU)
+    mlane = K._measure_lane(tplan, ctx)
+    np.testing.assert_array_equal(keep.astype(bool), mask.numpy())
+    np.testing.assert_array_equal(bad.astype(bool), want_bad.numpy())
+    np.testing.assert_array_equal(slot, want_slot.numpy())
+    np.testing.assert_array_equal(mvalid.astype(bool), mlane.valid.numpy())
+    np.testing.assert_array_equal(mval, mlane.value.numpy())
+    assert keep.any() and not keep.all() or name == "count_no_filters"
+
+
+def test_plan_fused_keeps_the_jax_eligibility_rules():
+    # calendar ops need int64 lanes and stay off K1 in both packages
+    q = _q(dimensions=_dims("day of month"))
+    tplan = TD.demo_plan(q)
+    jplan = JD.demo_plan(q)
+    stats = {(0, tplan.main_schema.column_id("city_id")): (0, 40)}
+    assert FD.plan_fused(tplan, plan_dense(tplan, stats)) is None
+    assert JFD.plan_fused(jplan, j_plan_dense(jplan, stats)) is None
+
+
+def test_batches_below_fd_min_rows_stay_on_the_unfused_kernel():
+    plan = TD.demo_plan(JD.DEMO_QUERY)
+    dp = plan_dense(plan, {(0, plan.main_schema.column_id("city_id")):
+                           (0, 40)})
+    assert FD.FD_MIN_ROWS == JFD.FD_MIN_ROWS
+    small = K.make_dense_agg_kernel(plan, FD.FD_MIN_ROWS // 2, dp, CPU)
+    big = K.make_dense_agg_kernel(plan, FD.FD_MIN_ROWS, dp, CPU)
+    assert not isinstance(small, FD.FusedDenseKernel)
+    assert isinstance(big, FD.FusedDenseKernel)

@@ -1,0 +1,86 @@
+"""The PyTorch port (`aresdb_tpu_torch`) stands alone.
+
+It imports neither JAX nor the JAX package, its entry points default to
+the GPU and refuse to fall back to the CPU silently, and its kernel
+wrappers take their plain versions only for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from aresdb_tpu_torch.query import pallas_ops as P
+from aresdb_tpu_torch.utils.torch_env import resolve_device
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "aresdb_tpu_torch"
+
+_IMPORT_ALL = """
+import importlib, pathlib, sys
+names = sorted(".".join(p.with_suffix("").parts).replace(".__init__", "")
+               for p in pathlib.Path("aresdb_tpu_torch").rglob("*.py"))
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = [n for n in sys.modules
+       if n == "jax" or n.startswith("jax.")
+       or n == "aresdb_tpu" or n.startswith("aresdb_tpu.")]
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20   # every module was imported
+
+
+_FORBIDDEN = (re.compile(r"\bimport jax\b|\bfrom jax\b"),
+              re.compile(r"(from|import) aresdb_tpu(\.|\s)"))
+
+
+def _port_files():
+    files = [p for p in sorted(PORT.rglob("*"))
+             if p.suffix in (".py", ".cu", ".cuh", ".cpp")
+             and "build" not in p.relative_to(PORT).parts]
+    return files + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_file_imports_jax_or_the_jax_package(path):
+    text = path.read_text()
+    for pattern in _FORBIDDEN:
+        hit = pattern.search(text)
+        assert hit is None, f"{path}: {hit.group(0)!r}"
+
+
+def test_resolve_device_defaults_to_cuda_and_cpu_only_when_asked():
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_query_service_defaults_to_cuda():
+    from aresdb_tpu_torch.query.service import QueryService
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        QueryService(None)
+
+
+def test_kernel_wrapper_refuses_a_tensor_that_is_neither_cpu_nor_cuda():
+    slots = torch.zeros(8, dtype=torch.int32, device="meta")
+    values = torch.zeros((8, 3), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        P.segment_sum(slots, values, 16)
