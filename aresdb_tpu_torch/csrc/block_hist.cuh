@@ -1,4 +1,4 @@
-// Slot histograms for the dense group-by reductions (K1, K2).
+// Slot histograms for the dense group-by reductions (K1, K2, K3).
 //
 // A block keeps a private float histogram of n_slots x C bins in dynamic
 // shared memory, updated with shared-memory atomicAdd, and flushes its

@@ -1,16 +1,24 @@
-"""Query executor, dense group-by path: batch loop over a shard's live
-batches, device staging, dense kernels, one fetch, exact host merge.
+"""Query executor, group-by paths: batch loop over a shard's live batches,
+device staging, dense or keyed kernels, few fetches, exact host merge.
 
-Port of the dense path of `aresdb_tpu/query/executor.py`. Each batch
-runs one dense kernel (K1, or the unfused kernel over K2) whose per-slot
-table folds into a device-resident float64 accumulator; after the last
-batch ONE device-to-host copy brings back every batch's overflow count and
-every accumulator (`_resolve_pending`), and GroupTable merges them exactly.
+Port of the dense and the keyed (sort) paths of
+`aresdb_tpu/query/executor.py`:
+- A batch whose dimensions all have a bounded domain runs one dense
+  kernel (K1, or the unfused kernel over K2, K3 or a scatter) whose
+  per-slot table folds into a device-resident float64 accumulator. After
+  the last batch ONE device-to-host copy brings back every batch's
+  overflow count and every accumulator (`_resolve_pending`); a batch that
+  overflowed its planned domain reruns on the sort path.
+- Any other batch runs the keyed kernel (`kernels.make_agg_kernel`) at a
+  group capacity K from the per-plan hint. `_resolve_sort_pending`
+  fetches the group counts, reruns batches whose groups outgrew K on the
+  capacity ladder, merges the partial tables on the device by key, and
+  fetches one merged table.
+GroupTable merges the piles exactly on the host.
 
-What is not ported yet raises QueryError, never a wrong answer: plans that
-are not dense (the sort path), batches that overflow their planned domain
-(they rerun on the sort path in the JAX package), non-aggregate queries,
-HLL, joins, geo, array columns and archive batches.
+What is not ported yet raises QueryError, never a wrong answer:
+non-aggregate queries, HLL, joins, geo, array columns, archive batches,
+and the JAX package's mesh and run-length batches.
 """
 
 from __future__ import annotations
@@ -25,14 +33,21 @@ import torch
 
 from aresdb_tpu_torch.common import data_types as mdt
 from aresdb_tpu_torch.query import expr as E
+from aresdb_tpu_torch.query import kernels as K
 from aresdb_tpu_torch.query.compiler import CompiledQuery, QueryError
 from aresdb_tpu_torch.query.dense import _underlying_column_key, plan_dense
 from aresdb_tpu_torch.query.kernels import (
-    KernelCache, _packing_type, dense_acc_init, dense_signature,
-    np_pack_dim_keys, pack_modes, round_up_pow2)
+    SENTINEL, SENTINEL64, KernelCache, _packing_type, dense_acc_init,
+    dense_signature, np_pack_dim_keys, pack_modes, plan_signature,
+    round_up_pow2)
 from aresdb_tpu_torch.utils import metrics as M
+from aresdb_tpu_torch.utils.torch_env import fetch_to_host
 
 DEVICE_CACHE_BYTES = 4 << 30  # device residency budget for staged columns
+DEFAULT_GROUP_CAPACITY = 4096
+MAX_GROUP_CAPACITY = 1 << 22
+SMALL_K_FULL_FETCH = 4096  # sort tables at/below this capacity fetch whole
+                           # with their group counts (one copy)
 
 
 def not_ported(what: str, path: str = "") -> QueryError:
@@ -95,16 +110,20 @@ class GroupTable:
     """Exact merge of per-batch partial aggregates, finalized COLUMNAR.
 
     Dense slot tables accumulate per slot space and decode at finalize();
-    piles from different slot spaces (batches whose stats gave different
-    domains) merge on the canonical u64 group key (np_pack_dim_keys).
-    sum/count/avg add, min/min, max/max. Copied from the JAX package
-    (dense piles only; keyed piles come with the sort path).
+    keyed tables (the sort path) arrive as piles of live groups. Piles
+    merge on the canonical u64 group key (np_pack_dim_keys for dense
+    piles), or by dim values where the key pack is inexact
+    (_finalize_dict). sum/count/avg add, min/min, max/max. Copied from
+    the JAX package, without its HLL registers.
     """
 
     def __init__(self, plan: CompiledQuery):
         self.plan = plan
         # dense_sig -> [dense_plan, agg_array, cnt_array, rows_array]
         self._dense_acc: Dict[tuple, list] = {}
+        # keyed piles: (gkeys, agg, cnt, dim_values, dim_valids), each
+        # sliced to its live groups
+        self._keyed_acc: list = []
         self.n_groups = 0
         self.dim_values: List[np.ndarray] = []
         self.dim_valids: List[np.ndarray] = []
@@ -129,6 +148,18 @@ class GroupTable:
         acc[2] += cnt
         acc[3] += rows
 
+    def merge_keyed(self, gkeys, slot_used, agg, cnt, dim_values,
+                    dim_valids):
+        """Accumulate one keyed group table (u64 keys on the host)."""
+        sel = np.asarray(slot_used).astype(bool)
+        if not sel.any():
+            return
+        self._keyed_acc.append((
+            np.asarray(gkeys)[sel], np.asarray(agg)[sel],
+            np.asarray(cnt)[sel],
+            [np.asarray(v)[sel] for v in dim_values],
+            [np.asarray(b)[sel] for b in dim_valids]))
+
     def _dense_piles(self) -> list:
         piles = []
         for dense_plan, aggv, cnt, rows in self._dense_acc.values():
@@ -144,7 +175,8 @@ class GroupTable:
 
     def finalize(self) -> None:
         """Merge all piles into the final columnar group table."""
-        piles = self._dense_piles()
+        piles = self._keyed_acc + self._dense_piles()
+        self._keyed_acc = []
         if not piles:
             self._set_empty()
             return
@@ -152,11 +184,16 @@ class GroupTable:
             # cross-pile merge needs canonical keys for every pile
             ptypes = [_packing_type(d) for d in self.plan.dimensions]
             exact, _ = pack_modes(ptypes)
-            if not exact:
-                raise not_ported("merging dense piles of inexact key packs is")
-            keyed = [(np_pack_dim_keys(dvals, dvalids, ptypes), agg, cnt,
-                      dvals, dvalids)
-                     for _, agg, cnt, dvals, dvalids in piles]
+            keyed = []
+            for keys, agg, cnt, dvals, dvalids in piles:
+                if keys is None:
+                    if not exact:
+                        # an inexact pack (UUID, > 63 bits of dims) mixed
+                        # with a dense pile: merge by dim values
+                        self._finalize_dict(piles)
+                        return
+                    keys = np_pack_dim_keys(dvals, dvalids, ptypes)
+                keyed.append((keys, agg, cnt, dvals, dvalids))
             piles = [self._merge_piles(keyed)]
         keys, aggs, cnts, dvals, dvalids = piles[0]
         if aggs.dtype.kind == "f":
@@ -210,25 +247,67 @@ class GroupTable:
             dim_valids.append(valids[first])
         return uniq, m_agg, m_cnt, dim_values, dim_valids
 
+    def _finalize_dict(self, piles) -> None:
+        """Exact merge keyed by dim values, for piles that cannot all give
+        canonical u64 keys (inexact packs mixed with dense piles). Costs
+        Python per group; this shape is rare."""
+        agg_kind = self.plan.measure.agg
+        groups: Dict[tuple, list] = {}
+        for _, agg, cnt, dim_values, dim_valids in piles:
+            dvals = [[tuple(x) for x in dv.tolist()] if dv.ndim > 1
+                     else dv.tolist() for dv in dim_values]
+            dvalids = [np.asarray(bv).astype(bool).tolist()
+                       for bv in dim_valids]
+            aggs = agg.tolist()
+            cnts = np.asarray(cnt).tolist()
+            rng = range(len(dvals))
+            for j in range(len(cnts)):
+                dvalid = tuple(dvalids[i][j] for i in rng)
+                dims = tuple(dvals[i][j] for i in rng)
+                k = tuple((valid, value if valid else None)
+                          for valid, value in zip(dvalid, dims))
+                entry = groups.get(k)
+                if entry is None:
+                    groups[k] = [dims, dvalid, aggs[j], int(cnts[j])]
+                    continue
+                if agg_kind in ("sum", "count", "avg"):
+                    entry[2] += aggs[j]
+                elif agg_kind == "min":
+                    entry[2] = min(entry[2], aggs[j])
+                else:
+                    entry[2] = max(entry[2], aggs[j])
+                entry[3] += int(cnts[j])
+        entries = list(groups.values())
+        self.n_groups = len(entries)
+        self.dim_values = [np.asarray([e[0][d] for e in entries])
+                           for d in range(len(self.plan.dimensions))]
+        self.dim_valids = [np.asarray([e[1][d] for e in entries], bool)
+                           for d in range(len(self.plan.dimensions))]
+        self.aggs = np.asarray([e[2] for e in entries], np.float64)
+        self.cnts = np.asarray([e[3] for e in entries], np.int64)
 
-def fetch_to_host(tensors: List[torch.Tensor]) -> List[np.ndarray]:
-    """Every tensor's values on the host through ONE device-to-host copy:
-    the tensors' bytes are packed into one buffer on their device."""
-    if not tensors:
-        return []
-    flat = [t.detach().contiguous().reshape(-1) for t in tensors]
-    packed = torch.cat([t.view(torch.uint8) for t in flat]).cpu().numpy()
-    out, off = [], 0
-    for t, f in zip(tensors, flat):
-        nbytes = f.numel() * f.element_size()
-        np_dt = torch.empty(0, dtype=t.dtype).numpy().dtype
-        out.append(packed[off:off + nbytes].view(np_dt).reshape(t.shape))
-        off += nbytes
-    return out
+    @property
+    def groups(self) -> Dict[tuple, list]:
+        """Dict view of the FINALIZED columns, keyed by
+        ((valid, value or None), ...) per dim (per-group Python cost;
+        prefer the columnar fields)."""
+        out: Dict[tuple, list] = {}
+        dvals = [[tuple(x) for x in dv.tolist()] if dv.ndim > 1
+                 else dv.tolist() for dv in self.dim_values]
+        dvalids = [b.tolist() for b in self.dim_valids]
+        aggs, cnts = self.aggs.tolist(), self.cnts.tolist()
+        rng = range(len(self.dim_values))
+        for j in range(self.n_groups):
+            dvalid = tuple(dvalids[i][j] for i in rng)
+            dims = tuple(dvals[i][j] for i in rng)
+            k = tuple((valid, value if valid else None)
+                      for valid, value in zip(dvalid, dims))
+            out[k] = [dims, dvalid, aggs[j], int(cnts[j])]
+        return out
 
 
 class ShardExecutor:
-    """Executes one compiled dense aggregate query against table shards."""
+    """Executes one compiled aggregate query against table shards."""
 
     def __init__(self, memstore, device: torch.device,
                  kernel_cache: KernelCache = GLOBAL_KERNEL_CACHE,
@@ -237,6 +316,9 @@ class ShardExecutor:
         self.device = device
         self.kernel_cache = kernel_cache
         self.device_cache = device_cache
+        # plan signature → observed group capacity: warm repeats of a
+        # high-cardinality query start the ladder at the right K
+        self._k_hints: Dict[str, int] = {}
         # (vp.uid, vp.version, n) → (min, max) over valid values; columns
         # are immutable at a given mutation version so stats memoize
         self._stat_memo: Dict[tuple, tuple] = {}
@@ -245,9 +327,14 @@ class ShardExecutor:
 
     def execute(self, plan: CompiledQuery):
         """Returns (GroupTable, None). Per-stage seconds accumulate into
-        plan.stats (reference: query/stats.go stage timers)."""
+        plan.stats (reference: query/stats.go stage timers), beside the
+        batches rerun on the sort path (`overflowReruns`), on a larger
+        group capacity (`ladderReruns`), and the process's device-to-host
+        copies during the query (`hostFetches`)."""
         plan.stats = {"batches": 0, "rows_scanned": 0, "stagedBytes": 0,
-                      "peakBatchStagedBytes": 0}
+                      "peakBatchStagedBytes": 0, "overflowReruns": 0,
+                      "ladderReruns": 0}
+        fetches0 = fetch_to_host.calls
 
         class _Stage:
             def __init__(self, name):
@@ -273,6 +360,7 @@ class ShardExecutor:
         stat_keys = self._dense_stat_keys(plan)
         plan._exec_pending = []
         plan._exec_dense_dev = {}
+        plan._exec_sort_pending = []
         for shard_id in plan.shards or [0]:
             shard = self.memstore.get_table_shard(
                 plan.main_schema.table.name, shard_id)
@@ -296,7 +384,9 @@ class ShardExecutor:
                     plan.stats["peakBatchStagedBytes"], nb)
         with _Stage("resultFetch"):
             self._resolve_pending(plan, table)
+            self._resolve_sort_pending(plan, table)
             table.finalize()
+        plan.stats["hostFetches"] = fetch_to_host.calls - fetches0
         M.root().count(M.QUERY_ROWS_RETURNED, table.n_groups)
         M.root().record_timer(M.QUERY_BATCH_TRANSFER_TIME,
                               plan.stats.get("transfer", 0.0))
@@ -416,10 +506,12 @@ class ShardExecutor:
 
     def _run_agg_batch(self, plan, columns, n_valid, n_padded,
                        batch_stats=None, live_cutoff=0):
+        # dense slot aggregation when every dim is bounded, else the sort
         dense_plan = plan_dense(plan, batch_stats)
         if dense_plan is None:
-            raise not_ported("group-by over unbounded dimensions is",
-                             "sort path")
+            self._run_sort_batch(plan, columns, n_valid, n_padded,
+                                 live_cutoff)
+            return
         kernel = self.kernel_cache.dense_agg_kernel(plan, n_padded,
                                                     dense_plan, self.device)
         dense_sig = dense_signature(dense_plan)
@@ -429,28 +521,229 @@ class ShardExecutor:
             plan, dense_plan.n_slots, self.device)
         folded, overflow = kernel(columns, n_valid, live_cutoff, acc_arrays)
         plan._exec_dense_dev[dense_sig] = (dense_plan, folded)
-        plan._exec_pending.append(overflow)
+        plan._exec_pending.append(
+            (overflow, columns, n_valid, n_padded, live_cutoff))
+
+    def _run_sort_batch(self, plan, columns, n_valid, n_padded,
+                        live_cutoff=0, k: int = 0):
+        """Keyed aggregation of one batch at group capacity k (default:
+        the plan's hint); resolved after all batches
+        (_resolve_sort_pending)."""
+        if not k:
+            k = self._k_hints.get(plan_signature(plan),
+                                  DEFAULT_GROUP_CAPACITY)
+        kernel = self.kernel_cache.agg_kernel(plan, n_padded, k, self.device)
+        out = kernel(columns, n_valid, live_cutoff)
+        plan._exec_sort_pending.append(
+            (k, out, columns, n_valid, n_padded, live_cutoff))
 
     def _resolve_pending(self, plan, table: GroupTable) -> None:
         """ONE host fetch for every batch's overflow count and every
-        accumulated dense table."""
-        flags, plan._exec_pending = plan._exec_pending, []
+        accumulated dense table; overflowed batches (a domain understated
+        by stale stats, folded as identity) rerun on the sort ladder."""
+        pending, plan._exec_pending = plan._exec_pending, []
         accs, plan._exec_dense_dev = plan._exec_dense_dev, {}
-        if not flags and not accs:
+        if not pending and not accs:
             return
         sigs = list(accs.keys())
-        tensors = [f.reshape(1) for f in flags]
+        tensors = [entry[0].reshape(1) for entry in pending]
         for s in sigs:
             tensors.extend(accs[s][1])
         host = fetch_to_host(tensors)
-        overflowed = int(sum(int(h[0]) for h in host[:len(flags)]))
-        if overflowed:
-            raise not_ported(f"rerunning {overflowed} rows outside the "
-                             f"planned dense domain is", "sort path")
-        tables = host[len(flags):]
+        for entry, overflow in zip(pending, host[:len(pending)]):
+            if int(overflow[0]) > 0:
+                _, columns, n_valid, n_padded, live_cutoff = entry
+                self._run_sort_batch(plan, columns, n_valid, n_padded,
+                                     live_cutoff)
+                plan.stats["overflowReruns"] += 1
+        tables = host[len(pending):]
         for j, sig in enumerate(sigs):
             aggv, cnt, rows = tables[3 * j:3 * j + 3]
             table.merge_dense(sig, accs[sig][0], aggv, cnt, rows)
+
+    def _resolve_sort_pending(self, plan, table: GroupTable) -> None:
+        """Resolve every pending keyed batch with one device-side merge:
+        the group counts come first (one copy, with the whole tables of
+        small capacities), batches whose groups outgrew their capacity
+        rerun at the next power of two, live slots are sliced on the
+        device, the slices concatenate and fold by key
+        (_merge_big_device, _keyed_merge_device), and one merged table is
+        fetched."""
+        sliced = []
+        total_live = 0
+        while True:
+            pending, plan._exec_sort_pending = plan._exec_sort_pending, []
+            if not pending:
+                break
+            tensors, full = [], []
+            for k, out, *_ in pending:
+                tensors.append(out[4].reshape(1))
+                full.append(k <= SMALL_K_FULL_FETCH)
+                if full[-1]:
+                    gkeys, _, agg, cnt, _, dims, dvalids = out
+                    tensors += [gkeys, agg, cnt, *dims, *dvalids]
+            host = fetch_to_host(tensors)
+            i = 0
+            for entry, whole in zip(pending, full):
+                k, out = entry[0], entry[1]
+                ng = int(host[i][0])
+                i += 1
+                if whole:
+                    tab = _host_table(plan, host[i:i + 3 + 2 * len(out[5])])
+                    i += 3 + 2 * len(out[5])
+                    if ng <= k:
+                        kg = min(round_up_pow2(max(ng, 1), 64), k)
+                        gkeys, agg, cnt, dims, dvalids = tab
+                        table.merge_keyed(
+                            gkeys[:kg], gkeys[:kg] != SENTINEL64, agg[:kg],
+                            cnt[:kg], [d[:kg] for d in dims],
+                            [d[:kg] for d in dvalids])
+                        continue
+                if ng > k:
+                    if ng > MAX_GROUP_CAPACITY:
+                        raise QueryError(
+                            f"group cardinality {ng} exceeds maximum "
+                            f"capacity {MAX_GROUP_CAPACITY}")
+                    k2 = min(round_up_pow2(ng), MAX_GROUP_CAPACITY)
+                    sig = plan_signature(plan)
+                    self._k_hints[sig] = max(self._k_hints.get(sig, 0), k2)
+                    _, _, columns, n_valid, n_padded, live_cutoff = entry
+                    self._run_sort_batch(plan, columns, n_valid, n_padded,
+                                         live_cutoff, k=k2)
+                    plan.stats["ladderReruns"] += 1
+                    continue
+                kg = min(round_up_pow2(max(ng, 1), 64), k)
+                gkeys, _, agg, cnt, _, dims, dvalids = out
+                sliced.append((gkeys[:kg], agg[:kg], cnt[:kg],
+                               tuple(d[:kg] for d in dims),
+                               tuple(d[:kg] for d in dvalids)))
+                total_live += ng
+        if not sliced:
+            return
+        if len(sliced) == 1:
+            gkeys, agg, cnt, dims, dvalids = sliced[0]
+            gkeys_h, agg_h, cnt_h, dims_h, dvalids_h = _host_table(
+                plan, fetch_to_host([gkeys, agg, cnt, *dims, *dvalids]))
+            table.merge_keyed(gkeys_h, gkeys_h != SENTINEL64, agg_h, cnt_h,
+                              dims_h, dvalids_h)
+            return
+        gkeys = torch.cat([s[0] for s in sliced])
+        agg = torch.cat([s[1] for s in sliced])
+        cnt = torch.cat([s[2] for s in sliced])
+        n_dims = len(sliced[0][3])
+        dims = tuple(torch.cat([s[3][d] for s in sliced])
+                     for d in range(n_dims))
+        dvalids = tuple(torch.cat([s[4][d] for s in sliced])
+                        for d in range(n_dims))
+        plan.stats["deviceMergedTables"] = len(sliced)
+        kind = plan.measure.agg
+        k_out = round_up_pow2(max(total_live, 1), 64)
+        # the union count first (one scalar copy): total_live counts a
+        # group once per batch that holds it
+        n_u = int(fetch_to_host([_count_unique_keys(gkeys)])[0])
+        kg = min(round_up_pow2(max(n_u, 1), 64), k_out)
+        if kind in ("sum", "count", "avg"):
+            m_keys, m_used, m_agg, m_cnt, _, m_dims, m_dvalids = \
+                _merge_big_device(gkeys, agg, cnt, dims, dvalids, kg)
+        else:
+            m_keys, m_used, m_agg, m_cnt, m_dims, m_dvalids, _ = \
+                _keyed_merge_device(gkeys, agg, cnt, dims, dvalids, kind, kg)
+        # keys matter only where other piles join the final merge; per-group
+        # counts only for avg or another merge
+        other_piles = bool(table._keyed_acc) or bool(table._dense_acc)
+        need_cnt = other_piles or kind == "avg"
+        req = [m_used, m_agg, *m_dims, *m_dvalids]
+        if other_piles:
+            req.append(m_keys)
+        if need_cnt:
+            req.append(m_cnt)
+        host = fetch_to_host(req)
+        used_h, agg_h = host[0], host[1]
+        dims_h = _unsigned_dims(plan, host[2:2 + n_dims])
+        dvalids_h = host[2 + n_dims:2 + 2 * n_dims]
+        rest = host[2 + 2 * n_dims:]
+        keys_h = rest.pop(0).view(np.uint64) if other_piles \
+            else np.arange(kg, dtype=np.uint64)   # positional placeholder
+        cnt_h = rest.pop(0) if need_cnt else np.zeros(kg, np.float64)
+        table.merge_keyed(keys_h, used_h, agg_h, cnt_h, dims_h, dvalids_h)
+
+
+def _host_table(plan, host: List[np.ndarray]):
+    """A keyed table fetched as [gkeys, agg, cnt, *dims, *dim valids]:
+    (u64 keys, agg, cnt, dims, dim valids) on the host."""
+    n_dims = (len(host) - 3) // 2
+    return (host[0].view(np.uint64), host[1], host[2],
+            _unsigned_dims(plan, host[3:3 + n_dims]), host[3 + n_dims:])
+
+
+def _unsigned_dims(plan, dims: List[np.ndarray]) -> List[np.ndarray]:
+    """UUID dim lanes, staged as int64 bit views, back to uint64."""
+    return [v.view(np.uint64) if d.data_type == mdt.UUID and not d.geo_dim
+            else v for v, d in zip(dims, plan.dimensions)]
+
+
+def _count_unique_keys(gkeys: torch.Tensor) -> torch.Tensor:
+    """Live-unique count of a concatenated key column (one sort)."""
+    sk = torch.sort(gkeys)[0]
+    first = torch.ones_like(sk, dtype=torch.bool)
+    first[1:] = sk[1:] != sk[:-1]
+    return (first & (sk != SENTINEL)).sum()
+
+
+def _merge_big_device(gkeys, wsum, wcnt, dims, dvalids, k_out: int):
+    """Cross-batch merge of keyed tables for sum/count/avg: the weighted
+    sort + segmented reduce over the concatenated partial tables. Float
+    sums and counts fold in float64: a float32 cross-batch count or sum
+    would round groups past 2^24 rows. k_out is bounded by the union
+    count (_count_unique_keys). Returns (gkeys, slot_used, agg, cnt,
+    n_groups, dims, dvalids)."""
+    if wsum.is_floating_point():
+        wsum = wsum.to(torch.float64)
+    wcnt = wcnt.to(torch.float64)
+    dim_vals = [K._Val(d, v) for d, v in zip(dims, dvalids)]
+    return K._reduce_by_key_sorted_weighted(gkeys, wsum, wcnt, k_out,
+                                            dim_vals, None)
+
+
+def _keyed_merge_device(gkeys, agg, cnt, dims, dvalids, kind: str,
+                        k_out: int):
+    """Cross-batch merge of keyed group tables on the device, for any
+    measure lattice: the concatenated partial tables sort by key and fold
+    per key (sums in float64, min/min, max/max), so one table crosses to
+    the host. Unused slots arrive with the sentinel key and sort last.
+    Returns (m_keys[k_out], m_used, m_agg, m_cnt, m_dims, m_dvalids,
+    n_uniq)."""
+    n = gkeys.shape[0]
+    skeys, order = torch.sort(gkeys ^ K._SIGN, stable=True)
+    skeys = skeys ^ K._SIGN
+    sagg, scnt = agg[order], cnt[order]
+    first = torch.ones_like(skeys, dtype=torch.bool)
+    first[1:] = skeys[1:] != skeys[:-1]
+    live = skeys != SENTINEL
+    seg = torch.cumsum(first, 0) - 1
+    seg_c = torch.where(live & (seg < k_out), seg, k_out)
+    idx = K._scatter_index(seg_c, k_out)
+    n_uniq = (first & live).sum().to(torch.int32)
+    if kind in ("sum", "count", "avg"):
+        wide = torch.float64 if sagg.is_floating_point() else sagg.dtype
+        m_agg = K._segment_add(sagg, idx, k_out, wide)
+    elif kind in ("min", "max"):
+        info = torch.finfo if sagg.is_floating_point() else torch.iinfo
+        ident = info(sagg.dtype).max if kind == "min" \
+            else info(sagg.dtype).min
+        m_agg = torch.full((k_out + K._SPILL,), ident, dtype=sagg.dtype,
+                           device=gkeys.device).scatter_reduce_(
+            0, idx, sagg, "amin" if kind == "min" else "amax")[:k_out]
+    else:
+        raise ValueError(f"unsupported keyed merge kind {kind}")
+    m_cnt = K._segment_add(scnt, idx, k_out, torch.float64)
+    rep = torch.searchsorted(seg_c, torch.arange(k_out, device=gkeys.device))
+    rep = rep.clamp(0, max(n - 1, 0))
+    m_used = torch.arange(k_out, device=gkeys.device) < n_uniq
+    m_keys = torch.where(m_used, skeys[rep], SENTINEL)
+    src = order[rep]
+    return (m_keys, m_used, m_agg, m_cnt, tuple(d[src] for d in dims),
+            tuple(v[src] & m_used for v in dvalids), n_uniq)
 
 
 def _signed_view(a: np.ndarray) -> np.ndarray:

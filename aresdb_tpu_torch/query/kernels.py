@@ -1,16 +1,19 @@
-"""Device kernel layer of the dense group-by path, on torch tensors.
+"""Device kernel layer of the group-by paths, on torch tensors.
 
-Port of the dense subset of `aresdb_tpu/query/kernels.py`: the expression
-emitter (filters, dimensions and measures traced into tensor ops on
-(value, validity) lanes), the dense slot map, the dense aggregation kernel
-with its 64-bit running fold, and the numpy group-key helpers GroupTable
-needs.
+Port of `aresdb_tpu/query/kernels.py` for the dense and the keyed (sort)
+group-by: the expression emitter (filters, dimensions and measures traced
+into tensor ops on (value, validity) lanes), the dense slot map, the dense
+aggregation kernel with its 64-bit running fold, the group-key packing,
+the adaptive per-batch reduce_by_key, and the numpy group-key helpers
+GroupTable needs.
 
 Every function takes its tensors on one device and returns tensors on the
 same device. Eligible dense plans route to the fused kernel K1
-(fused_dense.py); the others reduce through K2 (pallas_ops.segment_sum).
-Both route the same way on every device; on the CPU their wrappers take
-their plain PyTorch versions.
+(fused_dense.py); the others reduce through K2 or K3 (pallas_ops) or a
+plain scatter, by the JAX package's routing predicates. The keyed path's
+runtime-dense branch reduces through K2; its sort branch is torch.sort
+and segmented sums. On the CPU the kernel wrappers take their plain
+PyTorch versions.
 
 Lanes mirror the JAX package: integers narrower than 64 bits compute in
 int32 (Uint32 as two's complement), floats in float32, calendar math in
@@ -25,7 +28,8 @@ null measures contribute the aggregation identity.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import os
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +38,7 @@ from aresdb_tpu_torch.common import data_types as mdt
 from aresdb_tpu_torch.query import expr as E
 from aresdb_tpu_torch.query import pallas_ops as P
 from aresdb_tpu_torch.query.compiler import CompiledQuery, QueryError
+from aresdb_tpu_torch.utils.torch_env import fetch_to_host
 
 _F32_MAX = float(np.finfo(np.float32).max)
 _I32_MAX = int(np.iinfo(np.int32).max)
@@ -541,6 +546,131 @@ def np_pack_dim_keys(dim_values: List[np.ndarray],
 
 
 # ---------------------------------------------------------------------------
+# group-key packing on the device: exact bit-pack when the dims fit 63 bits,
+# else a splitmix64 mix. torch's uint64 lacks sort, shifts and comparisons
+# on CUDA, so the canonical u64 key bits ride in int64 tensors: `k ^ _SIGN`
+# turns unsigned order into signed order (the all-ones sentinel sorts
+# last), right shifts mask off the sign fill, and `.view(np.uint64)` on the
+# host gives the JAX package's keys bit for bit.
+# ---------------------------------------------------------------------------
+
+SENTINEL = -1                                # all-ones u64, as int64 bits
+SENTINEL64 = np.uint64(0xFFFFFFFFFFFFFFFF)   # the same key on the host
+_SIGN = -(1 << 63)
+
+
+def _lsr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits."""
+    return (x >> s) & ((1 << (64 - s)) - 1) if s else x
+
+
+def _splitmix64(x: torch.Tensor) -> torch.Tensor:
+    x = x + _signed64(0x9E3779B97F4A7C15)
+    x = (x ^ _lsr(x, 30)) * _signed64(0xBF58476D1CE4E5B9)
+    x = (x ^ _lsr(x, 27)) * _signed64(0x94D049BB133111EB)
+    return x ^ _lsr(x, 31)
+
+
+def _value_bits_u64(dim_val: _Val, data_type: int) -> List[torch.Tensor]:
+    """Dim value → its u64 bit pattern in int64 (two lanes for UUID)."""
+    v = dim_val.value
+    if data_type == mdt.UUID:
+        return [v[:, 0].to(torch.int64), v[:, 1].to(torch.int64)]
+    if data_type == mdt.GeoPoint:
+        lat = v[:, 0].contiguous().view(torch.int32).to(torch.int64)
+        lng = v[:, 1].contiguous().view(torch.int32).to(torch.int64)
+        return [(lat & 0xFFFFFFFF) | (lng << 32)]
+    if v.dtype == torch.float32:
+        return [v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF]
+    if v.dtype == torch.bool:
+        return [v.to(torch.int64)]
+    width = _dim_bits(data_type)
+    bits = v.to(torch.int64)
+    return [bits & ((1 << width) - 1) if width < 64 else bits]
+
+
+def pack_dim_keys(dim_vals: List[_Val], dim_types: List[int],
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Per-row canonical u64 group key (int64 bits); filtered rows get the
+    sentinel. Per dim the valid bit sits below the value bits and a null
+    dim's value bits are zero, so null sorts first (the JAX package's
+    layout). The JAX package's u32 narrow keys are a TPU sort-speed device;
+    here every key is 64 bits."""
+    n = mask.shape[0]
+    key = torch.zeros(n, dtype=torch.int64, device=mask.device)
+    if dim_vals and pack_modes(dim_types)[0]:
+        shift = 0
+        for dv, t in zip(dim_vals, dim_types):
+            bits = torch.where(dv.valid, _value_bits_u64(dv, t)[0], 0)
+            key = key | (dv.valid.to(torch.int64) << shift)
+            shift += 1
+            key = key | (bits << shift)
+            shift += min(_dim_bits(t), 64)
+    elif dim_vals:
+        for dv, t in zip(dim_vals, dim_types):
+            valid = dv.valid.to(torch.int64)
+            for lane in _value_bits_u64(dv, t):
+                lane = torch.where(dv.valid, lane, 0)
+                key = _splitmix64(key ^ _splitmix64(lane + valid))
+        # no real key may equal the sentinel
+        key = torch.where(key == SENTINEL, 0, key)
+    return torch.where(mask, key, SENTINEL)
+
+
+def unpack_dim_keys(gkeys: torch.Tensor, dim_vals: List[_Val],
+                    dim_types: List[int], slot_used: torch.Tensor):
+    """Invert pack_dim_keys' exact packing: per-slot dim (values, valids)
+    from the group keys, in each dim lane's dtype. Valid only when
+    pack_modes(...)[0]. Null dims unpack as (0, False)."""
+    values, valids = [], []
+    shift = 0
+    for dv, t in zip(dim_vals, dim_types):
+        width = min(_dim_bits(t), 64)
+        assert width < 64 and t not in (mdt.UUID, mdt.GeoPoint)
+        vbit = ((gkeys >> shift) & 1) != 0
+        shift += 1
+        bits = (gkeys >> shift) & ((1 << width) - 1)
+        shift += width
+        tmpl = dv.value.dtype
+        if tmpl == torch.float32:
+            val = bits.to(torch.int32).view(torch.float32)
+        elif tmpl == torch.bool:
+            val = bits != 0
+        elif tmpl.is_signed:
+            sbit = 1 << (width - 1)
+            val = ((bits ^ sbit) - sbit).to(tmpl)
+        else:
+            val = bits.to(tmpl)
+        values.append(val)
+        valids.append(vbit & slot_used)
+    return values, valids
+
+
+def _dim_fields(dim_types: List[int]):
+    """(offset, width) of each dim's value+valid field in the exact key
+    pack (pack_dim_keys layout)."""
+    fields = []
+    shift = 0
+    for t in dim_types:
+        width = min(_dim_bits(t), 64) + 1   # value bits + valid bit
+        fields.append((shift, width))
+        shift += width
+    return fields
+
+
+def dim_pack_stride(d) -> int:
+    """Static value stride of a dim's packed bits: regular time bucketizers
+    emit FLOOR(ts, width), so every live value is a multiple of `width`.
+    Checked on the data (alignment), so a wrong hint can only send a
+    batch to the sort branch, never corrupt the grouping."""
+    e = getattr(d, "expr", None)
+    if (isinstance(e, E.BinaryExpr) and e.op == "FLOOR"
+            and isinstance(e.rhs, E.NumberLiteral) and e.rhs.int_val > 1):
+        return int(e.rhs.int_val)
+    return 1
+
+
+# ---------------------------------------------------------------------------
 # batch evaluation
 # ---------------------------------------------------------------------------
 
@@ -675,8 +805,10 @@ def make_dense_agg_kernel(plan: CompiledQuery, n_rows: int, dense_plan,
 
     Eligible plans route to the fused kernel K1 (fused_dense.py); float
     sums, averages and counts of the others reduce through K2
-    (pallas_ops.segment_sum); the n_slots <= 4 and integer / min / max
-    reductions are plain torch, as they are XLA ops in the JAX package.
+    (pallas_ops.segment_sum) where `use_factored`, else through K3
+    (pallas_ops.dense_segment_sum) where `use_pallas`, else through a
+    plain scatter; the n_slots <= 4 and integer / min / max reductions are
+    plain torch, as they are XLA ops in the JAX package.
 
     Signature: fn(columns, n_valid, live_cutoff, acc) ->
     ((agg[S], cnt[S], rows[S]) folded into acc, overflow).
@@ -725,15 +857,24 @@ def make_dense_agg_kernel(plan: CompiledQuery, n_rows: int, dense_plan,
                     overflow)
         ones = mvalid.to(torch.float32)
         present = keep.to(torch.float32)
+        num = n_slots + 1
+        slot_n = torch.where(keep, slot, torch.full_like(slot, n_slots)).long()
         if agg in ("sum", "count", "avg") and mval.dtype == torch.float32:
-            # one (n, 3) segment sum: measure, count, presence
+            # one (n, 3) segment sum: measure, count, presence; K2, else
+            # K3, else the scatter, as the JAX package routes it
             contrib = torch.where(mvalid, mval, torch.zeros_like(mval))
             stacked = torch.stack([contrib, ones, present], dim=1)
             dropped = torch.where(keep, slot, torch.full_like(slot, -1))
-            out3 = P.segment_sum(dropped, stacked, n_slots)
-            return out3[:, 0], out3[:, 1], out3[:, 2], overflow
-        num = n_slots + 1
-        slot_n = torch.where(keep, slot, torch.full_like(slot, n_slots)).long()
+            if P.use_factored(n_slots, device):
+                out3 = P.segment_sum(dropped, stacked, n_slots)
+            elif P.use_pallas(n_slots, device):
+                out3 = P.dense_segment_sum(dropped, stacked, n_slots)
+            else:
+                out3 = torch.zeros((num, 3), dtype=torch.float32,
+                                   device=device)
+                out3.index_add_(0, slot_n, stacked)
+            return out3[:n_slots, 0], out3[:n_slots, 1], out3[:n_slots, 2], \
+                overflow
         if agg in ("sum", "count", "avg"):
             contrib = torch.where(mvalid, mval, torch.zeros_like(mval))
             aggv = torch.zeros(num, dtype=contrib.dtype, device=device)
@@ -794,6 +935,300 @@ def run_dense_kernel(fn, plan: CompiledQuery, n_slots: int, columns,
 
 
 # ---------------------------------------------------------------------------
+# the keyed (sort) group-by: per-batch reduction by canonical group key
+# ---------------------------------------------------------------------------
+
+RT_DENSE_CAP = 16384   # runtime-dense slot budget (the JAX package's)
+
+
+def _rt_dense_enabled() -> bool:
+    return os.environ.get("ARES_RTDENSE", "") != "0"
+
+
+def _runtime_dense_slots(keys: torch.Tensor, dim_types: List[int],
+                         dim_strides: Optional[List[int]] = None):
+    """Per-batch dense-domain detection: rebase every dim's value field to
+    its live min (divided by its static stride) and multiply the ranges;
+    each dim's valid bit is a field of its own. One host fetch brings back
+    every field's live (min, max) and alignment, and the host decides, in
+    exact integers, whether the product fits RT_DENSE_CAP slots (the JAX
+    package's `lax.cond` on the device).
+
+    Returns None where it does not fit, else (slot[n] int32 with -1 =
+    dropped, slot_keys[RT_DENSE_CAP] int64, slots_total). Slot order
+    equals key order, so the compacted table has the sort path's layout."""
+    live = keys != SENTINEL
+    strides = dim_strides or [1] * len(dim_types)
+    fields = []
+    for (off, width), vs in zip(_dim_fields(dim_types), strides):
+        fields.append((off, 1, 1))
+        fields.append((off + 1, width - 1, vs))
+    lanes, stats = [], []
+    for off, width, vs in fields:
+        mask = (1 << width) - 1
+        f = (keys >> off) & mask
+        if vs > 1:
+            stats.append((live & (torch.remainder(f, vs) != 0)).any()
+                         .to(torch.int64))
+            f = torch.div(f, vs, rounding_mode="floor")
+        else:
+            stats.append(torch.zeros((), dtype=torch.int64,
+                                     device=keys.device))
+        stats.append(torch.where(live, f, mask).min())
+        stats.append(torch.where(live, f, 0).max())
+        lanes.append(f)
+    (host,) = fetch_to_host([torch.stack(stats)])
+    slots_total, stride, aligned, ranges = 1, 1, True, []
+    for j, (off, width, vs) in enumerate(fields):
+        misaligned, fmin, fmax = (int(x) for x in host[3 * j:3 * j + 3])
+        aligned = aligned and not misaligned
+        fmin = min(fmin, fmax)   # no live rows: range 1
+        r = fmax - fmin + 1
+        ranges.append((off, vs, fmin, r, stride))
+        stride *= r
+        slots_total = min(slots_total * r, 1 << 62)
+    if slots_total > RT_DENSE_CAP or not aligned:
+        return None
+    slot = torch.zeros_like(keys)
+    iota = torch.arange(RT_DENSE_CAP, dtype=torch.int64, device=keys.device)
+    slot_keys = torch.zeros_like(iota)
+    for f, (off, vs, fmin, r, st) in zip(lanes, ranges):
+        slot = slot + (f - fmin) * st
+        slot_keys = slot_keys | ((torch.remainder(
+            torch.div(iota, st, rounding_mode="floor"), r) + fmin) * vs
+            << off)
+    slot = torch.where(live, slot, -1).to(torch.int32)
+    return slot, slot_keys, slots_total
+
+
+def _runtime_dense_reduce(slot, slot_keys, slots_total: int, mval, mvalid,
+                          k_groups: int):
+    """Dense branch of the adaptive group-by: K2 over the rebased slots,
+    then the slot table compacted to the sort path's first-k_groups-keys
+    layout. Returns (gkeys, slot_used, agg, cnt, n_groups)."""
+    contrib = torch.where(mvalid, mval, torch.zeros_like(mval))
+    stacked = torch.stack([contrib, mvalid.to(torch.float32),
+                           torch.ones_like(contrib)], dim=1)
+    table = P.segment_sum(slot, stacked, RT_DENSE_CAP, ones_channels=(2,))
+    device = slot.device
+    sidx = torch.arange(RT_DENSE_CAP, device=device)
+    live_slot = (table[:, 2] > 0) & (sidx < slots_total)
+    n_groups = live_slot.sum().to(torch.int32)
+    # the first k_groups live slots, in slot (== key) order
+    sel = torch.sort((~live_slot).to(torch.int32), stable=True)[1]
+    m = min(k_groups, RT_DENSE_CAP)
+    sel = sel[:m]
+    pad = k_groups - m
+    gkeys, agg_m, cnt_m = slot_keys[sel], table[sel, 0], table[sel, 1]
+    if pad:
+        gkeys = torch.cat([gkeys, torch.full((pad,), SENTINEL,
+                                             dtype=torch.int64,
+                                             device=device)])
+        zeros = torch.zeros(pad, dtype=torch.float32, device=device)
+        agg_m, cnt_m = torch.cat([agg_m, zeros]), torch.cat([cnt_m, zeros])
+    slot_used = torch.arange(k_groups, device=device) < n_groups
+    return (torch.where(slot_used, gkeys, SENTINEL), slot_used,
+            torch.where(slot_used, agg_m, 0.0),
+            torch.where(slot_used, cnt_m, 0.0), n_groups)
+
+
+def reduce_by_key(keys, mval, mvalid, agg: str, out_float: bool,
+                  k_groups: int, dim_vals: Optional[List[_Val]] = None,
+                  dim_types: Optional[List[int]] = None,
+                  dim_strides: Optional[List[int]] = None):
+    """Adaptive group-by: where the live keys' dim ranges multiply to at
+    most RT_DENSE_CAP slots, the batch reduces through K2
+    (_runtime_dense_reduce), else through the sort
+    (_reduce_by_key_sorted). The group table is the same either way: the
+    first k_groups distinct keys in ascending key order, dims unpacked
+    from the keys. The dense branch applies to float sum/count/avg with an
+    exact key pack; everything else sorts.
+
+    Returns (group_keys[K] int64, slot_used[K], agg[K], cnt[K] float32,
+    n_groups, dim_values, dim_valids)."""
+    rt_ok = (dim_types is not None and bool(dim_vals)
+             and agg in ("sum", "count", "avg")
+             and mval.dtype == torch.float32 and _rt_dense_enabled())
+    if not rt_ok:
+        return _reduce_by_key_sorted(keys, mval, mvalid, agg, out_float,
+                                     k_groups, dim_vals, dim_types)
+    rt = _runtime_dense_slots(keys, dim_types, dim_strides)
+    if rt is not None:
+        out = _runtime_dense_reduce(*rt, mval, mvalid, k_groups)
+    else:
+        out = _reduce_by_key_sorted(keys, mval, mvalid, agg, out_float,
+                                    k_groups)[:5]
+    gkeys, slot_used, aggv, cnt, n_groups = out
+    dim_values, dim_valids = unpack_dim_keys(gkeys, dim_vals, dim_types,
+                                             slot_used)
+    return (gkeys, slot_used, aggv, cnt, n_groups, tuple(dim_values),
+            tuple(dim_valids))
+
+
+_SPILL = 1024   # spare slots that rows outside the table scatter over
+
+
+def _scatter_index(seg_c: torch.Tensor, k_groups: int) -> torch.Tensor:
+    """Row → output slot for a segmented add into k_groups + _SPILL slots:
+    seg_c where it is a slot of the table, else one of _SPILL spare slots
+    by row. Adding every dropped row (often most of a batch) into ONE
+    slot would serialize its atomics on one address."""
+    spill = k_groups + (torch.arange(seg_c.shape[0], device=seg_c.device)
+                        & (_SPILL - 1))
+    return torch.where(seg_c < k_groups, seg_c, spill)
+
+
+def _segment_add(values: torch.Tensor, idx: torch.Tensor, k_groups: int,
+                 dtype) -> torch.Tensor:
+    out = torch.zeros(k_groups + _SPILL, dtype=dtype, device=values.device)
+    return out.index_add_(0, idx, values.to(dtype))[:k_groups]
+
+
+def _sorted_runs(keys: torch.Tensor, k_groups: int, secondary=None):
+    """Sort rows by key (then by `secondary`, where given) and find the
+    runs of equal keys. Returns (perm, sorted keys, first, live, idx,
+    starts, ends): idx is each sorted row's output slot for _segment_add
+    (_scatter_index); starts/ends bound each of the k_groups + 1 segments
+    (the last one holds sentinel rows and groups past k_groups) in sorted
+    order."""
+    if secondary is None:
+        perm = torch.sort(keys ^ _SIGN)[1]
+    else:
+        by_value = torch.sort(secondary)[1]
+        perm = by_value[torch.sort(keys[by_value] ^ _SIGN, stable=True)[1]]
+    skeys = keys[perm]
+    first = torch.ones_like(skeys, dtype=torch.bool)
+    first[1:] = skeys[1:] != skeys[:-1]
+    live = skeys != SENTINEL
+    seg = torch.cumsum(first, 0) - 1
+    seg_c = torch.where(live & (seg < k_groups), seg, k_groups)
+    starts = torch.searchsorted(
+        seg_c, torch.arange(k_groups + 1, device=keys.device))
+    ends = torch.cat([starts[1:], starts.new_full((1,), keys.shape[0])])
+    return (perm, skeys, first, live, _scatter_index(seg_c, k_groups),
+            starts, ends)
+
+
+def _group_table(perm, skeys, first, live, starts, k_groups: int,
+                 dim_vals, dim_types):
+    """(gkeys, slot_used, n_groups, dim_values, dim_valids) of sorted runs.
+    Unused slots carry the sentinel key, so no slot repeats a real key."""
+    n = skeys.shape[0]
+    start_pos = starts[:k_groups].clamp(0, n - 1)
+    gkeys = skeys[start_pos]
+    n_groups = (first & live).sum().to(torch.int32)
+    slot_used = (torch.arange(k_groups, device=skeys.device) < n_groups) & \
+        (gkeys != SENTINEL)
+    gkeys = torch.where(slot_used, gkeys, SENTINEL)
+    if dim_types is not None and dim_vals:
+        dim_values, dim_valids = unpack_dim_keys(gkeys, dim_vals, dim_types,
+                                                 slot_used)
+    else:
+        rep = perm[start_pos]
+        dim_values = [dv.value[rep] for dv in dim_vals or []]
+        dim_valids = [dv.valid[rep] & slot_used for dv in dim_vals or []]
+    return gkeys, slot_used, n_groups, tuple(dim_values), tuple(dim_valids)
+
+
+def _reduce_by_key_sorted(keys, mval, mvalid, agg: str, out_float: bool,
+                          k_groups: int,
+                          dim_vals: Optional[List[_Val]] = None,
+                          dim_types: Optional[List[int]] = None):
+    """Sort + segmented reduce of rows by group key (int64 bits; sentinel
+    rows dropped) into a table of k_groups slots.
+
+    A library sort (torch.sort, as lax.sort is XLA in the JAX package)
+    brings each group into one contiguous run; sums and counts add over
+    the runs in float64 (integer sums in int64) and round to the batch
+    lanes' float32, so a NaN poisons only its own group and +/-inf
+    propagate, as direct summation does. min/max sort the measure as a
+    secondary key and read each run's first or last row. With an exact
+    key pack (dim_types given), dims unpack from the group keys; otherwise
+    they are gathered from each group's first row.
+
+    Returns (group_keys[K], slot_used[K], agg[K], cnt[K], n_groups,
+    dim_values, dim_valids)."""
+    n = keys.shape[0]
+    minmax = agg in ("min", "max")
+    if minmax:
+        if out_float:
+            ident = _F32_MAX if agg == "min" else -_F32_MAX
+        else:
+            ident = _I32_MAX if agg == "min" else _I32_MIN
+        contrib0 = torch.where(mvalid, mval, torch.full_like(mval, ident))
+        perm, skeys, first, live, idx, starts, ends = _sorted_runs(
+            keys, k_groups, contrib0)
+    else:
+        perm, skeys, first, live, idx, starts, ends = _sorted_runs(
+            keys, k_groups)
+    mval, mvalid = mval[perm], mvalid[perm]
+    cnt = _segment_add(mvalid, idx, k_groups, torch.float64)
+    if agg in ("sum", "count", "avg"):
+        contrib = torch.where(mvalid, mval, torch.zeros_like(mval))
+        wide = torch.float64 if contrib.dtype.is_floating_point \
+            else torch.int64
+        aggv = _segment_add(contrib, idx, k_groups, wide).to(contrib.dtype)
+    elif minmax:
+        contrib = contrib0[perm]
+        at = starts if agg == "min" else (ends - 1).clamp(min=0)
+        aggv = contrib[at[:k_groups].clamp(0, n - 1)]
+        empty = starts[:k_groups] >= ends[:k_groups]
+        aggv = torch.where(empty, torch.full_like(aggv, ident), aggv)
+    else:
+        raise QueryError(f"agg {agg} has no device kernel yet")
+    gkeys, slot_used, n_groups, dim_values, dim_valids = _group_table(
+        perm, skeys, first, live, starts, k_groups, dim_vals, dim_types)
+    return (gkeys, slot_used, aggv, cnt.to(torch.float32), n_groups,
+            dim_values, dim_valids)
+
+
+def _reduce_by_key_sorted_weighted(keys, wsum, wcnt, k_groups: int,
+                                   dim_vals, dim_types):
+    """Weighted sort + segmented reduce: each input row carries a
+    pre-summed measure (wsum) and count (wcnt), as the partial tables of
+    the cross-batch merge do. Sums add in float64 (integer sums in int64)
+    and keep the input dtype. Same output as _reduce_by_key_sorted."""
+    perm, skeys, first, live, idx, starts, _ = _sorted_runs(keys, k_groups)
+    wsum, wcnt = wsum[perm], wcnt[perm]
+    wide = torch.float64 if wsum.dtype.is_floating_point else torch.int64
+    aggv = _segment_add(wsum, idx, k_groups, wide).to(wsum.dtype)
+    cnt = _segment_add(wcnt, idx, k_groups, torch.float64).to(wcnt.dtype)
+    gkeys, slot_used, n_groups, dim_values, dim_valids = _group_table(
+        perm, skeys, first, live, starts, k_groups, dim_vals, dim_types)
+    return gkeys, slot_used, aggv, cnt, n_groups, dim_values, dim_valids
+
+
+def agg_batch_body(plan: CompiledQuery, n_rows: int, k_groups: int,
+                   columns, n_valid, live_cutoff, device: torch.device):
+    """The per-batch keyed aggregation: filters, dims and measure, the
+    group key, and reduce_by_key into k_groups slots."""
+    ctx = _EvalCtx(columns, n_rows, device)
+    mask, dim_vals = _eval_common(plan, ctx, n_valid, live_cutoff)
+    mlane = _measure_lane(plan, ctx)
+    ptypes = [_packing_type(d) for d in plan.dimensions]
+    keys = pack_dim_keys(dim_vals, ptypes, mask)
+    exact, _ = pack_modes(ptypes)
+    return reduce_by_key(keys, mlane.value, mlane.valid, plan.measure.agg,
+                         plan.measure.out_float, k_groups, dim_vals,
+                         dim_types=ptypes if (exact and dim_vals) else None,
+                         dim_strides=[dim_pack_stride(d)
+                                      for d in plan.dimensions])
+
+
+def make_agg_kernel(plan: CompiledQuery, n_rows: int, k_groups: int,
+                    device: torch.device):
+    """The keyed aggregation of one padded batch of n_rows:
+    fn(columns, n_valid, live_cutoff) -> (group_keys[K] int64,
+    slot_used[K], agg[K], cnt[K], n_groups, dim_values, dim_valids)."""
+
+    def fn(columns, n_valid, live_cutoff):
+        return agg_batch_body(plan, n_rows, k_groups, columns, n_valid,
+                              live_cutoff, device)
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
 # kernel cache: keyed by (plan signature, batch shape, domains, device)
 # ---------------------------------------------------------------------------
 
@@ -834,6 +1269,15 @@ class KernelCache:
         fn = self._cache.get(key)
         if fn is None:
             fn = make_dense_agg_kernel(plan, n_rows, dense_plan, device)
+            self._cache[key] = fn
+        return fn
+
+    def agg_kernel(self, plan: CompiledQuery, n_rows: int, k_groups: int,
+                   device: torch.device):
+        key = ("agg", plan_signature(plan), n_rows, k_groups, str(device))
+        fn = self._cache.get(key)
+        if fn is None:
+            fn = make_agg_kernel(plan, n_rows, k_groups, device)
             self._cache[key] = fn
         return fn
 

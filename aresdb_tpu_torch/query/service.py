@@ -1,13 +1,13 @@
 """Query service: AQL request → compile → execute → postprocess.
 
-Port of `aresdb_tpu/query/service.py` for the dense group-by path. The
-store is anything that offers `get_schemas()` and
+Port of `aresdb_tpu/query/service.py` for the group-by paths, dense and
+keyed (sort). The store is anything that offers `get_schemas()` and
 `get_table_shard(name, shard_id)`, as `ShardExecutor` uses it.
 
 What the port does not run yet is answered with a "not ported yet" error
 in the response, never with a wrong result: multi-measure composite
-queries, SQL, HLL, joins, geo, array columns, admission, and every plan
-that leaves the dense path (executor.py).
+queries, SQL, non-aggregate queries, HLL, joins, geo, array columns,
+archive batches and admission (executor.py).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Device selection for the port.
+"""Device selection and the device-to-host copy of the port.
 
 The JAX package enables x64 globally so that group-table accumulators are
 64-bit (`aresdb_tpu/utils/jax_env.py`). The port gets the same effect from
@@ -8,7 +8,31 @@ explicit `torch.float64` / `torch.int64` accumulators; hot-path lanes stay
 
 from __future__ import annotations
 
+from typing import List
+
+import numpy as np
 import torch
+
+
+def fetch_to_host(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """Every tensor's values on the host through ONE device-to-host copy:
+    the tensors' bytes are packed into one buffer on their device.
+    `fetch_to_host.calls` counts the copies."""
+    if not tensors:
+        return []
+    flat = [t.detach().contiguous().reshape(-1) for t in tensors]
+    packed = torch.cat([t.view(torch.uint8) for t in flat]).cpu().numpy()
+    fetch_to_host.calls += 1
+    out, off = [], 0
+    for t, f in zip(tensors, flat):
+        nbytes = f.numel() * f.element_size()
+        np_dt = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(packed[off:off + nbytes].view(np_dt).reshape(t.shape))
+        off += nbytes
+    return out
+
+
+fetch_to_host.calls = 0
 
 
 def resolve_device(device=None) -> torch.device:

@@ -4,17 +4,28 @@
 
 Builds the port's hand-written CUDA kernels from `aresdb_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card at the main
-path's shapes, then drives the main path end to end: N rows (default 32M,
+path's shapes, then drives the main paths end to end: N rows (default 32M,
 16 live batches of 2,097,152) of the demo trips table are ingested through
-the upsert wire format into a `TableShard`, and the headline dense
-group-by queries run through `QueryService.handle_aql` on `cuda`, checked
-against the same service on the CPU (the kernels' plain versions).
+the upsert wire format into a `TableShard`, and these queries run through
+`QueryService.handle_aql` on `cuda`, each checked against the same
+service on the CPU (the kernels' plain versions):
+  Q1  the headline dense group-by (hour x city), through K1
+  Q2  Q1 by day of month, unfused, through K2
+  Q3  sum(fare) by minute x city over 24 hours: no dense plan; the keyed
+      sort path, its capacity ladder and the device-side merge
+  Q4  count(*) by minute x city for cities <= 20 over 3 hours: no dense
+      plan; every batch takes the runtime-dense branch through K2
+  Q5  sum(fare) by day of month x status under ARES_FACTORED=0, through K3
+  Q1 with an understated city domain: every batch overflows its dense
+      plan and reruns on the sort path
 
 Kernels and what they replace:
   K1 fused_dense  (csrc/fused_dense_template.cuh, one row function emitted
                    per plan) <- aresdb_tpu/query/fused_dense.py _make_kernel
   K2 segment_sum  (csrc/segment_sum.cu)
                    <- aresdb_tpu/query/pallas_ops.py _make_factored_pallas_kernel
+  K3 dense_segment_sum  (csrc/dense_segment_sum.cu)
+                   <- aresdb_tpu/query/pallas_ops.py _make_kernel
 
 Prints the card's name and power limit, per-phase results, one
 `{"kernels": [...]}` line and, last, `{"ok": true, "device": {...}}`.
@@ -25,7 +36,9 @@ check fails. Needs one card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -41,6 +54,22 @@ F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
 RTOL, ATOL = 2e-4, 1e-3
 K2_SLOTS = (13_338, 16_416, 65_536)   # Q1, Q2, and the global-memory branch
 GLOBAL_K1_CASE = "Q1 over 1,000 cities (global branch)"
+# K3: (n_slots, channels, indicator layout): Q5's 128 slots first, then
+# wider tables, one channel, arbitrary floats in every channel, and the
+# global-memory branch (8 x 8,192 floats exceed a block's shared memory)
+K3_CASES = ((128, 3, True), (4_104, 3, True), (8_192, 3, True),
+            (4_104, 1, False), (4_104, 3, False), (8_192, 8, False))
+Q3_CAPACITY = 1 << 19    # the ladder's rung for about 300k groups a batch
+
+
+def demo_variant(demo, measure, dims, filters=(), since="24 hours ago"):
+    """The headline query with another measure, filters, dims or window."""
+    q = json.loads(json.dumps(demo.DEMO_QUERY))
+    q["measures"] = [{"sqlExpression": measure, "rowFilters": list(filters)}]
+    q["dimensions"] = [{"sqlExpression": e, "timeBucketizer": b} if b
+                       else {"sqlExpression": e} for e, b in dims]
+    q["timeFilter"]["from"] = since
+    return q
 
 
 def q2_query(demo) -> dict:
@@ -49,6 +78,43 @@ def q2_query(demo) -> dict:
     q = json.loads(json.dumps(demo.DEMO_QUERY))
     q["dimensions"][0]["timeBucketizer"] = "day of month"
     return q
+
+
+def e2e_queries(demo) -> dict:
+    """name -> (query, environment, understate the city domain)."""
+    minute_city = [("request_at", "minute"), ("city_id", None)]
+    return {
+        "Q1": (demo.DEMO_QUERY, {}, False),
+        "Q2": (q2_query(demo), {}, False),
+        "Q3": (demo_variant(demo, "sum(fare)", minute_city,
+                            ["status='completed'"]), {}, False),
+        "Q4": (demo_variant(demo, "count(*)", minute_city,
+                            ["city_id <= 20"], "3 hours ago"), {}, False),
+        "Q5": (demo_variant(demo, "sum(fare)", [("request_at",
+                                                 "day of month"),
+                                                ("status", None)]),
+               {"ARES_FACTORED": "0"}, False),
+        "Q1 overflow": (demo.DEMO_QUERY, {}, True),
+    }
+
+
+def expected_launches(name, runs, batches, fused) -> dict:
+    """Each kernel's launches over `runs` runs of a query on `batches`
+    batches, of which `fused` take K1 where the plan is K1's."""
+    unfused = runs * (batches - fused)
+    return {
+        "Q1": {"K1": runs * fused, "K2": unfused, "K3": 0},
+        "Q2": {"K1": 0, "K2": runs * batches, "K3": 0},
+        "Q3": {"K1": 0, "K2": 0, "K3": 0},
+        # about 207 live minutes x 20 cities: over 4,096 groups, so the
+        # cold run reduces each batch through K2 twice (K = 4,096, 8,192)
+        "Q4": {"K1": 0, "K2": runs * batches + batches, "K3": 0},
+        "Q5": {"K1": 0, "K2": 0, "K3": runs * batches},
+        # the dense kernel, then one runtime-dense K2 per rerun, and one
+        # more per batch where the cold run climbs from K = 4,096 to 8,192
+        "Q1 overflow": {"K1": runs * fused,
+                        "K2": unfused + runs * batches + batches, "K3": 0},
+    }[name]
 
 
 def k1_cases(demo) -> dict:
@@ -115,18 +181,27 @@ def wall_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_events(fn, iters: int):
+def device_events(fn, iters: int, attempts: int = 3):
     """The CUDA activity (kernels, memsets, copies) of iters calls of fn(),
-    from a torch.profiler trace: a list of (name, microseconds)."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    from a torch.profiler trace: a list of (name, microseconds). A trace
+    that holds no CUDA activity at all is taken again, up to `attempts`
+    times: on the card's machine a profiler session now and then records
+    none."""
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+        print("profiler: a session recorded no CUDA activity; taken again",
+              flush=True)
+    return []
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -196,6 +271,48 @@ def phase_k2(P, device, rng) -> dict:
         print(f"K2 segment_sum n={n} C={c} n_slots={n_slots}: ok, "
               f"max_abs_err={err:.3g} device ms={ms:.4f} (per call "
               f"{call_ms:.4f}) plain_ms={plain_ms:.4f} "
+              f"index_add_ms={library_ms:.4f} bound_ms={b_ms:.4f}",
+              flush=True)
+    return results
+
+
+def phase_k3(P, device, rng) -> dict:
+    """K3 against its plain version at n = one batch. Where the channels
+    are the dense path's (measure, 0/1 count, 1 presence), the counts must
+    match exactly; elsewhere every channel holds arbitrary floats."""
+    n = BATCH_ROWS
+    results = {}
+    for n_slots, c, indicators in K3_CASES:
+        slots_np = rng.randint(-1, n_slots + 1, n).astype(np.int32)
+        if indicators:
+            vals_np = np.stack([(rng.rand(n) * 50).astype(np.float32),
+                                (rng.rand(n) > 0.02).astype(np.float32),
+                                np.ones(n, np.float32)], axis=1)
+        else:
+            vals_np = ((rng.rand(n, c) - 0.3) * 100).astype(np.float32)
+        slots = torch.from_numpy(slots_np).to(device)
+        vals = torch.from_numpy(vals_np).to(device)
+        got = P.dense_segment_sum(slots, vals, n_slots)
+        want = P.dense_segment_sum_plain(slots, vals, n_slots)
+        torch.cuda.synchronize()
+        name = f"K3 n_slots={n_slots} C={c}" + ("" if indicators
+                                               else " arbitrary floats")
+        err = check_close(name, got.t(), want.t(),
+                          exact_rows=(1, 2) if indicators else ())
+        call = lambda: P.dense_segment_sum(slots, vals, n_slots)  # noqa: E731
+        ms, call_ms = device_ms(call), wall_ms(call)
+        plain_ms = device_ms(lambda: P.dense_segment_sum_plain(
+            slots, vals, n_slots))
+        idx = torch.where((slots < 0) | (slots >= n_slots),
+                          torch.full_like(slots, n_slots), slots).long()
+        lib_out = torch.zeros((n_slots + 1, c), device=device)
+        library_ms = device_ms(lambda: lib_out.index_add_(0, idx, vals))
+        b_ms, b_by = bound_ms(n * (4 + 4 * c) + n_slots * c * 4, n * c)
+        results[(n_slots, c, indicators)] = dict(
+            max_abs_err=err, ms=ms, wall_ms=call_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"{name} n={n}: ok, max_abs_err={err:.3g} device ms={ms:.4f} "
+              f"(per call {call_ms:.4f}) plain_ms={plain_ms:.4f} "
               f"index_add_ms={library_ms:.4f} bound_ms={b_ms:.4f}",
               flush=True)
     return results
@@ -329,89 +446,151 @@ def same_result(name: str, got: dict, want: dict) -> None:
     np.testing.assert_allclose(gv, wv, rtol=RTOL, atol=ATOL, err_msg=name)
 
 
-def phase_e2e(n_rows: int, seed: int, warm: int = 5) -> dict:
-    """Ingest, then Q1 and Q2 through QueryService on cuda (cold + warm
-    runs) against the CPU service; returns each kernel's launches in the
-    cuda runs."""
+@contextlib.contextmanager
+def query_setting(X, env: dict, understate: bool):
+    """Apply a query's environment and, where asked, a dense planner that
+    understates the city domain as 1..100 (the data holds 1..300), as in
+    k1_cases' overflowing case; restore both after."""
+    saved = {k: os.environ.get(k) for k in env}
+    real = X.plan_dense
+
+    def plan_understated(plan, stats):
+        stats = dict(stats or {})
+        key = (0, plan.main_schema.column_id("city_id"))
+        if key in stats:
+            stats[key] = (1, 100)
+        return real(plan, stats)
+
+    os.environ.update(env)
+    if understate:
+        X.plan_dense = plan_understated
+    try:
+        yield
+    finally:
+        X.plan_dense = real
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def ask(svc, name: str, q: dict) -> tuple:
+    """(result, verbose context) of one query; raises on an error."""
+    resp = svc.handle_aql({"queries": [q], "verbose": True})
+    if "errors" in resp:
+        raise AssertionError(f"{name} on {svc.device}: {resp['errors']}")
+    return resp["results"][0], resp["context"][0]
+
+
+def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None) -> dict:
+    """Ingest, then every query of e2e_queries through QueryService on the
+    card (one cold and `warm` warm runs, each kernel's launch count set to
+    0 just before and read just after) against the CPU service. Returns
+    each kernel's launches over those runs."""
     from aresdb_tpu_torch import demo
+    from aresdb_tpu_torch.query import executor as X
     from aresdb_tpu_torch.query import fused_dense as FD
     from aresdb_tpu_torch.query import pallas_ops as P
-    from aresdb_tpu_torch.query.executor import GLOBAL_DEVICE_CACHE
-    from aresdb_tpu_torch.query.kernels import round_up_pow2
+    from aresdb_tpu_torch.query.kernels import plan_signature, round_up_pow2
     from aresdb_tpu_torch.query.service import QueryService
 
     store, ingest_s = ingest_trips(n_rows, seed)
     batch_rows = [min(BATCH_ROWS, n_rows - lo)
                   for lo in range(0, n_rows, BATCH_ROWS)]
+    n_batches = len(batch_rows)
     # K1 takes Q1's batches of at least FD_MIN_ROWS padded rows, K2 the rest
     q1_k1 = sum(round_up_pow2(r) >= FD.FD_MIN_ROWS for r in batch_rows)
-    print(f"ingest: {n_rows} rows in {len(batch_rows)} batches, "
+    print(f"ingest: {n_rows} rows in {n_batches} batches, "
           f"{ingest_s:.3f} s, {n_rows / ingest_s:.0f} rows/s", flush=True)
 
-    gpu = QueryService(store)
+    gpu = QueryService(store, device=device)
     cpu = QueryService(store, device="cpu")
-    queries = {"Q1": demo.DEMO_QUERY, "Q2": q2_query(demo)}
-    answers, warm_ms, stages = {}, {}, {}
-    FD.FusedDenseKernel.launches = 0
-    P.segment_sum.launches = 0
-    for name, q in queries.items():
-        k1_0, k2_0 = FD.FusedDenseKernel.launches, P.segment_sum.launches
-        times = []
-        for i in range(1 + warm):
+    counters = {"K1": FD.FusedDenseKernel, "K2": P.segment_sum,
+                "K3": P.dense_segment_sum}
+    totals = dict.fromkeys(counters, 0)
+    cpu_answers = {}
+    runs = 1 + warm
+    for name, (q, env, understate) in e2e_queries(demo).items():
+        with query_setting(X, env, understate):
+            for c in counters.values():
+                c.launches = 0
+            times, contexts = [], []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                answer, ctx = ask(gpu, name, q)
+                if gpu.device.type == "cuda":
+                    torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                contexts.append(ctx)
+            got = {k: c.launches for k, c in counters.items()}
+            want = expected_launches(name, runs, n_batches, q1_k1)
+            if got != want:
+                raise AssertionError(f"{name}: launches {got}, expected "
+                                     f"{want}")
+            for k in totals:
+                totals[k] += got[k]
+            reruns = [(c["ladderReruns"], c["overflowReruns"])
+                      for c in contexts]
+            want_reruns = [(0, 0)] * runs
+            if name in ("Q3", "Q4"):
+                want_reruns[0] = (n_batches, 0)
+            if name == "Q3":
+                hint = gpu.executor._k_hints.get(
+                    plan_signature(demo.demo_plan(q)))
+                if hint != Q3_CAPACITY:
+                    raise AssertionError(f"Q3: capacity hint {hint}")
+            elif name == "Q1 overflow":
+                want_reruns = [(0, n_batches)] * runs
+                want_reruns[0] = (n_batches, n_batches)
+            if reruns != want_reruns:
+                raise AssertionError(f"{name}: (ladder, overflow) reruns "
+                                     f"{reruns}, expected {want_reruns}")
+            events = device_events(lambda: ask(gpu, name, q), 1) \
+                if gpu.device.type == "cuda" else []
             t0 = time.perf_counter()
-            # the last run also returns the executor's per-stage seconds
-            resp = gpu.handle_aql({"queries": [q], "verbose": i == warm})
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            if "errors" in resp:
-                raise AssertionError(f"{name}: {resp['errors']}")
-            answers[name] = resp["results"][0]
-        stages[name] = resp["context"][0]
-        k1 = FD.FusedDenseKernel.launches - k1_0
-        k2 = P.segment_sum.launches - k2_0
-        runs = 1 + warm
-        want = (runs * q1_k1, runs * (len(batch_rows) - q1_k1)) \
-            if name == "Q1" else (0, runs * len(batch_rows))
-        if (k1, k2) != want:
-            raise AssertionError(f"{name}: K1/K2 launches {(k1, k2)}, "
-                                 f"expected {want}")
-        warm_ms[name] = 1e3 * float(np.median(times[1:]))
-        print(f"{name}: cold {1e3 * times[0]:.3f} ms, warm median "
-              f"{warm_ms[name]:.3f} ms "
-              f"({n_rows / warm_ms[name] * 1e3:.0f} rows/s), "
-              f"{len(flatten(answers[name]))} groups, launches K1={k1} "
-              f"K2={k2}", flush=True)
-        print(f"{name} last warm run, seconds by stage: "
-              + ", ".join(f"{k}={v:.6f}" for k, v in stages[name].items()
-                          if isinstance(v, float)), flush=True)
-    launches = {"fused_dense": FD.FusedDenseKernel.launches,
-                "segment_sum": P.segment_sum.launches}
-    for name, q in queries.items():
-        t0 = time.perf_counter()
-        events = device_events(lambda: gpu.handle_aql({"queries": [q]}), 1)
-        wall = 1e3 * (time.perf_counter() - t0)
+            cpu_answer, _ = ask(cpu, name, q)
+            cpu_s = time.perf_counter() - t0
+        same_result(name, answer, cpu_answer)
+        if name == "Q1 overflow":
+            same_result(name + " against the dense path", answer,
+                        cpu_answers["Q1"])
+        cpu_answers[name] = cpu_answer
+        warm_ms = 1e3 * float(np.median(times[1:]))
         busy = sum(us for _, us in events) / 1e3
         by_name = {}
         for ev_name, us in events:
             by_name[ev_name] = by_name.get(ev_name, 0.0) + us / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        print(f"{name} warm run under the profiler: wall {wall:.3f} ms, "
-              f"device busy {busy:.3f} ms = "
-              f"{100 * busy / warm_ms[name]:.1f}% of the unprofiled warm "
-              f"median, {len(events)} device ops; top: "
+        last = contexts[-1]
+        print(f"{name}: cold {1e3 * times[0]:.3f} ms, warm median "
+              f"{warm_ms:.3f} ms ({n_rows / warm_ms * 1e3:.0f} rows/s), "
+              f"{len(flatten(answer))} groups, launches "
+              + " ".join(f"{k}={v}" for k, v in got.items())
+              + f", (ladder, overflow) reruns by run {reruns}, host fetches "
+              f"cold {contexts[0]['hostFetches']} warm "
+              f"{last['hostFetches']}", flush=True)
+        print(f"{name} last warm run, seconds by stage: "
+              + ", ".join(f"{k}={v:.6f}" for k, v in last.items()
+                          if isinstance(v, float)), flush=True)
+        print(f"{name} warm run under the profiler: device busy "
+              f"{busy:.3f} ms = {100 * busy / warm_ms:.1f}% of the "
+              f"unprofiled warm median, {len(events)} device ops; top: "
               + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top),
               flush=True)
-    print(f"device column cache: {GLOBAL_DEVICE_CACHE.stats()}", flush=True)
+        print(f"{name}: cuda result matches the cpu run ({cpu_s:.1f} s on "
+              f"the cpu)", flush=True)
+    print(f"device column cache: {X.GLOBAL_DEVICE_CACHE.stats()}",
+          flush=True)
+    return totals
 
-    for name, q in queries.items():
-        t0 = time.perf_counter()
-        resp = cpu.handle_aql({"queries": [q]})
-        if "errors" in resp:
-            raise AssertionError(f"{name} on cpu: {resp['errors']}")
-        same_result(name, answers[name], resp["results"][0])
-        print(f"{name}: cuda result matches the cpu run "
-              f"({time.perf_counter() - t0:.1f} s on the cpu)", flush=True)
-    return launches
+
+def kernel_row(name, source, replaces, launches, measured) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            **{k: measured[k] for k in ("max_abs_err", "ms", "wall_ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")}}
 
 
 def main(argv=None) -> int:
@@ -440,7 +619,9 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
 
     # build every kernel of the path at once, one nvcc per source
-    sources = [("segment_sum", cuda_build.csrc_text(P.SOURCE), "nvcc")]
+    sources = [("segment_sum", cuda_build.csrc_text(P.SOURCE), "nvcc"),
+               ("dense_segment_sum", cuda_build.csrc_text(P.K3_SOURCE),
+                "nvcc")]
     for query, city_max in k1_cases(demo).values():
         spec = k1_spec(demo, FD, plan_dense, query, city_max)[2]
         sources.append(("fused_dense", spec.source, "nvcc"))
@@ -450,27 +631,23 @@ def main(argv=None) -> int:
 
     rng = np.random.RandomState(args.seed)
     k2 = phase_k2(P, device, rng)
+    k3 = phase_k3(P, device, rng)
     k1 = phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
                   device)
     launches = phase_e2e(args.rows, args.seed)
 
-    k1_main = k1["Q1 sum(fare) hour x city"]
-    k2_main = k2[16_416]
     kernels = [
-        {"name": "fused_dense", "route": "cuda",
-         "source": "aresdb_tpu_torch/csrc/fused_dense_template.cuh",
-         "replaces": "aresdb_tpu/query/fused_dense.py:286",
-         "launches": launches["fused_dense"],
-         **{k: k1_main[k] for k in ("max_abs_err", "ms", "wall_ms",
-                                     "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")}},
-        {"name": "segment_sum", "route": "cuda",
-         "source": "aresdb_tpu_torch/csrc/segment_sum.cu",
-         "replaces": "aresdb_tpu/query/pallas_ops.py:308",
-         "launches": launches["segment_sum"],
-         **{k: k2_main[k] for k in ("max_abs_err", "ms", "wall_ms",
-                                     "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")}},
+        kernel_row("fused_dense",
+                   "aresdb_tpu_torch/csrc/fused_dense_template.cuh",
+                   "aresdb_tpu/query/fused_dense.py:286", launches["K1"],
+                   k1["Q1 sum(fare) hour x city"]),
+        kernel_row("segment_sum", "aresdb_tpu_torch/csrc/segment_sum.cu",
+                   "aresdb_tpu/query/pallas_ops.py:308", launches["K2"],
+                   k2[16_416]),
+        kernel_row("dense_segment_sum",
+                   "aresdb_tpu_torch/csrc/dense_segment_sum.cu",
+                   "aresdb_tpu/query/pallas_ops.py:99", launches["K3"],
+                   k3[K3_CASES[0]]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

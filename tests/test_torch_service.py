@@ -8,6 +8,7 @@ device="cpu")`. Keys must agree exactly, counts exactly, float measures
 within rtol=2e-4, atol=1e-3 (the JAX package's float-sum tolerance).
 
 What the port does not run yet must answer with a "not ported yet" error.
+The keyed (sort) path has its own service tests in test_torch_sort_path.py.
 """
 
 from __future__ import annotations
@@ -325,11 +326,23 @@ def _port_error(svc, query):
     return resp["errors"][0]
 
 
-def test_sort_path_plan_is_not_ported(small):
-    err = _port_error(small[1], {
-        "measures": [{"sqlExpression": "count(*)"}],
-        "dimensions": [{"sqlExpression": "fare"}]})
-    assert "not ported yet: sort path" in err
+def test_sort_path_plan_is_not_ported(small, monkeypatch):
+    """A group-by over a dimension with no bounded domain (fare) plans no
+    dense slots; the port answers it on the sort path, as the JAX package
+    does. (The name is kept from when the port refused it.)"""
+    runs = []
+    real = TX.ShardExecutor._run_sort_batch
+
+    def spy(self, *args, **kw):
+        runs.append(args[3])
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(TX.ShardExecutor, "_run_sort_batch", spy)
+    result = _assert_same({"table": "trips", "now": NOW,
+                           "measures": [{"sqlExpression": "count(*)"}],
+                           "dimensions": [{"sqlExpression": "fare"}]},
+                          *small)
+    assert runs and len(result) == 12
 
 
 @pytest.mark.parametrize("query", [
@@ -348,22 +361,27 @@ def test_paths_not_ported_answer_with_an_error(query, small):
 
 
 def test_overflowing_batch_is_not_answered(small, monkeypatch):
-    # a dense plan that understates the city domain: the JAX package
-    # reruns the batch on its sort path, the port must refuse
-    real = TX.plan_dense
+    """A dense plan that understates the city domain: both packages rerun
+    the overflowed batch on the sort path and answer alike. (The name is
+    kept from when the port refused it.)"""
+    def narrow(real):
+        def plan(plan, stats):
+            stats = dict(stats or {})
+            key = (0, plan.main_schema.column_id("city_id"))
+            if key in stats:
+                stats[key] = (0, 2)
+            return real(plan, stats)
+        return plan
 
-    def narrow(plan, stats):
-        stats = dict(stats or {})
-        key = (0, plan.main_schema.column_id("city_id"))
-        if key in stats:
-            stats[key] = (0, 2)
-        return real(plan, stats)
-
-    monkeypatch.setattr(TX, "plan_dense", narrow)
-    err = _port_error(small[1], {"measures": [{"sqlExpression": "count(*)"}],
-                                 "dimensions": [{"sqlExpression":
-                                                 "city_id"}]})
-    assert "not ported yet: sort path" in err
+    monkeypatch.setattr(TX, "plan_dense", narrow(TX.plan_dense))
+    monkeypatch.setattr(JX, "plan_dense", narrow(JX.plan_dense))
+    query = {"table": "trips", "now": NOW,
+             "measures": [{"sqlExpression": "count(*)"}],
+             "dimensions": [{"sqlExpression": "city_id"}]}
+    result = _assert_same(query, *small)
+    assert len(result) == 5   # cities 1, 2, 3, 9 and NULL
+    resp = small[1].handle_aql({"queries": [query], "verbose": True})
+    assert resp["context"][0]["overflowReruns"] == 1
 
 
 def test_sql_is_not_ported(small):
