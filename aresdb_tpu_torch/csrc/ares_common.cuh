@@ -11,10 +11,14 @@
 #include <math.h>
 #include <stdint.h>
 
+// ARES_DEV: device code (inline host code under a host compiler); ARES_HD:
+// code that nvcc also calls from the host side of a launcher
 #ifdef __CUDACC__
 #define ARES_DEV __device__ __forceinline__
+#define ARES_HD __host__ __device__ __forceinline__
 #else
 #define ARES_DEV inline
+#define ARES_HD inline
 #endif
 
 ARES_DEV int ares_add(int a, int b) { return (int)((uint32_t)a + (uint32_t)b); }

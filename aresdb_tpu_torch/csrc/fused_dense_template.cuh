@@ -14,9 +14,17 @@
 //
 // Bound on this card: the bytes read, each staged column's values and
 // validity once (about 15 B/row for the headline query), at 3.35 TB/s.
-// One thread per row keeps the loads coalesced; the shared-memory
-// histogram keeps the scatter out of device memory up to ~19k slots;
-// wider slot spaces (up to 65,536) add into device memory directly.
+// The reduction is block_hist.cuh's cluster histogram: every dense plan up
+// to 65,536 slots keeps its [n_slots, 3] table on chip (a private table per
+// block up to about 19k slots, split over a cluster beyond, each row added
+// into the owning rank's shared memory through distributed shared memory),
+// flushed with coalesced global atomics. The measure channel adds as a
+// float; the valid-measure and row counts, integers by construction, add
+// with native integer shared-memory atomics, local or remote. Each
+// 1,024-thread block evaluates K1_UNROLL rows a thread and pass, one block
+// width apart (rows i, i + blockDim.x, ...): every load instruction stays
+// coalesced across the warp, and the unrolled rows' column loads are all
+// issued before their updates, so they overlap.
 //
 // Under a host C++ compiler only the row-function harness below is built:
 // the CPU tests compare its per-row lanes with the plain PyTorch emitter.
@@ -47,57 +55,88 @@ struct AresCols {
   const bool* b[ARES_MAX_COLS];
 };
 
-__global__ void fused_dense_kernel(AresCols cols, long long n,
-                                   long long n_valid, const int* tcol,
-                                   long long cutoff, int n_slots,
-                                   int shared, float* __restrict__ out,
-                                   int* __restrict__ ovf) {
+// rows a thread evaluates before it adds any of them
+#define K1_UNROLL 2
+// block_sum_int keeps 32 ints of static shared memory
+#define K1_STATIC_BYTES (32 * sizeof(int))
+
+// Whether row i is live: below n_valid and, with a time column, at or
+// after the archiving cutoff.
+__device__ __forceinline__ bool row_live(long long i, long long n_valid,
+                                         const int* tcol, long long cutoff) {
+  bool pre = i < n_valid;
+  if (tcol != nullptr) pre = pre && (long long)(uint32_t)tcol[i] >= cutoff;
+  return pre;
+}
+
+// Fold one evaluated row into the cluster table; 1 where it is out of its
+// planned domain (the overflow count), else 0.
+__device__ __forceinline__ int fold_row(float* hist, const HistLayout& L,
+                                        bool pre, const AresRow& r) {
+  const bool mask = pre && r.keep;
+  if (!mask) return 0;
+  if (r.bad) return 1;
+  if (!hist_takes<HIST_SPLIT_DSMEM>(L, r.slot)) return 0;
+  // an invalid measure adds +0 whatever its bits (NaN included)
+  const float v[3] = {r.mvalid ? r.mval : 0.f, r.mvalid ? 1.f : 0.f, 1.f};
+  cluster_hist_add<HIST_SPLIT_DSMEM, 3, 1>(hist, L, r.slot, v);
+  return 0;
+}
+
+// __launch_bounds__: ptxas keeps every plan's row function within the 64
+// registers a thread of a 1,024-thread block may use
+__global__ void __launch_bounds__(1024)
+    fused_dense_kernel(AresCols cols, long long n, long long n_valid,
+                       const int* tcol, long long cutoff, HistLayout L,
+                       float* __restrict__ out, int* __restrict__ ovf) {
   extern __shared__ float hist[];
-  if (shared) hist_zero(hist, n_slots * 3);
+  cluster_hist_zero(hist, L);
   int my_ovf = 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    // pre-mask: padded rows, and live rows below the archiving cutoff
-    bool pre = i < n_valid;
-    if (tcol != nullptr) pre = pre && (long long)(uint32_t)tcol[i] >= cutoff;
-    AresRow r;
-    ares_row(cols.v, cols.b, i, r);
-    const bool mask = pre && r.keep;
-    my_ovf += (mask && r.bad) ? 1 : 0;
-    if (!mask || r.bad) continue;
-    // an invalid measure adds +0 whatever its bits (NaN included)
-    const float mv = r.mvalid ? r.mval : 0.f;
-    const float mc = r.mvalid ? 1.f : 0.f;
-    if (shared) {
-      atomicAdd(&hist[r.slot * 3 + 0], mv);
-      atomicAdd(&hist[r.slot * 3 + 1], mc);
-      atomicAdd(&hist[r.slot * 3 + 2], 1.f);
+  const HistPart pt = hist_part<HIST_SPLIT_DSMEM>(L);
+  const long long tile = (long long)blockDim.x * K1_UNROLL;
+  for (long long t0 = pt.part * tile; t0 < n; t0 += pt.n_parts * tile) {
+    const long long i0 = t0 + threadIdx.x;
+    if (t0 + tile <= n) {
+      AresRow r[K1_UNROLL];
+      bool pre[K1_UNROLL];
+#pragma unroll
+      for (int k = 0; k < K1_UNROLL; ++k) {
+        const long long i = i0 + (long long)k * blockDim.x;
+        pre[k] = row_live(i, n_valid, tcol, cutoff);
+        ares_row(cols.v, cols.b, i, r[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < K1_UNROLL; ++k)
+        my_ovf += fold_row(hist, L, pre[k], r[k]);
     } else {
-      atomicAdd(&out[r.slot], mv);
-      atomicAdd(&out[(long long)n_slots + r.slot], mc);
-      atomicAdd(&out[2LL * n_slots + r.slot], 1.f);
+      for (int k = 0; k < K1_UNROLL; ++k) {
+        const long long i = i0 + (long long)k * blockDim.x;
+        if (i >= n) break;
+        AresRow r;
+        ares_row(cols.v, cols.b, i, r);
+        my_ovf += fold_row(hist, L, row_live(i, n_valid, tcol, cutoff), r);
+      }
     }
   }
   const int total = block_sum_int(my_ovf);
   if (threadIdx.x == 0 && total != 0) atomicAdd(ovf, total);
-  if (shared) hist_flush(hist, n_slots, 3, out, 1, n_slots);
+  cluster_hist_flush<3, 1>(hist, L, out, 1, L.n_slots);
 }
 
-// Bytes of dynamic shared memory a launch over n_slots gives its block
-// histogram; 0 where the histogram does not fit and the kernel adds into
-// global memory directly.
-extern "C" long long ares_fused_dense_smem(int n_slots, int device) {
-  const size_t hist_bytes = (size_t)n_slots * 3 * sizeof(float);
-  // block_sum_int keeps 32 ints of static shared memory
-  return shared_hist_fits(device, hist_bytes, 32 * sizeof(int))
-             ? (long long)hist_bytes : 0;
+// The cluster size a launch over n_slots takes (0: no cluster holds the
+// table, and the launch fails).
+extern "C" int ares_fused_dense_cluster(int n_slots, int device) {
+  long long optin = 0;
+  int max_cluster = 0;
+  hist_device_limits(device, &optin, &max_cluster);
+  return hist_policy(n_slots, 3, K1_STATIC_BYTES, optin, max_cluster);
 }
 
 // vals/valids: n_cols device pointers each; tcol: the uint32 time column
 // for the cutoff mask, or null; out: float32 [3, n_slots] and ovf: int32
 // [1], both zeroed by the caller. Launches on `stream`, allocates nothing,
-// returns the launch's cudaError_t.
+// returns the launch's cudaError_t (cudaErrorInvalidValue where no cluster
+// holds the table).
 extern "C" int ares_fused_dense(const void* const* vals,
                                 const void* const* valids, int n_cols,
                                 long long n, long long n_valid,
@@ -112,20 +151,14 @@ extern "C" int ares_fused_dense(const void* const* vals,
     cols.v[j] = vals[j];
     cols.b[j] = (const bool*)valids[j];
   }
-  const int threads = 512;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)ares_fused_dense_smem(n_slots, device);
-  const int shared = smem > 0;
-  if (shared) {
-    err = cudaFuncSetAttribute(
-        fused_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int grid = rows_grid(fused_dense_kernel, device, threads, smem, n);
-  fused_dense_kernel<<<grid, threads, smem, st>>>(
-      cols, n, n_valid, (const int*)tcol, cutoff, n_slots, shared,
-      (float*)out, (int*)ovf);
+  HistLaunch h;
+  if (!hist_plan<HIST_SPLIT_DSMEM>(fused_dense_kernel, device, n_slots, 3,
+                                   K1_STATIC_BYTES, n, K1_UNROLL, &h))
+    return (int)cudaErrorInvalidValue;
+  err = hist_launch(fused_dense_kernel, h, (cudaStream_t)stream, cols, n,
+                    n_valid, (const int*)tcol, cutoff, h.L, (float*)out,
+                    (int*)ovf);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,9 @@
 
 Builds the port's hand-written CUDA kernels from `aresdb_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card at the main
-path's shapes, then drives the main paths end to end: N rows (default 32M,
+path's shapes (K2 also on the engine's skewed traffic, a NaN measure and,
+through its global-atomic kernel, nine channels),
+then drives the main paths end to end: N rows (default 32M,
 16 live batches of 2,097,152) of the demo trips table are ingested through
 the upsert wire format into a `TableShard`, and these queries run through
 `QueryService.handle_aql` on `cuda`, each checked against the same
@@ -28,7 +30,11 @@ Kernels and what they replace:
                    <- aresdb_tpu/query/pallas_ops.py _make_kernel
 
 Prints the card's name and power limit, per-phase results, one
-`{"kernels": [...]}` line and, last, `{"ok": true, "device": {...}}`.
+`{"kernels": [...]}` line and, last, `{"ok": true, "device": {...}}`. A
+kernel's `ms` is the device time of one wrapper call (its output memset
+included), `kernel_ms` that of the kernel's own `__global__` functions,
+and `in_situ_ms_per_launch` its device time per launch inside each query
+of the end-to-end phase, from one profiled warm run.
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails. Needs one card.
 """
@@ -39,6 +45,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -52,8 +59,28 @@ F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
 # float sums: atomics add in another order than the plain version (and
 # the JAX package's own tolerance, tests/test_fused_dense.py); counts exact
 RTOL, ATOL = 2e-4, 1e-3
-K2_SLOTS = (13_338, 16_416, 65_536)   # Q1, Q2, and the global-memory branch
-GLOBAL_K1_CASE = "Q1 over 1,000 cities (global branch)"
+# K2: (name, n_slots, channels, live slots or None for uniform, share of
+# rows dropped): uniform slots at Q1's, Q2's and the widest dense table;
+# then the engine's traffic: Q2's batches fall on 602 of its slots, Q4's
+# runtime-dense call keeps about 1% of a batch's rows, the overflow rerun
+# of Q1 about a third; one NaN measure, which poisons its slot only; and
+# nine channels of arbitrary floats, more than the cluster kernel takes,
+# through the global-atomic kernel. The engine's calls have C = 3.
+K2_CASES = (("uniform 13,338", 13_338, 3, None, 0.0),
+            ("uniform 16,416", 16_416, 3, None, 0.0),
+            ("uniform 65,536", 65_536, 3, None, 0.0),
+            ("Q2: 602 of 16,416 slots", 16_416, 3, 602, 0.0),
+            ("Q4: 16,384 slots, 99% dropped", 16_384, 3, 4_140, 0.99),
+            ("Q1 overflow: 16,384 slots, 2/3 dropped", 16_384, 3, 6_321,
+             2 / 3),
+            ("one NaN measure, 16,416 slots", 16_416, 3, None, 0.0),
+            ("9 channels, 16,416 slots", 16_416, 9, None, 0.0))
+K2_ROW_CASE = "uniform 16,416"
+WIDE_K1_CASE = "Q1 over 1,000 cities (26,650 slots)"
+# each kernel's __global__ functions, as the profiler names them
+KERNEL_FUNCS = {"K1": r"fused_dense_kernel",
+                "K2": r"(?<!dense_)segment_sum_(cluster|global)",
+                "K3": r"dense_segment_sum_(shared|global)"}
 # K3: (n_slots, channels, indicator layout): Q5's 128 slots first, then
 # wider tables, one channel, arbitrary floats in every channel, and the
 # global-memory branch (8 x 8,192 floats exceed a block's shared memory)
@@ -122,8 +149,8 @@ def k1_cases(demo) -> dict:
     plan assumes: the main path's Q1, then the other forms the emitter
     writes (avg with a post-division slot, count, CASE and IN, a numeric
     bucket, arithmetic with % and NOT), Q1 over a city domain that the
-    data overflows, and Q1 over 1,000 cities, whose 26,650 slots do not
-    fit a block's shared memory (K1's global-atomic branch)."""
+    data overflows, and Q1 over 1,000 cities, whose 26,650 slots (320 KB)
+    no single block's shared memory holds."""
     def q(measure, filters=(), dims=None):
         out = json.loads(json.dumps(demo.DEMO_QUERY))
         out["measures"] = [{"sqlExpression": measure,
@@ -148,7 +175,7 @@ def k1_cases(demo) -> dict:
                                     ["city_id % 7 != 3",
                                      "NOT (status = 'rejected')"]), 300),
         "Q1 overflowing city domain": (demo.DEMO_QUERY, 100),
-        GLOBAL_K1_CASE: (demo.DEMO_QUERY, 1000),
+        WIDE_K1_CASE: (demo.DEMO_QUERY, 1000),
     }
 
 
@@ -204,16 +231,48 @@ def device_events(fn, iters: int, attempts: int = 3):
     return []
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def kernel_events(events, kernel: str) -> list:
+    """Microseconds of each launch of `kernel`'s __global__ functions among
+    events."""
+    pat = re.compile(KERNEL_FUNCS[kernel])
+    return [us for name, us in events if pat.search(name)]
+
+
+def counted_events(fn, iters: int, kernel: str, launches: int,
+                   attempts: int = 3):
+    """device_events(fn, iters), taken again (up to `attempts` times) while
+    the session holds other than `launches` launches of `kernel`: on the
+    card's machine a session now and then records only part of them."""
+    for _ in range(attempts):
+        events = device_events(fn, iters)
+        got = len(kernel_events(events, kernel))
+        if got == launches:
+            break
+        print(f"profiler: {got} of {launches} {kernel} launches recorded; "
+              "taken again", flush=True)
+    return events
+
+
+def device_ms(fn, iters: int = 20, kernel=None):
     """Mean device milliseconds per call of fn(): the summed time of the
-    device work it ran, from the profiler. Raises where the profiler
-    records no device activity, so that `ms` is always device time."""
+    device work it ran, from the profiler; with `kernel` ("K1".."K3"),
+    whose wrapper fn() calls once, (that, the time of the kernel's own
+    functions alone, without the wrapper's output memset). Raises where
+    the profiler records no device activity, or none of the kernel's, so
+    that both are device time."""
     for _ in range(3):
         fn()
-    total_us = sum(us for _, us in device_events(fn, iters))
+    events = device_events(fn, iters) if kernel is None else \
+        counted_events(fn, iters, kernel, iters)
+    total_us = sum(us for _, us in events)
     if total_us <= 0:
         raise RuntimeError("the profiler saw no device activity")
-    return total_us / iters / 1e3
+    if kernel is None:
+        return total_us / iters / 1e3
+    own_us = sum(kernel_events(events, kernel))
+    if own_us <= 0:
+        raise RuntimeError(f"the profiler saw no {kernel} kernel")
+    return total_us / iters / 1e3, own_us / iters / 1e3
 
 
 def bound_ms(nbytes: int, flops: int) -> tuple:
@@ -225,14 +284,22 @@ def bound_ms(nbytes: int, flops: int) -> tuple:
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
-                exact_rows=()) -> float:
+                exact_rows=(), nan_at=None) -> float:
     """Raise unless got matches want: rows listed in exact_rows exactly,
-    the others within RTOL/ATOL. Returns the largest absolute error."""
+    the others within RTOL/ATOL. Every value is finite but, where nan_at
+    is given, a NaN at that index of both. Returns the largest absolute
+    error over the finite values."""
     g = got.double().cpu().numpy()
     w = want.double().cpu().numpy()
-    if g.shape != w.shape or not np.all(np.isfinite(g)):
-        raise AssertionError(f"{name}: shape {g.shape} vs {w.shape} or "
-                             "non-finite values")
+    nan = np.zeros(g.shape, bool)
+    if nan_at is not None:
+        nan[nan_at] = True
+    if g.shape != w.shape or not np.array_equal(np.isnan(g), nan) or \
+            not np.array_equal(np.isnan(w), nan) or \
+            not np.all(np.isfinite(g[~nan])):
+        raise AssertionError(f"{name}: shape {g.shape} vs {w.shape}, or "
+                             "non-finite values other than the NaN slot's")
+    g, w = np.where(nan, 0.0, g), np.where(nan, 0.0, w)
     for r in exact_rows:
         if not np.array_equal(g[r], w[r]):
             raise AssertionError(f"{name}: channel {r} differs")
@@ -240,39 +307,83 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
     return float(np.max(np.abs(g - w))) if g.size else 0.0
 
 
+def k2_inputs(n_slots: int, c: int, live, dropped: float, rng,
+              n: int = BATCH_ROWS):
+    """numpy slots int32 [n] (-1 dropped) and values float32 [n, c] of one
+    K2 case: at c = 3 the dense path's channels (measure, 0/1 count, 1),
+    else arbitrary floats; on uniform slots where `live` is None, else on
+    `live` slots picked at random, with a `dropped` share of the rows
+    dropped."""
+    if live is None:
+        slots = rng.randint(-1, n_slots, n)
+    else:
+        pick = np.sort(rng.choice(n_slots, live, replace=False))
+        slots = pick[rng.randint(0, live, n)]
+        slots[rng.rand(n) < dropped] = -1
+    if c == 3:
+        vals = np.stack([(rng.rand(n) * 50).astype(np.float32),
+                         (rng.rand(n) > 0.02).astype(np.float32),
+                         np.ones(n, np.float32)], axis=1)
+    else:
+        vals = ((rng.rand(n, c) - 0.3) * 100).astype(np.float32)
+    return slots.astype(np.int32), vals
+
+
+def k2_function(call) -> str:
+    """The name of the K2 __global__ function that one call() launched."""
+    pat = re.compile(KERNEL_FUNCS["K2"])
+    names = {m.group(0) for name, _ in counted_events(call, 1, "K2", 1)
+             for m in [pat.search(name)] if m}
+    if len(names) != 1:
+        raise AssertionError(f"K2: one call launched {sorted(names)}")
+    return names.pop()
+
+
 def phase_k2(P, device, rng) -> dict:
-    """K2 against its plain version at n = one batch, C = 3."""
-    n, c = BATCH_ROWS, 3
+    """K2 against its plain version at n = one batch for each of K2_CASES;
+    at the engine's C = 3 through the cluster kernel, above 8 channels
+    through the global-atomic one."""
+    n = BATCH_ROWS
     results = {}
-    for n_slots in K2_SLOTS:
-        slots_np = rng.randint(-1, n_slots, n).astype(np.int32)
-        vals_np = np.stack([(rng.rand(n) * 50).astype(np.float32),
-                            (rng.rand(n) > 0.02).astype(np.float32),
-                            np.ones(n, np.float32)], axis=1)
+    for name, n_slots, c, live, dropped in K2_CASES:
+        slots_np, vals_np = k2_inputs(n_slots, c, live, dropped, rng)
+        nan_at = None
+        if "NaN" in name:
+            row = int(np.flatnonzero(slots_np >= 0)[n // 2])
+            vals_np[row, 0] = np.nan
+            nan_at = (0, int(slots_np[row]))   # channel 0 of its slot
         slots = torch.from_numpy(slots_np).to(device)
         vals = torch.from_numpy(vals_np).to(device)
         got = P.segment_sum(slots, vals, n_slots)
         want = P.segment_sum_plain(slots, vals, n_slots)
         torch.cuda.synchronize()
-        err = check_close(f"K2 n_slots={n_slots}", got.t(), want.t(),
-                          exact_rows=(1, 2))
+        err = check_close(f"K2 {name}", got.t(), want.t(),
+                          exact_rows=(1, 2) if c == 3 else (), nan_at=nan_at)
         call = lambda: P.segment_sum(slots, vals, n_slots)  # noqa: E731
-        ms, call_ms = device_ms(call), wall_ms(call)
+        func = k2_function(call)
+        want_func = "segment_sum_cluster" if c <= 8 else "segment_sum_global"
+        if func != want_func:
+            raise AssertionError(f"K2 {name}: ran {func}, not {want_func}")
+        (ms, kernel_ms), call_ms = device_ms(call, kernel="K2"), wall_ms(call)
         plain_ms = device_ms(lambda: P.segment_sum_plain(slots, vals,
                                                          n_slots))
         idx = torch.where(slots < 0, torch.full_like(slots, n_slots),
                           slots).long()
         lib_out = torch.zeros((n_slots + 1, c), device=device)
         library_ms = device_ms(lambda: lib_out.index_add_(0, idx, vals))
-        b_ms, b_by = bound_ms(n * (4 + 4 * c) + n_slots * c * 4, n * c)
-        results[n_slots] = dict(max_abs_err=err, ms=ms, wall_ms=call_ms,
-                                plain_ms=plain_ms, library_ms=library_ms,
-                                bound_ms=b_ms, bound_by=b_by)
-        print(f"K2 segment_sum n={n} C={c} n_slots={n_slots}: ok, "
-              f"max_abs_err={err:.3g} device ms={ms:.4f} (per call "
-              f"{call_ms:.4f}) plain_ms={plain_ms:.4f} "
-              f"index_add_ms={library_ms:.4f} bound_ms={b_ms:.4f}",
-              flush=True)
+        # every slot is read; the values of the rows that are kept
+        kept = int((slots_np >= 0).sum())
+        b_ms, b_by = bound_ms(n * 4 + kept * 4 * c + n_slots * c * 4,
+                              kept * c)
+        results[name] = dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                             wall_ms=call_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=b_ms,
+                             bound_by=b_by)
+        print(f"K2 segment_sum {name}, n={n} C={c}: ok through {func}, "
+              f"max_abs_err={err:.3g} device ms={ms:.4f} kernel-only "
+              f"ms={kernel_ms:.4f} (per call {call_ms:.4f}) "
+              f"plain_ms={plain_ms:.4f} index_add_ms={library_ms:.4f} "
+              f"bound_ms={b_ms:.4f}", flush=True)
     return results
 
 
@@ -300,7 +411,7 @@ def phase_k3(P, device, rng) -> dict:
         err = check_close(name, got.t(), want.t(),
                           exact_rows=(1, 2) if indicators else ())
         call = lambda: P.dense_segment_sum(slots, vals, n_slots)  # noqa: E731
-        ms, call_ms = device_ms(call), wall_ms(call)
+        (ms, kernel_ms), call_ms = device_ms(call, kernel="K3"), wall_ms(call)
         plain_ms = device_ms(lambda: P.dense_segment_sum_plain(
             slots, vals, n_slots))
         idx = torch.where((slots < 0) | (slots >= n_slots),
@@ -309,9 +420,11 @@ def phase_k3(P, device, rng) -> dict:
         library_ms = device_ms(lambda: lib_out.index_add_(0, idx, vals))
         b_ms, b_by = bound_ms(n * (4 + 4 * c) + n_slots * c * 4, n * c)
         results[(n_slots, c, indicators)] = dict(
-            max_abs_err=err, ms=ms, wall_ms=call_ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+            max_abs_err=err, ms=ms, kernel_ms=kernel_ms, wall_ms=call_ms,
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+            bound_by=b_by)
         print(f"{name} n={n}: ok, max_abs_err={err:.3g} device ms={ms:.4f} "
+              f"kernel-only ms={kernel_ms:.4f} "
               f"(per call {call_ms:.4f}) plain_ms={plain_ms:.4f} "
               f"index_add_ms={library_ms:.4f} bound_ms={b_ms:.4f}",
               flush=True)
@@ -320,18 +433,18 @@ def phase_k3(P, device, rng) -> dict:
 
 def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
              device) -> dict:
-    """K1 against its plain version at n = one batch for each plan; the
-    1,000-city case must take the global-atomic branch, the others the
-    shared-memory histogram."""
+    """K1 against its plain version at n = one batch for each plan; every
+    plan, the 26,650-slot one included, reduces through the cluster
+    histogram."""
     n = BATCH_ROWS
     results = {}
     for name, (query, city_max) in k1_cases(demo).items():
         plan, dp, spec = k1_spec(demo, FD, plan_dense, query, city_max)
-        smem = cuda_build.load_library("fused_dense", spec.source) \
-            .ares_fused_dense_smem(spec.n_slots, device.index or 0)
-        if (smem == 0) != (name == GLOBAL_K1_CASE):
-            raise AssertionError(f"K1 {name}: {spec.n_slots} slots take "
-                                 f"{smem} B of shared memory")
+        ranks = cuda_build.load_library("fused_dense", spec.source) \
+            .ares_fused_dense_cluster(spec.n_slots, device.index or 0)
+        if ranks <= 0:
+            raise AssertionError(f"K1 {name}: no cluster holds its "
+                                 f"{spec.n_slots} slots")
         cols_np, _ = demo.demo_columns(plan, n, seed=3,
                                        n_cities=max(city_max, 300))
         kern = FD.FusedDenseKernel(plan, n, dp, spec, device)
@@ -348,7 +461,7 @@ def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
         err = check_close(f"K1 {name}", got, want, exact_rows=(1, 2))
         rows_in = int(want[2].sum().item())
         call = lambda: kern.reduce(columns, n_valid, cutoff)  # noqa: E731
-        ms, call_ms = device_ms(call), wall_ms(call)
+        (ms, kernel_ms), call_ms = device_ms(call, kernel="K1"), wall_ms(call)
         plain_ms = device_ms(lambda: kern.reduce_plain(columns, n_valid,
                                                        cutoff))
         nbytes = sum(columns[(0, cid)][0].element_size() * n + n
@@ -358,12 +471,14 @@ def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
         nbytes += 3 * spec.n_slots * 4
         b_ms, b_by = bound_ms(nbytes, 3 * n)
         results[name] = dict(n_slots=spec.n_slots, max_abs_err=err, ms=ms,
-                             wall_ms=call_ms, plain_ms=plain_ms,
-                             library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                             kernel_ms=kernel_ms, wall_ms=call_ms,
+                             plain_ms=plain_ms, library_ms=None,
+                             bound_ms=b_ms, bound_by=b_by)
         print(f"K1 fused_dense {name}: n={n} n_slots={spec.n_slots} "
-              f"shared histogram bytes={smem} ok, "
+              f"cluster of {ranks} ok, "
               f"rows kept={rows_in} overflow={int(got_ovf)} "
-              f"max_abs_err={err:.3g} device ms={ms:.4f} (per call "
+              f"max_abs_err={err:.3g} device ms={ms:.4f} kernel-only "
+              f"ms={kernel_ms:.4f} (per call "
               f"{call_ms:.4f}) plain_ms={plain_ms:.4f} "
               f"bound_ms={b_ms:.4f}", flush=True)
     return results
@@ -483,11 +598,12 @@ def ask(svc, name: str, q: dict) -> tuple:
     return resp["results"][0], resp["context"][0]
 
 
-def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None) -> dict:
+def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None) -> tuple:
     """Ingest, then every query of e2e_queries through QueryService on the
     card (one cold and `warm` warm runs, each kernel's launch count set to
     0 just before and read just after) against the CPU service. Returns
-    each kernel's launches over those runs."""
+    each kernel's launches over those runs, and {kernel: {query: device ms
+    per launch}} from one more warm run under the profiler."""
     from aresdb_tpu_torch import demo
     from aresdb_tpu_torch.query import executor as X
     from aresdb_tpu_torch.query import fused_dense as FD
@@ -509,6 +625,7 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None) -> dict:
     counters = {"K1": FD.FusedDenseKernel, "K2": P.segment_sum,
                 "K3": P.dense_segment_sum}
     totals = dict.fromkeys(counters, 0)
+    in_situ = {k: {} for k in counters}
     cpu_answers = {}
     runs = 1 + warm
     for name, (q, env, understate) in e2e_queries(demo).items():
@@ -546,8 +663,25 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None) -> dict:
             if reruns != want_reruns:
                 raise AssertionError(f"{name}: (ladder, overflow) reruns "
                                      f"{reruns}, expected {want_reruns}")
-            events = device_events(lambda: ask(gpu, name, q), 1) \
+            def profiled_run():
+                # a retaken session's launches are counted afresh
+                for c in counters.values():
+                    c.launches = 0
+                ask(gpu, name, q)
+
+            events = device_events(profiled_run, 1) \
                 if gpu.device.type == "cuda" else []
+            for k, c in counters.items():
+                if events and c.launches and \
+                        len(kernel_events(events, k)) != c.launches:
+                    events = counted_events(profiled_run, 1, k, c.launches)
+            for k, c in counters.items():
+                if c.launches and events:
+                    in_situ[k][name] = \
+                        sum(kernel_events(events, k)) / 1e3 / c.launches
+                    print(f"{name} in situ: {k} {in_situ[k][name]:.4f} ms "
+                          f"per launch over {c.launches} launches",
+                          flush=True)
             t0 = time.perf_counter()
             cpu_answer, _ = ask(cpu, name, q)
             cpu_s = time.perf_counter() - t0
@@ -582,15 +716,17 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None) -> dict:
               f"the cpu)", flush=True)
     print(f"device column cache: {X.GLOBAL_DEVICE_CACHE.stats()}",
           flush=True)
-    return totals
+    return totals, in_situ
 
 
-def kernel_row(name, source, replaces, launches, measured) -> dict:
+def kernel_row(name, source, replaces, launches, measured,
+               in_situ) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
-            **{k: measured[k] for k in ("max_abs_err", "ms", "wall_ms",
-                                        "plain_ms", "bound_ms", "bound_by",
-                                        "library_ms")}}
+            **{k: measured[k] for k in ("max_abs_err", "ms", "kernel_ms",
+                                        "wall_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+            "in_situ_ms_per_launch": in_situ}
 
 
 def main(argv=None) -> int:
@@ -634,20 +770,20 @@ def main(argv=None) -> int:
     k3 = phase_k3(P, device, rng)
     k1 = phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
                   device)
-    launches = phase_e2e(args.rows, args.seed)
+    launches, in_situ = phase_e2e(args.rows, args.seed)
 
     kernels = [
         kernel_row("fused_dense",
                    "aresdb_tpu_torch/csrc/fused_dense_template.cuh",
                    "aresdb_tpu/query/fused_dense.py:286", launches["K1"],
-                   k1["Q1 sum(fare) hour x city"]),
+                   k1["Q1 sum(fare) hour x city"], in_situ["K1"]),
         kernel_row("segment_sum", "aresdb_tpu_torch/csrc/segment_sum.cu",
                    "aresdb_tpu/query/pallas_ops.py:308", launches["K2"],
-                   k2[16_416]),
+                   k2[K2_ROW_CASE], in_situ["K2"]),
         kernel_row("dense_segment_sum",
                    "aresdb_tpu_torch/csrc/dense_segment_sum.cu",
                    "aresdb_tpu/query/pallas_ops.py:99", launches["K3"],
-                   k3[K3_CASES[0]]),
+                   k3[K3_CASES[0]], in_situ["K3"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

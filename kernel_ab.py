@@ -1,0 +1,336 @@
+"""Measure the slot-histogram kernels K1 and K2 on one GPU.
+
+    python3 kernel_ab.py [--parent DIR] [--modes sass,ab] [--out FILE]
+
+- sass:  what the float atomicAdd of each built kernel compiles to
+         (cuobjdump -sass): shared-memory, distributed shared-memory and
+         global atomics, native or a compare-and-swap loop; plus small
+         probes of the PTX forms of a remote shared-memory add; and each
+         kernel's registers and spills (ptxas -v).
+- ab:    the parent commit's K1 and K2 against this tree's, at the shapes
+         of chip_smoke.py's kernel phases, in turns (old, new, new, old);
+         each is checked against the plain version before it is timed.
+         DIR holds the parent's `aresdb_tpu_torch/csrc/` files (e.g. from
+         `git show`); its sources are built beside this tree's and never
+         imported.
+
+Times are device milliseconds per call from torch.profiler: `ms` with the
+output memset the wrapper launches, `kernel_ms` of the kernels alone. Every
+result is printed as one JSON line, and written to FILE where --out names
+one. Needs one card and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import chip_smoke as S
+
+OUT = None    # --out: the file every result is also written to
+N = S.BATCH_ROWS
+
+# chip_smoke.py's K2 cases at the engine's C = 3 but the NaN one, which
+# times as uniform slots
+K2_SHAPES = tuple(case for case in S.K2_CASES
+                  if case[2] == 3 and "NaN" not in case[0])
+K1_SHAPES = ("Q1 sum(fare) hour x city", S.WIDE_K1_CASE)
+
+PROBES = {
+    "local shared atomicAdd": r"""
+__global__ void probe(const int* s, const float* v, float* out) {
+  __shared__ float h[1024];
+  h[threadIdx.x] = 0.f;
+  __syncthreads();
+  atomicAdd(&h[s[threadIdx.x] & 1023], v[threadIdx.x]);
+  __syncthreads();
+  out[threadIdx.x] = h[threadIdx.x];
+}
+""",
+    "remote atomicAdd through map_shared_rank": r"""
+#include <cooperative_groups.h>
+namespace cg = cooperative_groups;
+__global__ void __cluster_dims__(2, 1, 1)
+probe(const int* s, const float* v, float* out) {
+  __shared__ float h[1024];
+  cg::cluster_group cl = cg::this_cluster();
+  h[threadIdx.x] = 0.f;
+  cl.sync();
+  float* p = cl.map_shared_rank(h, (int)(cl.block_rank() ^ 1));
+  atomicAdd(p + (s[threadIdx.x] & 1023), v[threadIdx.x]);
+  cl.sync();
+  out[blockIdx.x * 1024 + threadIdx.x] = h[threadIdx.x];
+}
+""",
+    "remote red.shared::cluster.add.f32 (PTX)": r"""
+#include <cooperative_groups.h>
+namespace cg = cooperative_groups;
+__global__ void __cluster_dims__(2, 1, 1)
+probe(const int* s, const float* v, float* out) {
+  __shared__ float h[1024];
+  cg::cluster_group cl = cg::this_cluster();
+  h[threadIdx.x] = 0.f;
+  cl.sync();
+  unsigned a = (unsigned)__cvta_generic_to_shared(h + (s[threadIdx.x] & 1023));
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(a), "r"((unsigned)(cl.block_rank() ^ 1)));
+  asm volatile("red.relaxed.cluster.shared::cluster.add.f32 [%0], %1;"
+               :: "r"(r), "f"(v[threadIdx.x]) : "memory");
+  cl.sync();
+  out[blockIdx.x * 1024 + threadIdx.x] = h[threadIdx.x];
+}
+""",
+}
+
+
+def emit(rec: dict) -> None:
+    print(json.dumps(rec), flush=True)
+    if OUT is not None:
+        with open(OUT, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+
+# the __global__ functions of K1 and K2, old and new
+KERNEL_NAMES = ("segment_sum", "fused_dense")
+
+
+def measure(fn, iters: int = 20, attempts: int = 3) -> tuple:
+    """(ms, kernel_ms): device ms per call of fn(), all of its device work
+    (the output memset included) and K1's or K2's kernel alone (one launch
+    a call), from one profiler session after a warm-up. A session that
+    recorded other than `iters` launches is taken again."""
+    for _ in range(3):
+        fn()
+    for _ in range(attempts):
+        events = S.device_events(fn, iters)
+        own = [us for name, us in events
+               if any(k in name for k in KERNEL_NAMES)]
+        if len(own) == iters:
+            break
+        print(f"profiler: {len(own)} of {iters} launches recorded; taken "
+              "again", flush=True)
+    total = sum(us for _, us in events)
+    if total <= 0 or len(own) != iters:
+        raise RuntimeError("the profiler saw no device activity, or not "
+                           "every launch")
+    return total / iters / 1e3, sum(own) / iters / 1e3
+
+
+def k2_inputs(n_slots, live, dropped, rng, device):
+    """chip_smoke.k2_inputs of one K2 shape at C = 3, on the card."""
+    slots, vals = S.k2_inputs(n_slots, 3, live, dropped, rng)
+    return (torch.from_numpy(slots).to(device),
+            torch.from_numpy(vals).to(device))
+
+
+def k1_setups(device):
+    """name -> (kernel wrapper, columns, n_valid, cutoff) of chip_smoke's
+    K1 shapes."""
+    from aresdb_tpu_torch import demo
+    from aresdb_tpu_torch.query import fused_dense as FD
+    from aresdb_tpu_torch.query.dense import plan_dense
+    from aresdb_tpu_torch.query.executor import columns_from_numpy
+
+    out = {}
+    cases = S.k1_cases(demo)
+    for name in K1_SHAPES:
+        query, city_max = cases[name]
+        plan, dp, spec = S.k1_spec(demo, FD, plan_dense, query, city_max)
+        cols_np, _ = demo.demo_columns(plan, N, seed=3,
+                                       n_cities=max(city_max, 300))
+        kern = FD.FusedDenseKernel(plan, N, dp, spec, device)
+        out[name] = (kern, columns_from_numpy(cols_np, N, device), N - 777,
+                     demo.DEMO_NOW - 15 * 3600)
+    return out
+
+
+def k1_pointers(kern, columns):
+    lanes = kern._lanes(columns)
+    p = ctypes.c_void_p
+    vals = (p * len(lanes))(*[v.data_ptr() for v, _ in lanes])
+    valids = (p * len(lanes))(*[b.data_ptr() for _, b in lanes])
+    tcol = columns[(0, 0)][0].data_ptr() if (0, 0) in columns else None
+    return vals, valids, len(lanes), tcol
+
+
+def mode_sass(libs) -> None:
+    """The atomic instructions of each library's kernels, and the probes'."""
+    from aresdb_tpu_torch.utils import cuda_build
+
+    cuobjdump = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
+    items = [(f"probe{k}", src, "nvcc")
+             for k, src in enumerate(PROBES.values())]
+    for name, src, comp in items:
+        try:
+            cuda_build.build_all([(name, src, comp)])
+            libs[name] = cuda_build.library_path(name, src, comp)
+        except RuntimeError as e:
+            emit({"mode": "sass", "probe": name, "built": False,
+                  "error": str(e)[-1500:]})
+    names = dict(zip((n for n, _, _ in items), PROBES))
+    for label, path in libs.items():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                              capture_output=True, text=True).stdout
+        per_fn, fn = {}, None
+        for line in sass.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                continue
+            op = re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED|REDG|REDAS)"
+                           r"(?:\.[A-Z0-9_]+)*)\b", line)
+            if op and fn:
+                per_fn.setdefault(fn, {})
+                per_fn[fn][op.group(1)] = per_fn[fn].get(op.group(1), 0) + 1
+        log = Path(path).with_suffix(".log")
+        ptxas = [ln.strip() for ln in log.read_text().splitlines()
+                 if "registers" in ln or "spill" in ln] if log.exists() else []
+        emit({"mode": "sass", "library": names.get(label, label),
+              "atomics": per_fn, "ptxas": ptxas})
+
+
+def check_k2(out, slots, vals, n_slots, name) -> float:
+    from aresdb_tpu_torch.query import pallas_ops as P
+
+    want = P.segment_sum_plain(slots, vals, n_slots)
+    torch.cuda.synchronize()
+    return S.check_close(name, out.t(), want.t(), exact_rows=(1, 2))
+
+
+def inline_includes(text: str, src_dir: Path) -> str:
+    """text with each `#include "x"` whose x is in src_dir replaced by x's
+    own text, recursively (the parent's headers, not this tree's)."""
+    def sub(m):
+        f = src_dir / m.group(1)
+        return inline_includes(f.read_text(), src_dir) if f.exists() \
+            else m.group(0)
+    return re.sub(r'#include "([^"]+)"', sub, text)
+
+
+def mode_ab(parent: Path, k1, rng, device) -> None:
+    """Parent and change at every K2 and K1 shape: old, new, new, old."""
+    from aresdb_tpu_torch.query import pallas_ops as P
+    from aresdb_tpu_torch.utils import cuda_build
+
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    old_k2 = cuda_build.load_library(
+        "parent_segment_sum",
+        inline_includes((parent / "segment_sum.cu").read_text(), parent))
+    old_k2 = old_k2.ares_segment_sum
+    old_k2.argtypes = [p, p, ll, i, i, p, i, p]
+    old_k2.restype = i
+    for name, n_slots, _, live, dropped in K2_SHAPES:
+        slots, vals = k2_inputs(n_slots, live, dropped, rng, device)
+
+        def old():
+            out = torch.zeros((n_slots, 3), device=device)
+            rc = old_k2(slots.data_ptr(), vals.data_ptr(), N, 3, n_slots,
+                        out.data_ptr(), 0,
+                        torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"parent K2: CUDA error {rc}")
+            return out
+
+        def new():
+            return P.segment_sum(slots, vals, n_slots)
+
+        errs = [check_k2(f(), slots, vals, n_slots, f"K2 {name} {tag}")
+                for tag, f in (("parent", old), ("change", new))]
+        runs = [(tag, measure(f)) for tag, f in
+                (("parent", old), ("change", new), ("change", new),
+                 ("parent", old))]
+        emit({"mode": "ab", "kernel": "K2", "shape": name,
+              "max_abs_err": errs, "runs": runs})
+    for name, (kern, columns, n_valid, cutoff) in k1.items():
+        text = kern.spec.source.replace(
+            '#include "fused_dense_template.cuh"',
+            inline_includes((parent / "fused_dense_template.cuh").read_text(),
+                            parent))
+        old_fn = cuda_build.load_library("parent_fused_dense", text) \
+            .ares_fused_dense
+        old_fn.argtypes = [p, p, i, ll, ll, p, ll, i, p, p, i, p]
+        old_fn.restype = i
+        vals_p, valids_p, n_cols, tptr = k1_pointers(kern, columns)
+        n_slots = kern.spec.n_slots
+
+        def old():
+            out = torch.zeros((3, n_slots), device=device)
+            ovf = torch.zeros(1, dtype=torch.int32, device=device)
+            rc = old_fn(vals_p, valids_p, n_cols, N, n_valid, tptr, cutoff,
+                        n_slots, out.data_ptr(), ovf.data_ptr(), 0,
+                        torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"parent K1: CUDA error {rc}")
+            return out
+
+        def new():
+            return kern.reduce(columns, n_valid, cutoff)[0]
+
+        want, _ = kern.reduce_plain(columns, n_valid, cutoff)
+        errs = []
+        for tag, f in (("parent", old), ("change", new)):
+            got = f()
+            torch.cuda.synchronize()
+            errs.append(S.check_close(f"K1 {name} {tag}", got, want,
+                                      exact_rows=(1, 2)))
+        runs = [(tag, measure(f)) for tag, f in
+                (("parent", old), ("change", new), ("change", new),
+                 ("parent", old))]
+        emit({"mode": "ab", "kernel": "K1", "shape": name,
+              "n_slots": n_slots, "max_abs_err": errs, "runs": runs})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path,
+                    help="directory with the parent commit's csrc/ files")
+    ap.add_argument("--modes", default="sass,ab")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", type=Path,
+                    help="file to write the JSON lines to as well")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    modes = args.modes.split(",")
+    if "ab" in modes and args.parent is None:
+        ap.error("mode ab needs --parent")
+    global OUT
+    OUT = args.out
+    if OUT is not None:
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        OUT.unlink(missing_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    emit({"card": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    from aresdb_tpu_torch.query import pallas_ops as P
+    from aresdb_tpu_torch.utils import cuda_build
+
+    device = torch.device("cuda")
+    rng = np.random.RandomState(args.seed)
+    k1 = k1_setups(device)
+    sources = [("segment_sum", cuda_build.csrc_text(P.SOURCE), "nvcc")] + [
+        ("fused_dense", kern.spec.source, "nvcc") for kern, *_ in k1.values()]
+    emit({"built_s": cuda_build.build_all(sources)})
+    if "sass" in modes:
+        libs = {f"{n} {k}": cuda_build.library_path(n, t, c)
+                for k, (n, t, c) in enumerate(sources)}
+        mode_sass(libs)
+    if "ab" in modes:
+        mode_ab(args.parent, k1, rng, device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,7 +27,7 @@ names = sorted(".".join(p.with_suffix("").parts).replace(".__init__", "")
                for p in pathlib.Path("aresdb_tpu_torch").rglob("*.py"))
 for name in names:
     importlib.import_module(name)
-import chip_smoke
+import chip_smoke, kernel_ab
 bad = [n for n in sys.modules
        if n == "jax" or n.startswith("jax.")
        or n == "aresdb_tpu" or n.startswith("aresdb_tpu.")]
@@ -51,7 +51,7 @@ def _port_files():
     files = [p for p in sorted(PORT.rglob("*"))
              if p.suffix in (".py", ".cu", ".cuh", ".cpp")
              and "build" not in p.relative_to(PORT).parts]
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
