@@ -1,27 +1,26 @@
 // Slot histograms for the dense group-by reductions (K1, K2, K3).
 //
-// K3 keeps a block-private float histogram of n_slots x C bins in dynamic
-// shared memory (hist_zero, hist_flush), updated with shared-memory
-// atomicAdd and flushed into the global result with one global atomicAdd
-// per non-zero bin.
-//
-// K1 and K2 use the cluster histogram below. A thread-block cluster of G
-// blocks splits one n_slots x C table by slot range: rank r owns slots
-// [r * per, (r + 1) * per), per = ceil(n_slots / G), in its own dynamic
-// shared memory. Tables up to 65,536 slots x 3 channels (786 KB) thus stay
-// on chip in a cluster of at most 8 blocks, the portable size. Each kernel
-// fixes at compile time how a row reaches the rank that owns its slot:
-// - HIST_SPLIT_TILES (K2): every rank of a cluster reads the cluster's rows
-//   and adds only the ones whose slot it owns, with a local shared-memory
-//   atomic; a row's slot is read G times, all but once from L2.
+// All three reduce through the cluster histogram below. A thread-block
+// cluster of G blocks splits one n_slots x C table by slot range: rank r
+// owns slots [r * per, (r + 1) * per), per = ceil(n_slots / G), in its own
+// dynamic shared memory. Tables up to 65,536 slots x 3 channels (786 KB)
+// thus stay on chip in a cluster of at most 8 blocks, the portable size.
+// Each kernel fixes at compile time how a row reaches the rank that owns
+// its slot:
+// - HIST_SPLIT_TILES (K2, K3): every rank of a cluster reads the cluster's
+//   rows and adds only the ones whose slot it owns, with a local
+//   shared-memory add; a row's slot is read G times, all but once from L2.
 // - HIST_SPLIT_DSMEM (K1): the ranks read disjoint rows and add each into
 //   the owner's shared memory through the cluster's distributed shared
 //   memory (cooperative_groups map_shared_rank), remote for (G - 1) / G.
-// At G = 1 both are one private table per block. The grid is persistent
-// (cudaOccupancyMaxActiveClusters clusters), each looping over rows. After
-// a cluster barrier, which also keeps every block alive while peers may
-// still write into its shared memory, each rank adds its own range's
-// non-zero bins into the zeroed result with coalesced global atomics.
+// At G = 1 both are one private table per block. A block may hold several
+// copies of its slice (K3: one a warp where 32 fit, so that no warp
+// contends with another); the flush sums them. The grid is
+// persistent (cudaOccupancyMaxActiveClusters clusters), each looping over
+// rows. After a cluster barrier, which also keeps every block alive while
+// peers may still write into its shared memory, each rank adds its own
+// range's non-zero bins into the zeroed result with coalesced global
+// atomics.
 //
 // What the measurements chose (kernel_ab.py on an H100, PERF.md): on
 // sm_90 a float atomicAdd to shared memory compiles to a compare-and-swap
@@ -35,10 +34,10 @@
 // Flushing each cluster's table into a scratch buffer and summing the
 // copies in a second kernel lost to the atomic flush at every shape.
 //
-// The layout arithmetic (ranks, bytes per block, whether a table fits, the
-// cluster size) is ARES_HD code, which a host compiler also builds: the
-// CPU tests build it with g++ and check it against the card's limits given
-// as arguments.
+// The layout arithmetic (ranks, copies, bytes per block, whether a table
+// fits, the cluster size) is ARES_HD code, which a host compiler also
+// builds: the CPU tests build it with g++ and check it against the card's
+// limits given as arguments.
 #pragma once
 
 #include "ares_common.cuh"
@@ -52,6 +51,7 @@ struct HistLayout {
   int G;           // ranks (blocks) of a cluster
   int per;         // slots each rank owns: max(ceil(n_slots / G), 2)
   uint32_t magic;  // ceil(2^32 / per): hist_owner's division by per
+  int copies;      // copies of the slice each block holds (1 but in K3)
 };
 
 ARES_HD HistLayout hist_layout(int n_slots, int C, int G) {
@@ -63,6 +63,7 @@ ARES_HD HistLayout hist_layout(int n_slots, int C, int G) {
   // per >= 2 keeps magic within 32 bits; ranks past the table own nothing
   L.per = per < 2 ? 2 : per;
   L.magic = (uint32_t)((0x100000000ULL + (uint64_t)L.per - 1) / L.per);
+  L.copies = 1;
   return L;
 }
 
@@ -74,7 +75,7 @@ ARES_HD int hist_owner(const HistLayout& L, int s) {
 
 // Bytes of dynamic shared memory each block of a cluster holds.
 ARES_HD long long hist_block_bytes(const HistLayout& L) {
-  return (long long)L.per * L.C * (long long)sizeof(float);
+  return (long long)L.per * L.C * L.copies * (long long)sizeof(float);
 }
 
 // Whether each block's slice fits beside `static_bytes` of static shared
@@ -116,32 +117,12 @@ ARES_HD int hist_policy(int n_slots, int C, long long static_bytes,
 
 namespace cg = cooperative_groups;
 
-// Zero n floats of shared memory with the whole block.
-__device__ __forceinline__ void hist_zero(float* h, int n) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) h[j] = 0.f;
-  __syncthreads();
-}
-
-// Bin j = slot * C + channel goes to out[slot * stride_slot +
-// channel * stride_ch]. Bins that stayed 0 are skipped.
-__device__ __forceinline__ void hist_flush(const float* h, int n_slots, int C,
-                                           float* out, long long stride_slot,
-                                           long long stride_ch) {
-  __syncthreads();
-  for (int j = threadIdx.x; j < n_slots * C; j += blockDim.x) {
-    float v = h[j];
-    if (v != 0.f)
-      atomicAdd(out + (long long)(j / C) * stride_slot +
-                    (long long)(j % C) * stride_ch,
-                v);
-  }
-}
-
-// Zero this block's slice of the cluster table, then wait until every rank
-// of the cluster has zeroed its own.
+// Zero this block's copies of its slice of the cluster table, then wait
+// until every rank of the cluster has zeroed its own.
 __device__ __forceinline__ void cluster_hist_zero(float* h,
                                                   const HistLayout& L) {
-  for (int j = threadIdx.x; j < L.per * L.C; j += blockDim.x) h[j] = 0.f;
+  for (int j = threadIdx.x; j < L.per * L.C * L.copies; j += blockDim.x)
+    h[j] = 0.f;
   cg::this_cluster().sync();
 }
 
@@ -195,11 +176,13 @@ __device__ __forceinline__ void cluster_hist_add(float* h,
   }
 }
 
-// After every rank's adds: this rank's non-zero bins are added into the
-// zeroed result, bin (slot, c) at out[slot * stride_slot + c * stride_ch],
-// with global atomics that neighbouring threads issue on neighbouring
-// addresses (channel by channel where the result is channel-major).
-template <int C, int kIntFrom = C>
+// After every rank's adds: this rank's non-zero bins, each summed over the
+// block's copies, are added into the zeroed result, bin (slot, c) at
+// out[slot * stride_slot + c * stride_ch], with global atomics that
+// neighbouring threads issue on neighbouring addresses (channel by
+// channel where the result is channel-major). A slice holds bin (local
+// slot, c) at local * C + c, or at c * per + local where kChannelMajor.
+template <int C, int kIntFrom = C, bool kChannelMajor = false>
 __device__ __forceinline__ void cluster_hist_flush(const float* h,
                                                    const HistLayout& L,
                                                    float* out,
@@ -210,13 +193,21 @@ __device__ __forceinline__ void cluster_hist_flush(const float* h,
   const int lo = (int)cluster.block_rank() * L.per;
   const int hi = min(lo + L.per, L.n_slots);
   const int n_local = hi > lo ? hi - lo : 0;
+  const int slice = L.per * C;
   for (int j = threadIdx.x; j < n_local * C; j += blockDim.x) {
     const int c = stride_slot == 1 ? j / n_local : j % C;
     const int local = stride_slot == 1 ? j - c * n_local : j / C;
-    const int bin = local * C + c;
-    const float v = c < kIntFrom
-                        ? h[bin]
-                        : (float)reinterpret_cast<const unsigned*>(h)[bin];
+    const int bin = kChannelMajor ? c * L.per + local : local * C + c;
+    float v;
+    if (c < kIntFrom) {
+      v = h[bin];
+      for (int r = 1; r < L.copies; ++r) v += h[r * slice + bin];
+    } else {
+      const unsigned* u = reinterpret_cast<const unsigned*>(h);
+      unsigned sum = u[bin];
+      for (int r = 1; r < L.copies; ++r) sum += u[r * slice + bin];
+      v = (float)sum;
+    }
     if (v != 0.f)  // NaN != 0: a poisoned bin is flushed
       atomicAdd(out + (long long)(lo + local) * stride_slot +
                     (long long)c * stride_ch,
@@ -251,16 +242,6 @@ static int rows_grid(Kernel kernel, int device, int threads, size_t smem,
   long long need = (n + threads - 1) / threads;
   if (grid > need) grid = need;
   return (int)(grid > 0 ? grid : 1);
-}
-
-// Whether `bytes` of dynamic shared memory fit one block beside
-// `static_bytes` of static shared memory (above 48 KB only after
-// cudaFuncSetAttribute, which the launchers call).
-static bool shared_hist_fits(int device, size_t bytes, size_t static_bytes) {
-  int optin = 0;
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         device);
-  return bytes + static_bytes <= (size_t)optin;
 }
 
 // The card's limits the policy takes: opt-in shared bytes of a block, and
@@ -330,10 +311,30 @@ struct HistLaunch {
   size_t smem;
 };
 
-// The one place a launch is decided: plan one of `kernel`, whose rows
-// reach their owner by kSplit, over n rows, `rows_per_thread` rows to a
-// thread and pass, of a table of n_slots x C bins beside `static_bytes` of
-// static shared memory. Returns false where no cluster holds the table.
+// Size the persistent grid of `kernel`, whose rows reach their owner by
+// kSplit, over n rows, `rows_per_thread` rows to a thread and pass, for a
+// decided layout L beside `static_bytes` of static shared memory. Returns
+// false where the card holds no cluster of it.
+template <int kSplit, typename Kernel>
+static bool hist_size(Kernel kernel, int device, const HistLayout& L,
+                      size_t static_bytes, long long optin, long long n,
+                      int rows_per_thread, HistLaunch* out) {
+  const size_t smem = (size_t)hist_block_bytes(L);
+  long long clusters =
+      hist_max_clusters(kernel, device, L.G, smem, static_bytes, optin);
+  if (clusters <= 0) return false;
+  // under HIST_SPLIT_TILES a cluster's ranks share its rows
+  const long long per_cluster = (long long)HIST_THREADS * rows_per_thread *
+                                (kSplit == HIST_SPLIT_DSMEM ? L.G : 1);
+  const long long need = (n + per_cluster - 1) / per_cluster;
+  if (clusters > need) clusters = need > 0 ? need : 1;
+  *out = {L, (int)clusters, smem};
+  return true;
+}
+
+// The one place a K1 or K2 launch is decided: plan one of `kernel` over n
+// rows of a table of n_slots x C bins, one copy a block, in the smallest
+// cluster that holds it (hist_policy). Returns false where none does.
 template <int kSplit, typename Kernel>
 static bool hist_plan(Kernel kernel, int device, int n_slots, int C,
                       size_t static_bytes, long long n, int rows_per_thread,
@@ -344,18 +345,8 @@ static bool hist_plan(Kernel kernel, int device, int n_slots, int C,
   const int G = hist_policy(n_slots, C, (long long)static_bytes, optin,
                             max_cluster);
   if (G <= 0) return false;
-  const HistLayout L = hist_layout(n_slots, C, G);
-  const size_t smem = (size_t)hist_block_bytes(L);
-  long long clusters =
-      hist_max_clusters(kernel, device, G, smem, static_bytes, optin);
-  if (clusters <= 0) return false;
-  // under HIST_SPLIT_TILES a cluster's ranks share its rows
-  const long long per_cluster = (long long)HIST_THREADS * rows_per_thread *
-                                (kSplit == HIST_SPLIT_DSMEM ? G : 1);
-  const long long need = (n + per_cluster - 1) / per_cluster;
-  if (clusters > need) clusters = need > 0 ? need : 1;
-  *out = {L, (int)clusters, smem};
-  return true;
+  return hist_size<kSplit>(kernel, device, hist_layout(n_slots, C, G),
+                           static_bytes, optin, n, rows_per_thread, out);
 }
 
 // Launch `kernel` as planned, on `st`, with its arguments.

@@ -5,7 +5,9 @@
 Builds the port's hand-written CUDA kernels from `aresdb_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card at the main
 path's shapes (K2 also on the engine's skewed traffic, a NaN measure and,
-through its global-atomic kernel, nine channels),
+through its global-atomic kernel, nine channels; K3 also on one real Q5
+batch's slots and values, and on that batch with a NaN and an inf), and
+asserts which `__global__` function each K2 and K3 case ran,
 then drives the main paths end to end: N rows (default 32M,
 16 live batches of 2,097,152) of the demo trips table are ingested through
 the upsert wire format into a `TableShard`, and these queries run through
@@ -34,7 +36,8 @@ Prints the card's name and power limit, per-phase results, one
 kernel's `ms` is the device time of one wrapper call (its output memset
 included), `kernel_ms` that of the kernel's own `__global__` functions,
 and `in_situ_ms_per_launch` its device time per launch inside each query
-of the end-to-end phase, from one profiled warm run.
+of the end-to-end phase, from one profiled warm run; K3's row also
+holds its case on Q5's batch under `q5_traffic`.
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails. Needs one card.
 """
@@ -80,12 +83,32 @@ WIDE_K1_CASE = "Q1 over 1,000 cities (26,650 slots)"
 # each kernel's __global__ functions, as the profiler names them
 KERNEL_FUNCS = {"K1": r"fused_dense_kernel",
                 "K2": r"(?<!dense_)segment_sum_(cluster|global)",
-                "K3": r"dense_segment_sum_(shared|global)"}
-# K3: (n_slots, channels, indicator layout): Q5's 128 slots first, then
-# wider tables, one channel, arbitrary floats in every channel, and the
-# global-memory branch (8 x 8,192 floats exceed a block's shared memory)
-K3_CASES = ((128, 3, True), (4_104, 3, True), (8_192, 3, True),
-            (4_104, 1, False), (4_104, 3, False), (8_192, 8, False))
+                "K3": r"dense_segment_sum_(warp|cluster|global)"}
+# K3: (name, n_slots, channels, traffic, the __global__ function it runs).
+# Traffic "dense": uniform slots (a few out of range) with the dense
+# path's channels (measure, 0/1 count, 1 presence); "floats": uniform
+# slots, arbitrary floats in every channel; "Q5": the slots and channels
+# of K3's call on one real Q5 batch (q5_batch: 8 of 128 slots, no row
+# dropped); "Q5 nan inf": that batch with one NaN and one inf measure,
+# each in a slot of its own. Q5's 128 slots fit a copy of the table for
+# each warp; wider tables take one a block, 8 x 8,192 floats a cluster of
+# 2; 8 x 65,536 floats, more than a cluster of 8 holds and more than any
+# engine call has, the global-atomic kernel.
+K3_Q5_CASE = "Q5 batch: 8 of 128 slots"
+K3_CASES = (("uniform 128", 128, 3, "dense", "dense_segment_sum_warp"),
+            ("uniform 4,104", 4_104, 3, "dense", "dense_segment_sum_cluster"),
+            ("uniform 8,192", 8_192, 3, "dense", "dense_segment_sum_cluster"),
+            ("4,104 slots, 1 channel", 4_104, 1, "floats",
+             "dense_segment_sum_cluster"),
+            ("4,104 slots, arbitrary floats", 4_104, 3, "floats",
+             "dense_segment_sum_cluster"),
+            ("8,192 slots, 8 channels", 8_192, 8, "floats",
+             "dense_segment_sum_cluster"),
+            ("65,536 slots, 8 channels", 65_536, 8, "floats",
+             "dense_segment_sum_global"),
+            (K3_Q5_CASE, 128, 3, "Q5", "dense_segment_sum_warp"),
+            ("Q5 batch, one NaN and one inf measure", 128, 3, "Q5 nan inf",
+             "dense_segment_sum_warp"))
 Q3_CAPACITY = 1 << 19    # the ladder's rung for about 300k groups a batch
 
 
@@ -284,22 +307,23 @@ def bound_ms(nbytes: int, flops: int) -> tuple:
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
-                exact_rows=(), nan_at=None) -> float:
+                exact_rows=(), nonfinite=()) -> float:
     """Raise unless got matches want: rows listed in exact_rows exactly,
-    the others within RTOL/ATOL. Every value is finite but, where nan_at
-    is given, a NaN at that index of both. Returns the largest absolute
-    error over the finite values."""
+    the others within RTOL/ATOL. Every value is finite but at the indices
+    listed in nonfinite, where both hold the same NaN or infinity.
+    Returns the largest absolute error over the finite values."""
     g = got.double().cpu().numpy()
     w = want.double().cpu().numpy()
-    nan = np.zeros(g.shape, bool)
-    if nan_at is not None:
-        nan[nan_at] = True
-    if g.shape != w.shape or not np.array_equal(np.isnan(g), nan) or \
-            not np.array_equal(np.isnan(w), nan) or \
-            not np.all(np.isfinite(g[~nan])):
+    bad = np.zeros(g.shape, bool)
+    for at in nonfinite:
+        bad[at] = True
+    if g.shape != w.shape or not np.array_equal(~np.isfinite(g), bad) or \
+            not np.array_equal(~np.isfinite(w), bad) or \
+            not np.array_equal(g[bad], w[bad], equal_nan=True):
         raise AssertionError(f"{name}: shape {g.shape} vs {w.shape}, or "
-                             "non-finite values other than the NaN slot's")
-    g, w = np.where(nan, 0.0, g), np.where(nan, 0.0, w)
+                             "non-finite values other than the expected "
+                             f"ones at {list(nonfinite)}")
+    g, w = np.where(bad, 0.0, g), np.where(bad, 0.0, w)
     for r in exact_rows:
         if not np.array_equal(g[r], w[r]):
             raise AssertionError(f"{name}: channel {r} differs")
@@ -329,13 +353,14 @@ def k2_inputs(n_slots: int, c: int, live, dropped: float, rng,
     return slots.astype(np.int32), vals
 
 
-def k2_function(call) -> str:
-    """The name of the K2 __global__ function that one call() launched."""
-    pat = re.compile(KERNEL_FUNCS["K2"])
-    names = {m.group(0) for name, _ in counted_events(call, 1, "K2", 1)
+def kernel_function(call, kernel: str) -> str:
+    """The name of the `kernel` ("K2", "K3") __global__ function that one
+    call() launched."""
+    pat = re.compile(KERNEL_FUNCS[kernel])
+    names = {m.group(0) for name, _ in counted_events(call, 1, kernel, 1)
              for m in [pat.search(name)] if m}
     if len(names) != 1:
-        raise AssertionError(f"K2: one call launched {sorted(names)}")
+        raise AssertionError(f"{kernel}: one call launched {sorted(names)}")
     return names.pop()
 
 
@@ -347,20 +372,21 @@ def phase_k2(P, device, rng) -> dict:
     results = {}
     for name, n_slots, c, live, dropped in K2_CASES:
         slots_np, vals_np = k2_inputs(n_slots, c, live, dropped, rng)
-        nan_at = None
+        nonfinite = []
         if "NaN" in name:
             row = int(np.flatnonzero(slots_np >= 0)[n // 2])
             vals_np[row, 0] = np.nan
-            nan_at = (0, int(slots_np[row]))   # channel 0 of its slot
+            nonfinite = [(0, int(slots_np[row]))]   # channel 0 of its slot
         slots = torch.from_numpy(slots_np).to(device)
         vals = torch.from_numpy(vals_np).to(device)
         got = P.segment_sum(slots, vals, n_slots)
         want = P.segment_sum_plain(slots, vals, n_slots)
         torch.cuda.synchronize()
         err = check_close(f"K2 {name}", got.t(), want.t(),
-                          exact_rows=(1, 2) if c == 3 else (), nan_at=nan_at)
+                          exact_rows=(1, 2) if c == 3 else (),
+                          nonfinite=nonfinite)
         call = lambda: P.segment_sum(slots, vals, n_slots)  # noqa: E731
-        func = k2_function(call)
+        func = kernel_function(call, "K2")
         want_func = "segment_sum_cluster" if c <= 8 else "segment_sum_global"
         if func != want_func:
             raise AssertionError(f"K2 {name}: ran {func}, not {want_func}")
@@ -387,30 +413,83 @@ def phase_k2(P, device, rng) -> dict:
     return results
 
 
-def phase_k3(P, device, rng) -> dict:
-    """K3 against its plain version at n = one batch. Where the channels
-    are the dense path's (measure, 0/1 count, 1 presence), the counts must
-    match exactly; elsewhere every channel holds arbitrary floats."""
+def q5_batch(seed: int) -> tuple:
+    """numpy slots int32 [n] and values float32 [n, 3] of K3's call on one
+    real Q5 batch: the first batch of phase_e2e's data, ingested alike,
+    through Q5 on the CPU service (K3's plain version) with K3's wrapper
+    watched."""
+    from aresdb_tpu_torch import demo
+    from aresdb_tpu_torch.query import executor as X
+    from aresdb_tpu_torch.query import pallas_ops as P
+    from aresdb_tpu_torch.query.service import QueryService
+
+    store, _ = ingest_trips(BATCH_ROWS, seed)
+    q, env, understate = e2e_queries(demo)["Q5"]
+    seen = []
+    real = P.dense_segment_sum
+
+    def watch(slots, values, n_slots):
+        seen.append((slots.numpy().copy(), values.numpy().copy(), n_slots))
+        return real(slots, values, n_slots)
+
+    P.dense_segment_sum = watch
+    try:
+        # ARES_PALLAS=1: K3's route on the CPU as on the card
+        with query_setting(X, dict(env, ARES_PALLAS="1"), understate):
+            ask(QueryService(store, device="cpu"), "Q5", q)
+    finally:
+        P.dense_segment_sum = real
+    if [(s.shape, v.shape, k) for s, v, k in seen] != \
+            [((BATCH_ROWS,), (BATCH_ROWS, 3), 128)]:
+        raise AssertionError(f"Q5 batch: K3 calls {len(seen)}")
+    return seen[0][0], seen[0][1]
+
+
+def k3_inputs(n_slots: int, c: int, traffic: str, rng, q5) -> tuple:
+    """(slots, values, nonfinite indices of the result) in numpy of one
+    K3 case (K3_CASES); q5 is q5_batch()'s pair."""
+    n = BATCH_ROWS
+    if traffic.startswith("Q5"):
+        slots, vals = q5[0], q5[1].copy()
+    else:
+        slots = rng.randint(-1, n_slots + 1, n).astype(np.int32)
+        if traffic == "dense":
+            vals = np.stack([(rng.rand(n) * 50).astype(np.float32),
+                             (rng.rand(n) > 0.02).astype(np.float32),
+                             np.ones(n, np.float32)], axis=1)
+        else:
+            vals = ((rng.rand(n, c) - 0.3) * 100).astype(np.float32)
+    nonfinite = []
+    if traffic == "Q5 nan inf":
+        # one row of the rarest live slot gets NaN, one of another inf
+        live, counts = np.unique(slots[slots >= 0], return_counts=True)
+        order = live[np.argsort(counts)]
+        for special, slot in ((np.nan, order[0]), (np.inf, order[1])):
+            vals[int(np.flatnonzero(slots == slot)[0]), 0] = special
+            nonfinite.append((0, int(slot)))   # channel 0 of its slot
+    return slots, vals, nonfinite
+
+
+def phase_k3(P, device, rng, q5) -> dict:
+    """K3 against its plain version at n = one batch for each of K3_CASES,
+    each through the __global__ function the case names. Where the
+    channels are the dense path's, the counts must match exactly."""
     n = BATCH_ROWS
     results = {}
-    for n_slots, c, indicators in K3_CASES:
-        slots_np = rng.randint(-1, n_slots + 1, n).astype(np.int32)
-        if indicators:
-            vals_np = np.stack([(rng.rand(n) * 50).astype(np.float32),
-                                (rng.rand(n) > 0.02).astype(np.float32),
-                                np.ones(n, np.float32)], axis=1)
-        else:
-            vals_np = ((rng.rand(n, c) - 0.3) * 100).astype(np.float32)
+    for name, n_slots, c, traffic, want_func in K3_CASES:
+        slots_np, vals_np, nonfinite = k3_inputs(n_slots, c, traffic, rng, q5)
         slots = torch.from_numpy(slots_np).to(device)
         vals = torch.from_numpy(vals_np).to(device)
         got = P.dense_segment_sum(slots, vals, n_slots)
         want = P.dense_segment_sum_plain(slots, vals, n_slots)
         torch.cuda.synchronize()
-        name = f"K3 n_slots={n_slots} C={c}" + ("" if indicators
-                                               else " arbitrary floats")
-        err = check_close(name, got.t(), want.t(),
-                          exact_rows=(1, 2) if indicators else ())
+        err = check_close(f"K3 {name}", got.t(), want.t(),
+                          exact_rows=() if traffic == "floats" else (1, 2),
+                          nonfinite=nonfinite)
         call = lambda: P.dense_segment_sum(slots, vals, n_slots)  # noqa: E731
+        func = kernel_function(call, "K3")
+        if func != want_func:
+            raise AssertionError(f"K3 {name}: ran {func}, not {want_func}")
         (ms, kernel_ms), call_ms = device_ms(call, kernel="K3"), wall_ms(call)
         plain_ms = device_ms(lambda: P.dense_segment_sum_plain(
             slots, vals, n_slots))
@@ -418,14 +497,18 @@ def phase_k3(P, device, rng) -> dict:
                           torch.full_like(slots, n_slots), slots).long()
         lib_out = torch.zeros((n_slots + 1, c), device=device)
         library_ms = device_ms(lambda: lib_out.index_add_(0, idx, vals))
-        b_ms, b_by = bound_ms(n * (4 + 4 * c) + n_slots * c * 4, n * c)
-        results[(n_slots, c, indicators)] = dict(
-            max_abs_err=err, ms=ms, kernel_ms=kernel_ms, wall_ms=call_ms,
-            plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-            bound_by=b_by)
-        print(f"{name} n={n}: ok, max_abs_err={err:.3g} device ms={ms:.4f} "
-              f"kernel-only ms={kernel_ms:.4f} "
-              f"(per call {call_ms:.4f}) plain_ms={plain_ms:.4f} "
+        # every slot is read; the values of the rows that are kept
+        kept = int(((slots_np >= 0) & (slots_np < n_slots)).sum())
+        b_ms, b_by = bound_ms(n * 4 + kept * 4 * c + n_slots * c * 4,
+                              kept * c)
+        results[name] = dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                             wall_ms=call_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=b_ms,
+                             bound_by=b_by)
+        print(f"K3 dense_segment_sum {name}, n={n} n_slots={n_slots} C={c}: "
+              f"ok through {func}, max_abs_err={err:.3g} device "
+              f"ms={ms:.4f} kernel-only ms={kernel_ms:.4f} (per call "
+              f"{call_ms:.4f}) plain_ms={plain_ms:.4f} "
               f"index_add_ms={library_ms:.4f} bound_ms={b_ms:.4f}",
               flush=True)
     return results
@@ -719,14 +802,21 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None) -> tuple:
     return totals, in_situ
 
 
-def kernel_row(name, source, replaces, launches, measured,
-               in_situ) -> dict:
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            **{k: measured[k] for k in ("max_abs_err", "ms", "kernel_ms",
-                                        "wall_ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")},
-            "in_situ_ms_per_launch": in_situ}
+MEASURED = ("max_abs_err", "ms", "kernel_ms", "wall_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+
+
+def kernel_row(name, source, replaces, launches, measured, in_situ,
+               q5_traffic=None) -> dict:
+    """One kernel of the {"kernels": [...]} line; K3's also holds its case
+    on Q5's batch under `q5_traffic`."""
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           **{k: measured[k] for k in MEASURED},
+           "in_situ_ms_per_launch": in_situ}
+    if q5_traffic is not None:
+        row["q5_traffic"] = {m: q5_traffic[m] for m in MEASURED}
+    return row
 
 
 def main(argv=None) -> int:
@@ -767,7 +857,7 @@ def main(argv=None) -> int:
 
     rng = np.random.RandomState(args.seed)
     k2 = phase_k2(P, device, rng)
-    k3 = phase_k3(P, device, rng)
+    k3 = phase_k3(P, device, rng, q5_batch(args.seed))
     k1 = phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
                   device)
     launches, in_situ = phase_e2e(args.rows, args.seed)
@@ -783,7 +873,8 @@ def main(argv=None) -> int:
         kernel_row("dense_segment_sum",
                    "aresdb_tpu_torch/csrc/dense_segment_sum.cu",
                    "aresdb_tpu/query/pallas_ops.py:99", launches["K3"],
-                   k3[K3_CASES[0]], in_situ["K3"]),
+                   k3[K3_CASES[0][0]], in_situ["K3"],
+                   q5_traffic=k3[K3_Q5_CASE]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

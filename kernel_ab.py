@@ -1,4 +1,4 @@
-"""Measure the slot-histogram kernels K1 and K2 on one GPU.
+"""Measure the slot-histogram kernels K1, K2 and K3 on one GPU.
 
     python3 kernel_ab.py [--parent DIR] [--modes sass,ab] [--out FILE]
 
@@ -6,13 +6,13 @@
          (cuobjdump -sass): shared-memory, distributed shared-memory and
          global atomics, native or a compare-and-swap loop; plus small
          probes of the PTX forms of a remote shared-memory add; and each
-         kernel's registers and spills (ptxas -v).
-- ab:    the parent commit's K1 and K2 against this tree's, at the shapes
-         of chip_smoke.py's kernel phases, in turns (old, new, new, old);
-         each is checked against the plain version before it is timed.
-         DIR holds the parent's `aresdb_tpu_torch/csrc/` files (e.g. from
-         `git show`); its sources are built beside this tree's and never
-         imported.
+         __global__ function's registers and spills (ptxas -v).
+- ab:    the parent commit's K1, K2 and K3 against this tree's, at the
+         shapes of chip_smoke.py's kernel phases (K3 also on one real Q5
+         batch), in turns (old, new, new, old); each is checked against
+         the plain version before it is timed. DIR holds the parent's
+         `aresdb_tpu_torch/csrc/` files (e.g. from `git show`); its sources
+         are built beside this tree's and never imported.
 
 Times are device milliseconds per call from torch.profiler: `ms` with the
 output memset the wrapper launches, `kernel_ms` of the kernels alone. Every
@@ -43,6 +43,8 @@ N = S.BATCH_ROWS
 K2_SHAPES = tuple(case for case in S.K2_CASES
                   if case[2] == 3 and "NaN" not in case[0])
 K1_SHAPES = ("Q1 sum(fare) hour x city", S.WIDE_K1_CASE)
+# chip_smoke.py's K3 cases but the NaN and inf one, which times as Q5's
+K3_SHAPES = tuple(case for case in S.K3_CASES if "nan" not in case[3])
 
 PROBES = {
     "local shared atomicAdd": r"""
@@ -99,7 +101,7 @@ def emit(rec: dict) -> None:
             f.write(json.dumps(rec) + "\n")
 
 
-# the __global__ functions of K1 and K2, old and new
+# the __global__ functions of K1, K2 and K3, old and new
 KERNEL_NAMES = ("segment_sum", "fused_dense")
 
 
@@ -192,10 +194,22 @@ def mode_sass(libs) -> None:
                 per_fn.setdefault(fn, {})
                 per_fn[fn][op.group(1)] = per_fn[fn].get(op.group(1), 0) + 1
         log = Path(path).with_suffix(".log")
-        ptxas = [ln.strip() for ln in log.read_text().splitlines()
-                 if "registers" in ln or "spill" in ln] if log.exists() else []
         emit({"mode": "sass", "library": names.get(label, label),
-              "atomics": per_fn, "ptxas": ptxas})
+              "atomics": per_fn,
+              "ptxas": ptxas_usage(log.read_text()) if log.exists() else {}})
+
+
+def ptxas_usage(log: str) -> dict:
+    """function -> its registers and spills, from a `ptxas -v` log."""
+    usage, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and ("registers" in line or "spill" in line):
+            usage[fn] = (usage.get(fn, "") + " " + line.split(": ")[-1]
+                         .strip()).strip()
+    return usage
 
 
 def check_k2(out, slots, vals, n_slots, name) -> float:
@@ -206,18 +220,58 @@ def check_k2(out, slots, vals, n_slots, name) -> float:
     return S.check_close(name, out.t(), want.t(), exact_rows=(1, 2))
 
 
-def inline_includes(text: str, src_dir: Path) -> str:
+def inline_includes(text: str, src_dir: Path, seen=None) -> str:
     """text with each `#include "x"` whose x is in src_dir replaced by x's
-    own text, recursively (the parent's headers, not this tree's)."""
+    own text, recursively (the parent's headers, not this tree's); a
+    header already inlined is left out, as its `#pragma once` would."""
+    seen = set() if seen is None else seen
+
     def sub(m):
         f = src_dir / m.group(1)
-        return inline_includes(f.read_text(), src_dir) if f.exists() \
-            else m.group(0)
+        if not f.exists():
+            return m.group(0)
+        if f.name in seen:
+            return ""
+        seen.add(f.name)
+        return inline_includes(f.read_text(), src_dir, seen)
     return re.sub(r'#include "([^"]+)"', sub, text)
 
 
-def mode_ab(parent: Path, k1, rng, device) -> None:
-    """Parent and change at every K2 and K1 shape: old, new, new, old."""
+def k3_setups(rng, q5, device):
+    """(name, n_slots, c, exact count rows, slots, values) of every K3
+    shape, on the card."""
+    out = []
+    for name, n_slots, c, traffic, _ in K3_SHAPES:
+        slots, vals, _ = S.k3_inputs(n_slots, c, traffic, rng, q5)
+        out.append((name, n_slots, c,
+                    () if traffic == "floats" else (1, 2),
+                    torch.from_numpy(slots).to(device),
+                    torch.from_numpy(vals).to(device)))
+    return out
+
+
+def k3_call(fn, slots, vals, n_slots):
+    """The parent's K3 entry fn launched into a new zeroed table."""
+    c = vals.shape[1]
+    out = torch.zeros((n_slots, c), device=slots.device)
+    rc = fn(slots.data_ptr(), vals.data_ptr(), N, c, n_slots, out.data_ptr(),
+            0, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"parent K3: CUDA error {rc}")
+    return out
+
+
+def check_k3(out, slots, vals, n_slots, exact, name) -> float:
+    from aresdb_tpu_torch.query import pallas_ops as P
+
+    want = P.dense_segment_sum_plain(slots, vals, n_slots)
+    torch.cuda.synchronize()
+    return S.check_close(name, out.t(), want.t(), exact_rows=exact)
+
+
+def mode_ab(parent: Path, k1, k3, rng, device) -> None:
+    """Parent and change at every K2, K1 and K3 shape: old, new, new,
+    old."""
     from aresdb_tpu_torch.query import pallas_ops as P
     from aresdb_tpu_torch.utils import cuda_build
 
@@ -287,6 +341,34 @@ def mode_ab(parent: Path, k1, rng, device) -> None:
                  ("parent", old))]
         emit({"mode": "ab", "kernel": "K1", "shape": name,
               "n_slots": n_slots, "max_abs_err": errs, "runs": runs})
+    old_k3 = cuda_build.load_library(
+        "parent_dense_segment_sum",
+        inline_includes((parent / "dense_segment_sum.cu").read_text(),
+                        parent)).ares_dense_segment_sum
+    old_k3.argtypes = [p, p, ll, i, i, p, i, p]
+    old_k3.restype = i
+    # read before each cold call: 128 MB, which leaves none of a K3
+    # call's inputs in the 50 MB L2, as in the engine, where a batch's
+    # evaluation runs between two K3 calls
+    flush = torch.ones(32 << 20, device=device)
+    for name, n_slots, c, exact, slots, vals in k3:
+        def old():
+            return k3_call(old_k3, slots, vals, n_slots)
+
+        def new():
+            return P.dense_segment_sum(slots, vals, n_slots)
+
+        errs = [check_k3(f(), slots, vals, n_slots, exact,
+                         f"K3 {name} {tag}")
+                for tag, f in (("parent", old), ("change", new))]
+        turns = (("parent", old), ("change", new), ("change", new),
+                 ("parent", old))
+        runs = [(tag, measure(f)) for tag, f in turns]
+        cold = [(tag, measure(lambda f=f: (flush.sum(), f())))
+                for tag, f in turns]
+        emit({"mode": "ab", "kernel": "K3", "shape": name, "n_slots": n_slots,
+              "channels": c, "max_abs_err": errs, "runs": runs,
+              "cold_l2_runs": cold})
 
 
 def main(argv=None) -> int:
@@ -320,7 +402,9 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     rng = np.random.RandomState(args.seed)
     k1 = k1_setups(device)
-    sources = [("segment_sum", cuda_build.csrc_text(P.SOURCE), "nvcc")] + [
+    sources = [("segment_sum", cuda_build.csrc_text(P.SOURCE), "nvcc"),
+               ("dense_segment_sum", cuda_build.csrc_text(P.K3_SOURCE),
+                "nvcc")] + [
         ("fused_dense", kern.spec.source, "nvcc") for kern, *_ in k1.values()]
     emit({"built_s": cuda_build.build_all(sources)})
     if "sass" in modes:
@@ -328,7 +412,8 @@ def main(argv=None) -> int:
                 for k, (n, t, c) in enumerate(sources)}
         mode_sass(libs)
     if "ab" in modes:
-        mode_ab(args.parent, k1, rng, device)
+        k3 = k3_setups(rng, S.q5_batch(args.seed), device)
+        mode_ab(args.parent, k1, k3, rng, device)
     return 0
 
 

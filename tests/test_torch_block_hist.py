@@ -1,11 +1,13 @@
 """The cluster histogram's layout (`csrc/block_hist.cuh`), built with g++.
 
-K1 and K2 reduce through a histogram that a thread-block cluster of G
+K1, K2 and K3 reduce through a histogram that a thread-block cluster of G
 blocks splits by slot range. Its layout arithmetic (which rank owns a slot,
-the bytes of each block's slice, whether a table fits, the launch policy)
-is host-compilable and takes the card's limits as arguments, so these
-tests check it here against an H100's: 232,448 opt-in bytes of shared
-memory a block, clusters of up to 8 blocks (the portable size).
+the bytes of each block's slice, whether a table fits, the launch policy,
+and K3's copies of the table a block, `k3_layout` in
+`csrc/dense_segment_sum.cu`) is host-compilable and takes the card's
+limits as arguments, so these tests check it here against an H100's:
+232,448 opt-in bytes of shared memory a block, clusters of up to 8 blocks
+(the portable size).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import chip_smoke as S
 from aresdb_tpu_torch.utils import cuda_build
 
 H100_OPTIN_BYTES = 232_448
@@ -27,6 +30,17 @@ ENGINE_SLOTS = (128, 13_338, 16_384, 16_416, 26_650, 65_536)
 
 HARNESS = r"""
 #include "block_hist.cuh"
+#include "dense_segment_sum.cu"
+
+extern "C" void k3_layout_host(int n_slots, int C, long long optin,
+                               int max_cluster, int* G, int* copies,
+                               int* private_, long long* block_bytes) {
+  const HistLayout L = k3_layout(n_slots, C, optin, max_cluster);
+  *G = L.G;
+  *copies = L.copies;
+  *private_ = k3_private(L);
+  *block_bytes = hist_block_bytes(L);
+}
 
 extern "C" void layout_host(int n_slots, int C, int G, int* per,
                             long long* block_bytes) {
@@ -86,6 +100,8 @@ def lib(tmp_path_factory):
     lib.fits_host.restype = i
     lib.policy_host.argtypes = [i, i, ll, ll, i]
     lib.policy_host.restype = i
+    lib.k3_layout_host.argtypes = [i, i, ll, i, p, p, p, p]
+    lib.k3_layout_host.restype = None
     return lib
 
 
@@ -104,6 +120,17 @@ def _owners(lib, n_slots, c, g):
 def _policy(lib, n_slots, c, static_bytes=0, optin=H100_OPTIN_BYTES,
             max_cluster=H100_MAX_CLUSTER):
     return lib.policy_host(n_slots, c, static_bytes, optin, max_cluster)
+
+
+def _k3_layout(lib, n_slots, c, optin=H100_OPTIN_BYTES,
+               max_cluster=H100_MAX_CLUSTER):
+    """(ranks, copies a block, one copy a warp, bytes a block) of K3."""
+    g, copies, private = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    nbytes = ctypes.c_longlong()
+    lib.k3_layout_host(n_slots, c, optin, max_cluster, ctypes.byref(g),
+                       ctypes.byref(copies), ctypes.byref(private),
+                       ctypes.byref(nbytes))
+    return g.value, copies.value, bool(private.value), nbytes.value
 
 
 @pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
@@ -179,3 +206,80 @@ def test_tables_no_cluster_holds_get_no_cluster(lib):
     assert _policy(lib, 13_338, 3, max_cluster=0) == 0
     # a table one block holds needs no cluster, whatever the card allows
     assert _policy(lib, 13_338, 3, max_cluster=1) == 1
+
+
+K3_WARPS = 32    # warps of a 1,024-thread block: K3's copies where they fit
+# (n_slots, C) -> (ranks, copies of each block's slice) at the H100's
+# limits: one copy a warp where 32 fit a block (Q5's 128 slots at any C),
+# else one a block; 8 x 8,192 floats (256 KB) fit no block, so a cluster
+# of 2 holds 4,096 slots a rank
+K3_LAYOUTS = {(128, 1): (1, 32), (128, 3): (1, 32), (128, 8): (1, 32),
+              (4_104, 1): (1, 1), (4_104, 3): (1, 1), (4_104, 8): (1, 1),
+              (8_192, 1): (1, 1), (8_192, 3): (1, 1), (8_192, 8): (2, 1)}
+
+
+@pytest.mark.parametrize("n_slots,c", sorted(K3_LAYOUTS))
+def test_k3_layout_at_its_phase_shapes(lib, n_slots, c):
+    g, copies, private, nbytes = _k3_layout(lib, n_slots, c)
+    assert (g, copies) == K3_LAYOUTS[(n_slots, c)]
+    # the cluster is the smallest that holds one copy, as K1's and K2's
+    assert g == _policy(lib, n_slots, c)
+    # warps add without atomics only into a copy of their own
+    assert private == (copies == K3_WARPS)
+    per, one_copy = _layout(lib, n_slots, c, g)
+    assert nbytes == one_copy * copies <= H100_OPTIN_BYTES
+    # one copy a block only where a copy a warp does not fit
+    assert copies == K3_WARPS or K3_WARPS * one_copy > H100_OPTIN_BYTES
+    assert per * g >= n_slots
+
+
+def test_k3_puts_eight_channels_at_8192_slots_on_a_cluster(lib):
+    g, copies, private, nbytes = _k3_layout(lib, 8_192, 8)
+    assert g >= 2 and not private
+    assert 8_192 * 8 * 4 > H100_OPTIN_BYTES >= nbytes
+    source = (CSRC / "dense_segment_sum.cu").read_text()
+    assert "hist_size<HIST_SPLIT_TILES>" in source
+
+
+@pytest.mark.parametrize("optin", [48 * 1024, 100_000, H100_OPTIN_BYTES])
+@pytest.mark.parametrize("max_cluster", [0, 1, 8])
+def test_k3_layout_never_exceeds_the_opt_in_bytes(lib, optin, max_cluster):
+    for n_slots in (1, 2, 5, 128, 605, 606, 4_104, 8_192, 19_370, 58_112,
+                    58_113, 65_536):
+        for c in range(1, 9):
+            g, copies, private, nbytes = _k3_layout(lib, n_slots, c, optin,
+                                                    max_cluster)
+            if g == 0:   # the global-atomic kernel: no cluster holds it
+                assert _policy(lib, n_slots, c, 0, optin, max_cluster) == 0
+                continue
+            assert g <= max(max_cluster, 0) and nbytes <= optin
+            assert copies in (1, K3_WARPS)
+            assert private == (copies == K3_WARPS)
+
+
+H100_SM_SHARED_BYTES = 233_472   # 228 KB an SM, 1 KB of it kept per block
+
+
+@pytest.mark.parametrize("case", S.K3_CASES, ids=lambda case: case[0])
+def test_each_chip_smoke_k3_case_names_the_kernel_its_layout_takes(lib,
+                                                                    case):
+    _, n_slots, c, _, want = case
+    g, copies, private, nbytes = _k3_layout(lib, n_slots, c)
+    got = ("dense_segment_sum_global" if g == 0 else
+           "dense_segment_sum_warp" if private else
+           "dense_segment_sum_cluster")
+    assert got == want
+    if private and c <= 3:
+        # the warp kernel's blocks are held to 32 registers a thread up to
+        # C = 3, so that two of them share an SM: their copies must fit
+        assert 2 * (nbytes + 1024) <= H100_SM_SHARED_BYTES
+
+
+def test_k3_takes_global_atomics_only_where_no_cluster_of_8_holds(lib):
+    # C = 8: 7,264 slots a rank fit 232,448 bytes, so a cluster of 8 holds
+    # up to 58,112 slots
+    assert _k3_layout(lib, 58_112, 8)[0] == 8
+    assert _k3_layout(lib, 58_113, 8)[0] == 0
+    assert _k3_layout(lib, 65_536, 7)[0] == 8
+    # a card without clusters takes the global kernel for every table
+    assert _k3_layout(lib, 128, 3, max_cluster=0)[0] == 0
