@@ -43,7 +43,8 @@ struct AresRow {
 };
 
 // Generated per plan by fused_dense.emit_cuda. V[j], B[j]: values and
-// validity of the plan's j-th column (FusedSpec.col_ids order).
+// validity of the plan's j-th input (FusedSpec.input_keys order: the
+// main-table columns, then the joined columns gathered into [n] lanes).
 ARES_DEV void ares_row(const void* const* V, const bool* const* B,
                        long long i, AresRow& r);
 

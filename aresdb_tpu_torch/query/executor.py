@@ -1,8 +1,8 @@
-"""Query executor, group-by paths: batch loop over a shard's live batches,
-device staging, dense or keyed kernels, few fetches, exact host merge.
+"""Query executor: batch loop over a shard's live batches, device staging,
+dense, keyed, HLL or select kernels, few fetches, exact host merge.
 
-Port of the dense and the keyed (sort) paths of
-`aresdb_tpu/query/executor.py`:
+Port of the dense, keyed (sort), HLL and non-aggregate paths of
+`aresdb_tpu/query/executor.py`, with joins to dimension tables:
 - A batch whose dimensions all have a bounded domain runs one dense
   kernel (K1, or the unfused kernel over K2, K3 or a scatter) whose
   per-slot table folds into a device-resident float64 accumulator. After
@@ -14,11 +14,21 @@ Port of the dense and the keyed (sort) paths of
   fetches the group counts, reruns batches whose groups outgrew K on the
   capacity ladder, merges the partial tables on the device by key, and
   fetches one merged table.
+- An HLL query runs every batch through the HLL kernel
+  (`kernels.make_hll_kernel`) on its own capacity ladder;
+  `_resolve_hll_pending` merges the register tables on the device and
+  fetches per-group estimator sums (or the registers, for the binary
+  wire format).
+- A non-aggregate query runs the select kernel batch by batch until its
+  limit is collected (`_execute_non_agg`).
+- Each joined dimension table is staged once per query
+  (`_stage_foreign_tables`, cached on its batches' versions) and probed
+  per batch by the kernels (`kernels._EvalCtx.foreign_row`).
 GroupTable merges the piles exactly on the host.
 
-What is not ported yet raises QueryError, never a wrong answer:
-non-aggregate queries, HLL, joins, geo, array columns, archive batches,
-and the JAX package's mesh and run-length batches.
+What is not ported yet raises QueryError, never a wrong answer: geo,
+array columns, archive batches, and the JAX package's mesh and
+run-length batches.
 """
 
 from __future__ import annotations
@@ -26,13 +36,14 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from aresdb_tpu_torch.common import data_types as mdt
 from aresdb_tpu_torch.query import expr as E
+from aresdb_tpu_torch.query import hll as H
 from aresdb_tpu_torch.query import kernels as K
 from aresdb_tpu_torch.query.compiler import CompiledQuery, QueryError
 from aresdb_tpu_torch.query.dense import _underlying_column_key, plan_dense
@@ -46,6 +57,8 @@ from aresdb_tpu_torch.utils.torch_env import fetch_to_host
 DEVICE_CACHE_BYTES = 4 << 30  # device residency budget for staged columns
 DEFAULT_GROUP_CAPACITY = 4096
 MAX_GROUP_CAPACITY = 1 << 22
+DEFAULT_HLL_CAPACITY = 256   # HLL group capacity before the ladder climbs
+MAX_HLL_CAPACITY = 4096      # 16 KB of registers a group
 SMALL_K_FULL_FETCH = 4096  # sort tables at/below this capacity fetch whole
                            # with their group counts (one copy)
 
@@ -113,8 +126,8 @@ class GroupTable:
     keyed tables (the sort path) arrive as piles of live groups. Piles
     merge on the canonical u64 group key (np_pack_dim_keys for dense
     piles), or by dim values where the key pack is inexact
-    (_finalize_dict). sum/count/avg add, min/min, max/max. Copied from
-    the JAX package, without its HLL registers.
+    (_finalize_dict). sum/count/avg add, min/min, max/max, HLL register
+    rows max. Copied from the JAX package.
     """
 
     def __init__(self, plan: CompiledQuery):
@@ -196,7 +209,8 @@ class GroupTable:
                 keyed.append((keys, agg, cnt, dvals, dvalids))
             piles = [self._merge_piles(keyed)]
         keys, aggs, cnts, dvals, dvalids = piles[0]
-        if aggs.dtype.kind == "f":
+        kind = self.plan.measure.agg
+        if kind != "hll" and aggs.dtype.kind == "f":
             aggs = aggs.astype(np.float64)
         self.n_groups = len(cnts)
         self.dim_values = dvals
@@ -228,9 +242,12 @@ class GroupTable:
             m_agg = np.full(g, np.inf if aggs.dtype.kind == "f"
                             else np.iinfo(aggs.dtype).max, aggs.dtype)
             np.minimum.at(m_agg, inv, aggs)
-        else:
+        elif kind == "max":
             m_agg = np.full(g, -np.inf if aggs.dtype.kind == "f"
                             else np.iinfo(aggs.dtype).min, aggs.dtype)
+            np.maximum.at(m_agg, inv, aggs)
+        else:  # hll register rows
+            m_agg = np.zeros((g,) + aggs.shape[1:], aggs.dtype)
             np.maximum.at(m_agg, inv, aggs)
         m_cnt = np.zeros(g, np.int64)
         np.add.at(m_cnt, inv, cnts)
@@ -258,7 +275,7 @@ class GroupTable:
                      else dv.tolist() for dv in dim_values]
             dvalids = [np.asarray(bv).astype(bool).tolist()
                        for bv in dim_valids]
-            aggs = agg.tolist()
+            aggs = agg if agg_kind == "hll" else agg.tolist()
             cnts = np.asarray(cnt).tolist()
             rng = range(len(dvals))
             for j in range(len(cnts)):
@@ -274,6 +291,8 @@ class GroupTable:
                     entry[2] += aggs[j]
                 elif agg_kind == "min":
                     entry[2] = min(entry[2], aggs[j])
+                elif agg_kind == "hll":
+                    entry[2] = np.maximum(entry[2], aggs[j])
                 else:
                     entry[2] = max(entry[2], aggs[j])
                 entry[3] += int(cnts[j])
@@ -283,7 +302,11 @@ class GroupTable:
                            for d in range(len(self.plan.dimensions))]
         self.dim_valids = [np.asarray([e[1][d] for e in entries], bool)
                            for d in range(len(self.plan.dimensions))]
-        self.aggs = np.asarray([e[2] for e in entries], np.float64)
+        if agg_kind == "hll" and entries and np.asarray(
+                entries[0][2]).ndim > 0:
+            self.aggs = np.stack([np.asarray(e[2]) for e in entries])
+        else:
+            self.aggs = np.asarray([e[2] for e in entries], np.float64)
         self.cnts = np.asarray([e[3] for e in entries], np.int64)
 
     @property
@@ -295,7 +318,10 @@ class GroupTable:
         dvals = [[tuple(x) for x in dv.tolist()] if dv.ndim > 1
                  else dv.tolist() for dv in self.dim_values]
         dvalids = [b.tolist() for b in self.dim_valids]
-        aggs, cnts = self.aggs.tolist(), self.cnts.tolist()
+        kind = self.plan.measure.agg if self.plan.measure else "sum"
+        aggs = self.aggs if kind == "hll" and self.aggs.ndim > 1 \
+            else self.aggs.tolist()
+        cnts = self.cnts.tolist()
         rng = range(len(self.dim_values))
         for j in range(self.n_groups):
             dvalid = tuple(dvalids[i][j] for i in rng)
@@ -307,7 +333,10 @@ class GroupTable:
 
 
 class ShardExecutor:
-    """Executes one compiled aggregate query against table shards."""
+    """Executes one compiled query against table shards."""
+
+    FOREIGN_LUT_CAP = 1 << 22  # max dense key domain for the LUT join probe
+    NON_AGG_SORT_SCAN_CAP = 100_000
 
     def __init__(self, memstore, device: torch.device,
                  kernel_cache: KernelCache = GLOBAL_KERNEL_CACHE,
@@ -322,15 +351,20 @@ class ShardExecutor:
         # (vp.uid, vp.version, n) → (min, max) over valid values; columns
         # are immutable at a given mutation version so stats memoize
         self._stat_memo: Dict[tuple, tuple] = {}
+        # staged dimension tables keyed on their live batches' (uid,
+        # version) and the device
+        self._foreign_cache: Dict[tuple, tuple] = {}
 
     # -- public --
 
     def execute(self, plan: CompiledQuery):
-        """Returns (GroupTable, None). Per-stage seconds accumulate into
+        """Returns (GroupTable, None) for an aggregate query, (None, rows)
+        for a non-aggregate one. Per-stage seconds accumulate into
         plan.stats (reference: query/stats.go stage timers), beside the
         batches rerun on the sort path (`overflowReruns`), on a larger
-        group capacity (`ladderReruns`), and the process's device-to-host
-        copies during the query (`hostFetches`)."""
+        group capacity (`ladderReruns`, HLL reruns included), and the
+        process's device-to-host copies during the query
+        (`hostFetches`)."""
         plan.stats = {"batches": 0, "rows_scanned": 0, "stagedBytes": 0,
                       "peakBatchStagedBytes": 0, "overflowReruns": 0,
                       "ladderReruns": 0}
@@ -347,21 +381,27 @@ class ShardExecutor:
                 plan.stats[self.name] = plan.stats.get(self.name, 0.0) + (
                     time.perf_counter() - self.t0)
 
-        if plan.is_non_agg:
-            raise not_ported("non-aggregate queries are")
-        if plan.measure.agg == "hll":
-            raise not_ported("HLL queries are")
-        if plan.foreign_tables:
-            raise not_ported("joins are")
         if plan.geo is not None:
             raise not_ported("geo queries are")
+        with _Stage("foreignTransfer"):
+            foreign = self._stage_foreign_tables(plan)
+        plan.stats["stagedBytes"] = sum(
+            t.numel() * t.element_size() for probe, fcols in foreign
+            for t in list(probe) + [t for pair in fcols.values()
+                                    for t in pair])
+        shards = plan.shards or [0]
+        if plan.is_non_agg:
+            rows = self._execute_non_agg(plan, foreign, shards)
+            plan.stats["hostFetches"] = fetch_to_host.calls - fetches0
+            return None, rows
 
         table = GroupTable(plan)
         stat_keys = self._dense_stat_keys(plan)
         plan._exec_pending = []
         plan._exec_dense_dev = {}
         plan._exec_sort_pending = []
-        for shard_id in plan.shards or [0]:
+        plan._exec_hll_pending = []
+        for shard_id in shards:
             shard = self.memstore.get_table_shard(
                 plan.main_schema.table.name, shard_id)
             it = self._iter_batches(plan, shard, stat_keys)
@@ -373,8 +413,8 @@ class ShardExecutor:
                     except StopIteration:
                         break
                 with _Stage("batchExec"):
-                    self._run_agg_batch(plan, batch_cols, n_valid, n_padded,
-                                        stats, cutoff)
+                    self._run_agg_batch(plan, foreign, batch_cols, n_valid,
+                                        n_padded, stats, cutoff)
                 plan.stats["batches"] += 1
                 plan.stats["rows_scanned"] += n_valid
                 nb = sum(t.numel() * t.element_size()
@@ -385,6 +425,7 @@ class ShardExecutor:
         with _Stage("resultFetch"):
             self._resolve_pending(plan, table)
             self._resolve_sort_pending(plan, table)
+            self._resolve_hll_pending(plan, table)
             table.finalize()
         plan.stats["hostFetches"] = fetch_to_host.calls - fetches0
         M.root().count(M.QUERY_ROWS_RETURNED, table.n_groups)
@@ -504,13 +545,29 @@ class ShardExecutor:
 
     # -- agg execution --
 
-    def _run_agg_batch(self, plan, columns, n_valid, n_padded,
+    @staticmethod
+    def _with_foreign(plan, foreign, batch_cols):
+        """(the batch's columns with every joined table's staged columns
+        under their (table_id, column_id) keys, the joined tables'
+        probes)."""
+        columns = dict(batch_cols)
+        for ft, (_, fcols) in zip(plan.foreign_tables, foreign):
+            for (_, cid), pair in fcols.items():
+                columns[(ft.table_id, cid)] = pair
+        return columns, tuple(probe for probe, _ in foreign)
+
+    def _run_agg_batch(self, plan, foreign, batch_cols, n_valid, n_padded,
                        batch_stats=None, live_cutoff=0):
+        columns, foreign_idx = self._with_foreign(plan, foreign, batch_cols)
+        if plan.measure.agg == "hll":
+            self._run_hll_batch(plan, columns, foreign_idx, n_valid,
+                                n_padded, live_cutoff)
+            return
         # dense slot aggregation when every dim is bounded, else the sort
         dense_plan = plan_dense(plan, batch_stats)
         if dense_plan is None:
-            self._run_sort_batch(plan, columns, n_valid, n_padded,
-                                 live_cutoff)
+            self._run_sort_batch(plan, columns, foreign_idx, n_valid,
+                                 n_padded, live_cutoff)
             return
         kernel = self.kernel_cache.dense_agg_kernel(plan, n_padded,
                                                     dense_plan, self.device)
@@ -519,12 +576,13 @@ class ShardExecutor:
         acc = plan._exec_dense_dev.get(dense_sig)
         acc_arrays = acc[1] if acc is not None else dense_acc_init(
             plan, dense_plan.n_slots, self.device)
-        folded, overflow = kernel(columns, n_valid, live_cutoff, acc_arrays)
+        folded, overflow = kernel(columns, n_valid, live_cutoff, acc_arrays,
+                                  foreign_idx)
         plan._exec_dense_dev[dense_sig] = (dense_plan, folded)
         plan._exec_pending.append(
-            (overflow, columns, n_valid, n_padded, live_cutoff))
+            (overflow, columns, foreign_idx, n_valid, n_padded, live_cutoff))
 
-    def _run_sort_batch(self, plan, columns, n_valid, n_padded,
+    def _run_sort_batch(self, plan, columns, foreign_idx, n_valid, n_padded,
                         live_cutoff=0, k: int = 0):
         """Keyed aggregation of one batch at group capacity k (default:
         the plan's hint); resolved after all batches
@@ -533,9 +591,9 @@ class ShardExecutor:
             k = self._k_hints.get(plan_signature(plan),
                                   DEFAULT_GROUP_CAPACITY)
         kernel = self.kernel_cache.agg_kernel(plan, n_padded, k, self.device)
-        out = kernel(columns, n_valid, live_cutoff)
+        out = kernel(columns, n_valid, live_cutoff, foreign_idx)
         plan._exec_sort_pending.append(
-            (k, out, columns, n_valid, n_padded, live_cutoff))
+            (k, out, columns, foreign_idx, n_valid, n_padded, live_cutoff))
 
     def _resolve_pending(self, plan, table: GroupTable) -> None:
         """ONE host fetch for every batch's overflow count and every
@@ -552,9 +610,10 @@ class ShardExecutor:
         host = fetch_to_host(tensors)
         for entry, overflow in zip(pending, host[:len(pending)]):
             if int(overflow[0]) > 0:
-                _, columns, n_valid, n_padded, live_cutoff = entry
-                self._run_sort_batch(plan, columns, n_valid, n_padded,
-                                     live_cutoff)
+                _, columns, foreign_idx, n_valid, n_padded, live_cutoff = \
+                    entry
+                self._run_sort_batch(plan, columns, foreign_idx, n_valid,
+                                     n_padded, live_cutoff)
                 plan.stats["overflowReruns"] += 1
         tables = host[len(pending):]
         for j, sig in enumerate(sigs):
@@ -607,9 +666,11 @@ class ShardExecutor:
                     k2 = min(round_up_pow2(ng), MAX_GROUP_CAPACITY)
                     sig = plan_signature(plan)
                     self._k_hints[sig] = max(self._k_hints.get(sig, 0), k2)
-                    _, _, columns, n_valid, n_padded, live_cutoff = entry
-                    self._run_sort_batch(plan, columns, n_valid, n_padded,
-                                         live_cutoff, k=k2)
+                    (_, _, columns, foreign_idx, n_valid, n_padded,
+                     live_cutoff) = entry
+                    self._run_sort_batch(plan, columns, foreign_idx,
+                                         n_valid, n_padded, live_cutoff,
+                                         k=k2)
                     plan.stats["ladderReruns"] += 1
                     continue
                 kg = min(round_up_pow2(max(ng, 1), 64), k)
@@ -666,6 +727,267 @@ class ShardExecutor:
             else np.arange(kg, dtype=np.uint64)   # positional placeholder
         cnt_h = rest.pop(0) if need_cnt else np.zeros(kg, np.float64)
         table.merge_keyed(keys_h, used_h, agg_h, cnt_h, dims_h, dvalids_h)
+
+    # -- HLL --
+
+    def _run_hll_batch(self, plan, columns, foreign_idx, n_valid, n_padded,
+                       live_cutoff=0, k: int = 0):
+        """HLL register build of one batch at group capacity k (default:
+        the plan's hint); resolved after all batches
+        (_resolve_hll_pending)."""
+        if not k:
+            k = self._k_hints.get("hll:" + plan_signature(plan),
+                                  DEFAULT_HLL_CAPACITY)
+        kernel = self.kernel_cache.hll_kernel(plan, n_padded, k, self.device)
+        out = kernel(columns, n_valid, live_cutoff, foreign_idx)
+        plan._exec_hll_pending.append(
+            (k, out, columns, foreign_idx, n_valid, n_padded, live_cutoff))
+
+    def _resolve_hll_pending(self, plan, table: GroupTable) -> None:
+        """Resolve every pending HLL batch with ONE device-side register
+        merge: the group counts come first (one copy), batches whose
+        groups outgrew their capacity rerun on the ladder (256 up to
+        MAX_HLL_CAPACITY groups), the live slots are sliced on the device
+        and merged by key (_hll_merge_device). A JSON query then fetches
+        per group only the estimator's two register sums (16 B, not the
+        16 KB register row); a binary wire query (plan.hll_registers)
+        fetches the merged registers, sliced to the live groups."""
+        sliced = []
+        while True:
+            pending, plan._exec_hll_pending = plan._exec_hll_pending, []
+            if not pending:
+                break
+            counts = fetch_to_host([out[4].reshape(1) for _, out, *_ in
+                                    pending])
+            for entry, n_groups in zip(pending, counts):
+                k, out = entry[0], entry[1]
+                ng = int(n_groups[0])
+                if ng <= k:
+                    kg = min(round_up_pow2(max(ng, 1), 8), k)
+                    gkeys, slot_used, registers, cnt, _, dims, dvalids = out
+                    sliced.append((gkeys[:kg], slot_used[:kg],
+                                   registers[:kg], cnt[:kg],
+                                   tuple(d[:kg] for d in dims),
+                                   tuple(d[:kg] for d in dvalids)))
+                    continue
+                if ng > MAX_HLL_CAPACITY:
+                    raise QueryError(f"hll group cardinality {ng} exceeds "
+                                     f"{MAX_HLL_CAPACITY}")
+                k2 = min(round_up_pow2(ng, 256), MAX_HLL_CAPACITY)
+                sig = "hll:" + plan_signature(plan)
+                self._k_hints[sig] = max(self._k_hints.get(sig, 0), k2)
+                (_, _, columns, foreign_idx, n_valid, n_padded,
+                 live_cutoff) = entry
+                self._run_hll_batch(plan, columns, foreign_idx, n_valid,
+                                    n_padded, live_cutoff, k=k2)
+                plan.stats["ladderReruns"] += 1
+        if not sliced:
+            return
+        n_dims = len(sliced[0][4])
+        merged = _hll_merge_device(
+            torch.cat([s[0] for s in sliced]),
+            torch.cat([s[1] for s in sliced]),
+            torch.cat([s[2] for s in sliced]),
+            torch.cat([s[3] for s in sliced]),
+            tuple(torch.cat([s[4][d] for s in sliced]) for d in range(n_dims)),
+            tuple(torch.cat([s[5][d] for s in sliced]) for d in range(n_dims)),
+            bool(getattr(plan, "hll_registers", False)))
+        m_keys, m_used, m_cnt, m_dims, m_dvalids, n_uniq = merged[:6]
+        if getattr(plan, "hll_registers", False):
+            n_u = int(fetch_to_host([n_uniq.reshape(1)])[0][0])
+            kg = min(round_up_pow2(max(n_u, 1), 8), m_keys.shape[0])
+            host = fetch_to_host([m_keys[:kg], m_used[:kg], merged[6][:kg],
+                                  m_cnt[:kg], *(d[:kg] for d in m_dims),
+                                  *(d[:kg] for d in m_dvalids)])
+            table.merge_keyed(host[0].view(np.uint64), host[1], host[2],
+                              host[3],
+                              _unsigned_dims(plan, host[4:4 + n_dims]),
+                              host[4 + n_dims:])
+            return
+        host = fetch_to_host([m_keys, m_used, m_cnt, merged[6], merged[7],
+                              *m_dims, *m_dvalids])
+        keys_h, used_h, cnt_h, sum_recip, non_zero = host[:5]
+        ests = np.array([H.estimate_from_stats(float(sr), float(nz))
+                         if u else 0.0
+                         for sr, nz, u in zip(sum_recip, non_zero, used_h)])
+        table.merge_keyed(keys_h.view(np.uint64), used_h, ests, cnt_h,
+                          _unsigned_dims(plan, host[5:5 + n_dims]),
+                          host[5 + n_dims:])
+
+    # -- non-aggregate queries --
+
+    def _execute_non_agg(self, plan, foreign, shards):
+        """Collect up to `limit` rows of dimension values, in scan order:
+        one select kernel and one host copy a batch, and no batch is
+        scanned once the limit is collected (reference non-agg path).
+        With ORDER BY, matching rows are collected up to
+        NON_AGG_SORT_SCAN_CAP, sorted, then limited (sorting needs rows
+        past the limit; the cap bounds memory)."""
+        rows: List[Tuple] = []
+        limit = plan.limit
+        sorts = plan.query.sorts or []
+        limit_collect = self.NON_AGG_SORT_SCAN_CAP if sorts else limit
+        n_dims = len(plan.dimensions)
+        for shard_id in shards:
+            shard = self.memstore.get_table_shard(
+                plan.main_schema.table.name, shard_id)
+            for batch_cols, n_valid, n_padded, _, cutoff in \
+                    self._iter_batches(plan, shard):
+                columns, foreign_idx = self._with_foreign(plan, foreign,
+                                                          batch_cols)
+                # only the first L passing rows of a batch reach the host
+                top_l = 0
+                if limit_collect and limit_collect < n_padded:
+                    top_l = round_up_pow2(limit_collect)
+                kernel = self.kernel_cache.select_kernel(plan, n_padded,
+                                                         top_l, self.device)
+                head, dim_values, dim_valids = kernel(columns, n_valid,
+                                                      cutoff, foreign_idx)
+                host = fetch_to_host([head.reshape(-1), *dim_values,
+                                      *dim_valids])
+                plan.stats["batches"] += 1
+                plan.stats["rows_scanned"] += n_valid
+                dvs = _unsigned_dims(plan, host[1:1 + n_dims])
+                dvds = host[1 + n_dims:]
+                if top_l:
+                    take = min(int(host[0][0]), top_l)
+                    if limit_collect:
+                        take = min(take, limit_collect - len(rows))
+                    sel = range(take)
+                else:
+                    sel = np.nonzero(host[0])[0]
+                    if limit_collect and len(rows) + len(sel) > limit_collect:
+                        sel = sel[:limit_collect - len(rows)]
+                for i in sel:
+                    rows.append(tuple((dvs[d][i], bool(dvds[d][i]))
+                                      for d in range(n_dims)))
+                if limit_collect and len(rows) >= limit_collect:
+                    break
+            else:
+                continue
+            break
+        if sorts:
+            rows = self._sort_non_agg(plan, rows, sorts)
+        if limit:
+            rows = rows[:limit]
+        return rows
+
+    @staticmethod
+    def _sort_non_agg(plan, rows, sorts):
+        """Sort collected rows by dim name/alias (SortField order)."""
+        name_to_idx = {}
+        for i, d in enumerate(plan.dimensions):
+            if d.raw is not None:
+                if d.raw.alias:
+                    name_to_idx[d.raw.alias] = i
+                if d.raw.expr:
+                    name_to_idx[d.raw.expr] = i
+        for sf in reversed(sorts):
+            idx = name_to_idx.get(sf.name)
+            if idx is None:
+                raise QueryError(f"unknown sort field {sf.name!r}")
+            rows = sorted(
+                rows,
+                key=lambda r: (not r[idx][1],
+                               r[idx][0].item()
+                               if hasattr(r[idx][0], "item") else r[idx][0]),
+                reverse=(sf.order == "desc"))
+        return rows
+
+    # -- joins --
+
+    def _stage_foreign_tables(self, plan: CompiledQuery):
+        """Stage each joined dimension table for the device probe, as
+        (probe, {(0, column_id): (values, validity)}). The probe is a
+        dense key → row table (int32, -1 = no row) where the valid keys
+        lie in [0, FOREIGN_LUT_CAP): one gather. Otherwise it is the
+        keys sorted on the host, invalid keys last, with their row
+        permutation: a binary search and a gather
+        (kernels._EvalCtx.foreign_row). An empty table stages one
+        never-matching key. Cached on the table's batches' (uid, version)
+        and the device."""
+        staged = []
+        dev = self.device
+        for ft in plan.foreign_tables:
+            shard = self.memstore.get_table_shard(ft.schema.table.name, 0)
+            live = shard.live_store
+            with live.lock:
+                snaps = live.snapshot_columns(ft.used_columns)
+            ckey_parts = [str(dev), ft.schema.table.name,
+                          tuple(ft.used_columns)]
+            for _, n, batch in snaps:
+                for cid in ft.used_columns:
+                    vp = batch.column(cid)
+                    ckey_parts.append((cid, n, getattr(vp, "uid", None),
+                                       getattr(vp, "version", 0)))
+            ckey = tuple(ckey_parts)
+            hit = self._foreign_cache.get(ckey)
+            if hit is not None:
+                staged.append(hit)
+                continue
+            # the visible rows of every live batch, concatenated
+            parts: Dict[int, list] = {cid: [] for cid in ft.used_columns}
+            valid_parts: Dict[int, list] = {cid: [] for cid in ft.used_columns}
+            total = 0
+            for _, n, batch in snaps:
+                for cid in ft.used_columns:
+                    vp = batch.column(cid)
+                    col_schema = ft.schema.table.columns[cid]
+                    if vp is not None and vp.is_list:
+                        raise not_ported("array columns are")
+                    if vp is None or vp.values is None:
+                        npdt = mdt.numpy_dtype(col_schema.data_type)
+                        shape = (n, 2) if mdt.lanes(col_schema.data_type) \
+                            == 2 else (n,)
+                        parts[cid].append(np.zeros(shape, npdt))
+                        valid_parts[cid].append(np.zeros(n, bool))
+                    else:
+                        parts[cid].append(np.asarray(vp.values[:n]))
+                        valid_parts[cid].append(np.asarray(vp.validity[:n]))
+                total += n
+            if total == 0:
+                columns = {(0, cid): _default_column(
+                    ft.schema.table.columns[cid], 1, dev)
+                    for cid in ft.used_columns}
+                probe = (torch.tensor([np.iinfo(np.int64).max],
+                                      dtype=torch.int64, device=dev),
+                         torch.zeros(1, dtype=torch.int64, device=dev))
+                entry = (probe, columns)
+                self._remember_foreign(ckey, entry)
+                staged.append(entry)
+                continue
+            key_cid = ft.foreign_key_column
+            keys = np.concatenate(parts[key_cid]).astype(np.int64)
+            keys_valid = np.concatenate(valid_parts[key_cid])
+            columns = {}
+            for cid in ft.used_columns:
+                vals = np.concatenate(parts[cid])
+                valid = np.concatenate(valid_parts[cid])
+                columns[(0, cid)] = (
+                    torch.from_numpy(_signed_view(vals)).to(dev),
+                    torch.from_numpy(valid).to(dev))
+            vk = keys[keys_valid]
+            if len(vk) and vk.min() >= 0 and vk.max() < self.FOREIGN_LUT_CAP:
+                lut = np.full(int(vk.max()) + 2, -1, np.int32)
+                rows_idx = np.nonzero(keys_valid)[0].astype(np.int32)
+                # reversed write: the first row of a repeated key wins, as
+                # in the sorted probe
+                lut[vk[::-1]] = rows_idx[::-1]
+                entry = ((torch.from_numpy(lut).to(dev),), columns)
+            else:
+                # invalid keys sort last and never match
+                keys = np.where(keys_valid, keys, np.iinfo(np.int64).max)
+                perm = np.argsort(keys, kind="stable")
+                entry = ((torch.from_numpy(keys[perm]).to(dev),
+                          torch.from_numpy(perm).to(dev)), columns)
+            self._remember_foreign(ckey, entry)
+            staged.append(entry)
+        return staged
+
+    def _remember_foreign(self, ckey, entry) -> None:
+        if len(self._foreign_cache) > 128:
+            self._foreign_cache.clear()
+        self._foreign_cache[ckey] = entry
 
 
 def _host_table(plan, host: List[np.ndarray]):
@@ -744,6 +1066,53 @@ def _keyed_merge_device(gkeys, agg, cnt, dims, dvalids, kind: str,
     src = order[rep]
     return (m_keys, m_used, m_agg, m_cnt, tuple(d[src] for d in dims),
             tuple(v[src] & m_used for v in dvalids), n_uniq)
+
+
+def _hll_merge_device(gkeys, used, regs, cnt, dims, dvalids,
+                      want_regs: bool):
+    """Cross-batch HLL merge on the device: the concatenated per-batch
+    group tables sort by key and the register rows of equal keys fold by
+    max, so at most one [G, 16384] register table (for a JSON query,
+    only two sums per group) crosses to the host. Returns (keys, used,
+    cnt, dims, dvalids, n_uniq, regs uint8) when want_regs, else (keys,
+    used, cnt, dims, dvalids, n_uniq, sum_recip float64, non_zero int32):
+    the inputs of hll.estimate_from_stats, 2^-rho built bit-exactly from
+    its float64 exponent bits. Reference peer: query/hll.cu:21 builds
+    per-batch planes, query/hll.go:28 merges them."""
+    n = gkeys.shape[0]
+    device = gkeys.device
+    keyed = torch.where(used, gkeys, SENTINEL)
+    skeys, order = torch.sort(keyed ^ K._SIGN, stable=True)
+    skeys = skeys ^ K._SIGN
+    first = torch.ones_like(skeys, dtype=torch.bool)
+    first[1:] = skeys[1:] != skeys[:-1]
+    seg = torch.cumsum(first, 0) - 1
+    n_uniq = (first & (skeys != SENTINEL)).sum().to(torch.int32)
+    m = regs.shape[1]
+    m_regs = torch.zeros((n, m), dtype=torch.int32, device=device) \
+        .scatter_reduce_(0, seg[:, None].expand(n, m),
+                         regs[order].to(torch.int32), "amax")
+    m_cnt = torch.zeros(n, dtype=torch.float64, device=device).index_add_(
+        0, seg, cnt[order].to(torch.float64))
+    rep = torch.searchsorted(seg, torch.arange(n, device=device)).clamp(
+        0, max(n - 1, 0))
+    m_used = torch.arange(n, device=device) < n_uniq
+    m_keys = torch.where(m_used, skeys[rep], SENTINEL)
+    src = order[rep]
+    m_dims = tuple(d[src] for d in dims)
+    m_dvalids = tuple(v[src] & m_used for v in dvalids)
+    if want_regs:
+        return (m_keys, m_used, m_cnt, m_dims, m_dvalids, n_uniq,
+                m_regs.to(torch.uint8))
+    # zero registers add 1.0 each (hll.compute_estimate)
+    present = m_regs > 0
+    non_zero = present.sum(1, dtype=torch.int32)
+    rho = m_regs.to(torch.int64).clamp(max=1022)
+    recip = ((1023 - rho) << 52).view(torch.float64)
+    sum_recip = torch.where(present, recip, 0.0).sum(1) + (
+        float(m) - non_zero.to(torch.float64))
+    return (m_keys, m_used, m_cnt, m_dims, m_dvalids, n_uniq, sum_recip,
+            non_zero)
 
 
 def _signed_view(a: np.ndarray) -> np.ndarray:

@@ -15,14 +15,17 @@ for the CPU test of the row logic. The plain PyTorch version
 kernels.dense_slot_lane, then K2's plain version.
 
 Eligibility is the JAX package's (`plan_fused`), and so is FD_MIN_ROWS,
-so the same batches reach the same kernel. Plans with joined columns are
-not ported yet and stay unfused.
+so the same batches reach the same kernel. A joined column of a lane type
+is a kernel input like a main-table column: the wrapper resolves the
+joined rows once per batch in PyTorch (`_EvalCtx.foreign_column`, the
+JAX package's prologue) and hands the kernel the gathered [n] lane after
+the main columns.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -52,6 +55,14 @@ class FusedSpec:
     col_ids: List[int]   # referenced main-table columns, kernel input order
     n_slots: int
     source: str = ""     # the plan's generated kernel source (emit_cuda)
+    # referenced joined columns (table_id, column_id, data_type), kernel
+    # inputs after the main columns
+    fkeys: List[Tuple[int, int, int]] = field(default_factory=list)
+
+    def input_keys(self) -> List[Tuple[int, int]]:
+        """(table_id, column_id) of each kernel input, in V[]/B[] order."""
+        return ([(0, c) for c in self.col_ids]
+                + [(t, c) for t, c, _ in self.fkeys])
 
 
 def _domain_i32_safe(dom) -> bool:
@@ -83,12 +94,18 @@ def plan_fused(plan: CompiledQuery, dense_plan) -> Optional[FusedSpec]:
 
     ok = [True]
     cols: List[int] = []
+    fvars: List[Tuple[int, int, int]] = []  # (table_id, cid, data_type)
     lane_dts = _4B_DTS + _2B_DTS + _1B_DTS + (mdt.Float32,)
 
     def visit(node):
         if isinstance(node, E.VarRef):
-            if node.data_type not in lane_dts or node.table_id != 0:
-                ok[0] = False  # joined columns are not ported yet
+            if node.data_type not in lane_dts:
+                ok[0] = False
+            elif node.table_id != 0:
+                # a joined column: the wrapper materializes its [n] lane
+                key = (node.table_id, node.column_id, node.data_type)
+                if key not in fvars:
+                    fvars.append(key)
             elif node.column_id not in cols:
                 cols.append(node.column_id)
         elif isinstance(node, E.NumberLiteral):
@@ -114,9 +131,10 @@ def plan_fused(plan: CompiledQuery, dense_plan) -> Optional[FusedSpec]:
         E.walk(e, visit)
         if not ok[0]:
             return None
-    if len(cols) > _MAX_COLS:
+    if len(cols) + len(fvars) > _MAX_COLS:
         return None
-    spec = FusedSpec(col_ids=sorted(cols), n_slots=dense_plan.n_slots)
+    spec = FusedSpec(col_ids=sorted(cols), n_slots=dense_plan.n_slots,
+                     fkeys=sorted(fvars))
     spec.source = emit_cuda(plan, dense_plan, spec)
     return spec
 
@@ -182,10 +200,12 @@ class _CEmitter:
 
     def __init__(self, plan: CompiledQuery, spec: FusedSpec):
         self.plan = plan
-        self.col_index = {cid: j for j, cid in enumerate(spec.col_ids)}
+        # keyed on (table_id, column_id): a joined table's column ids
+        # restart at 0
+        self.col_index = {key: j for j, key in enumerate(spec.input_keys())}
         self.lines: List[str] = []
         self._n = 0
-        self._cols: Dict[int, _C] = {}
+        self._cols: Dict[Tuple[int, int], _C] = {}
 
     def tmp(self, ctype: str, expr: str) -> str:
         name = f"t{self._n}"
@@ -236,15 +256,16 @@ class _CEmitter:
         raise QueryError(f"cannot emit expression node {node!r} in C")
 
     def column(self, node: E.VarRef) -> _C:
-        c = self._cols.get(node.column_id)
+        key = (node.table_id, node.column_id)
+        c = self._cols.get(key)
         if c is None:
-            j = self.col_index[node.column_id]
+            j = self.col_index[key]
             elem, lane = _LOADS[node.data_type]
             load = f"((const {elem}*)V[{j}])[i]"
             if elem != lane:
                 load = f"({lane}){load}"
             c = self.val(lane, load, f"B[{j}][i]")
-            self._cols[node.column_id] = c
+            self._cols[key] = c
         return c
 
     def unary(self, node: E.UnaryExpr) -> _C:
@@ -455,8 +476,8 @@ ARES_DEV void ares_row(const void* const* V, const bool* const* B,
 
 class FusedDenseKernel:
     """K1 for one plan, dense plan and padded batch size. Called with the
-    unfused dense kernel's ABI: fn(columns, n_valid, live_cutoff, acc) ->
-    ((agg, cnt, rows) folded into acc, overflow)."""
+    unfused dense kernel's ABI: fn(columns, n_valid, live_cutoff, acc,
+    foreign=()) -> ((agg, cnt, rows) folded into acc, overflow)."""
 
     launches = 0  # kernel launches, all instances
 
@@ -469,14 +490,28 @@ class FusedDenseKernel:
         self.device = device
         self._fn = None   # the built kernel's entry point, at first launch
 
-    def _lanes(self, columns):
-        return [columns[(0, cid)] for cid in self.spec.col_ids]
+    def _device(self, columns) -> torch.device:
+        cids = self.spec.col_ids
+        return columns[(0, cids[0])][0].device if cids else self.device
 
-    def reduce_plain(self, columns, n_valid: int, live_cutoff):
+    def _lanes(self, columns, foreign=()):
+        """The kernel's inputs in V[]/B[] order: each main column as
+        staged, then each joined column gathered into an [n] lane (one
+        probe of the joined table per batch; the JAX package's prologue,
+        fused_dense.py:516-537)."""
+        lanes = [columns[(0, cid)] for cid in self.spec.col_ids]
+        if self.spec.fkeys:
+            ctx = K._EvalCtx(columns, self.n_rows, self._device(columns),
+                             foreign)
+            for t, c, _ in self.spec.fkeys:
+                lanes.append(ctx.foreign_column(t, c, self.plan,
+                                                *columns[(t, c)]))
+        return lanes
+
+    def reduce_plain(self, columns, n_valid: int, live_cutoff, foreign=()):
         """Plain PyTorch version: (out float32 [3, n_slots], overflow)."""
-        lanes = self._lanes(columns)
-        device = lanes[0][0].device if lanes else self.device
-        ctx = K._EvalCtx(columns, self.n_rows, device)
+        device = self._device(columns)
+        ctx = K._EvalCtx(columns, self.n_rows, device, foreign)
         mask, dim_vals = K._eval_common(self.plan, ctx, n_valid, live_cutoff)
         mlane = K._measure_lane(self.plan, ctx)
         slot, bad = K.dense_slot_lane(dim_vals, self.dense_plan, self.n_rows,
@@ -490,16 +525,16 @@ class FusedDenseKernel:
         out = P.segment_sum_plain(dropped, stacked, self.spec.n_slots)
         return out.t().contiguous(), (mask & bad).sum(dtype=torch.int32)
 
-    def reduce(self, columns, n_valid: int, live_cutoff):
+    def reduce(self, columns, n_valid: int, live_cutoff, foreign=()):
         """K1: (out float32 [3, n_slots], overflow int32 scalar tensor).
         CPU tensors take the plain version; CUDA tensors launch the kernel
         or raise."""
-        lanes = self._lanes(columns)
-        device = lanes[0][0].device if lanes else self.device
+        device = self._device(columns)
         if device.type == "cpu":
-            return self.reduce_plain(columns, n_valid, live_cutoff)
+            return self.reduce_plain(columns, n_valid, live_cutoff, foreign)
         if device.type != "cuda":
             raise ValueError(f"fused_dense: unsupported device {device}")
+        lanes = self._lanes(columns, foreign)
         for values, validity in lanes:
             for t in (values, validity):
                 if t.device != device or not t.is_contiguous() or \
@@ -537,8 +572,8 @@ class FusedDenseKernel:
         FusedDenseKernel.launches += 1
         return out, ovf[0]
 
-    def __call__(self, columns, n_valid: int, live_cutoff, acc):
-        out, overflow = self.reduce(columns, n_valid, live_cutoff)
+    def __call__(self, columns, n_valid: int, live_cutoff, acc, foreign=()):
+        out, overflow = self.reduce(columns, n_valid, live_cutoff, foreign)
         return K.dense_fold_epilogue(self.plan.measure.agg, acc, out[0],
                                      out[1], out[2], overflow)
 

@@ -1,11 +1,13 @@
-"""Device kernel layer of the group-by paths, on torch tensors.
+"""Device kernel layer of the query paths, on torch tensors.
 
 Port of `aresdb_tpu/query/kernels.py` for the dense and the keyed (sort)
-group-by: the expression emitter (filters, dimensions and measures traced
-into tensor ops on (value, validity) lanes), the dense slot map, the dense
-aggregation kernel with its 64-bit running fold, the group-key packing,
-the adaptive per-batch reduce_by_key, and the numpy group-key helpers
-GroupTable needs.
+group-by, HLL distinct counts and non-aggregate listings: the expression
+emitter (filters, dimensions and measures traced into tensor ops on
+(value, validity) lanes, joined columns probed through their dimension
+table), the dense slot map, the dense aggregation kernel with its 64-bit
+running fold, the group-key packing, the adaptive per-batch
+reduce_by_key, the HLL register build with its 64-bit murmur hash, the
+select kernel, and the numpy group-key helpers GroupTable needs.
 
 Every function takes its tensors on one device and returns tensors on the
 same device. Eligible dense plans route to the fused kernel K1
@@ -36,6 +38,7 @@ import torch
 
 from aresdb_tpu_torch.common import data_types as mdt
 from aresdb_tpu_torch.query import expr as E
+from aresdb_tpu_torch.query import hll as H
 from aresdb_tpu_torch.query import pallas_ops as P
 from aresdb_tpu_torch.query.compiler import CompiledQuery, QueryError
 from aresdb_tpu_torch.utils.torch_env import fetch_to_host
@@ -54,13 +57,66 @@ class _Val:
 
 
 class _EvalCtx:
-    """Per-batch evaluation context over main-table column lanes."""
+    """Per-batch evaluation context: staged column lanes, and the joined
+    tables' rows resolved lazily."""
 
-    def __init__(self, columns, n_rows: int, device: torch.device):
-        # columns: {(0, column_id): (values, validity)}
+    def __init__(self, columns, n_rows: int, device: torch.device,
+                 foreign=()):
+        # columns: {(table_id, column_id): (values, validity)}; a joined
+        # table's entries hold its whole staged rows, not [n_rows] lanes
         self.columns = columns
+        # per joined table (plan.foreign_tables order): (lut,) or
+        # (sorted_keys, perm), as executor._stage_foreign_tables stages it
+        self.foreign = foreign
         self.n_rows = n_rows
         self.device = device
+        self._foreign_rows: Dict[int, Tuple] = {}
+        self._foreign_cols: Dict[Tuple, Tuple] = {}
+
+    def foreign_column(self, table_id: int, column_id: int, plan,
+                       values, validity):
+        """One joined column as row-aligned (values, validity): the joined
+        row's value where the probe hits, invalid where it misses. The
+        JAX package's small-table one-hot dot and precomposed [F, 2]
+        gather are TPU gather-lowering devices; this gather gives their
+        validity and, where it holds, their value bits."""
+        key = (table_id, column_id)
+        out = self._foreign_cols.get(key)
+        if out is None:
+            fidx = plan.table_id_to_foreign[table_id]
+            main_key = _emit(plan.foreign_tables[fidx].main_key_expr, self,
+                             plan)
+            rows, hit = self.foreign_row(table_id, fidx, main_key)
+            out = (values[rows], validity[rows] & hit)
+            self._foreign_cols[key] = out
+        return out
+
+    def foreign_row(self, table_id: int, fidx: int, main_key: _Val):
+        """Main rows → (joined row index, hit): one gather through the
+        dense key → row table of a small key domain, else a binary search
+        of the sorted keys and the `perm` gather (the reference's device
+        cuckoo probe, query/hash_lookup.cu)."""
+        cached = self._foreign_rows.get(table_id)
+        if cached is not None:
+            return cached
+        entry = self.foreign[fidx]
+        key = main_key.value
+        if len(entry) == 1:
+            (lut,) = entry
+            size = lut.shape[0]
+            in_range = (key >= 0) & (key < size) & main_key.valid
+            rows = lut[key.clamp(0, size - 1).long()]
+            hit = in_range & (rows >= 0)
+            rows = rows.clamp(min=0)
+        else:
+            sorted_keys, perm = entry
+            key = key.to(sorted_keys.dtype).contiguous()
+            pos = torch.searchsorted(sorted_keys, key).clamp(
+                0, sorted_keys.shape[0] - 1)
+            hit = (sorted_keys[pos] == key) & main_key.valid
+            rows = perm[pos]
+        self._foreign_rows[table_id] = (rows, hit)
+        return rows, hit
 
     def full(self, value, dtype) -> torch.Tensor:
         return torch.full((self.n_rows,), value, dtype=dtype,
@@ -137,12 +193,13 @@ def _emit(node: E.Expr, ctx: _EvalCtx, plan: CompiledQuery) -> _Val:
 
 
 def _emit_varref(node: E.VarRef, ctx: _EvalCtx, plan: CompiledQuery) -> _Val:
-    if node.table_id != 0:
-        raise QueryError("joins are not ported yet")
     entry = ctx.columns.get((node.table_id, node.column_id))
     if entry is None:
         raise QueryError(f"column {node.val!r} not staged")
     values, validity = entry
+    if node.table_id > 0:
+        values, validity = ctx.foreign_column(
+            node.table_id, node.column_id, plan, values, validity)
     if node.data_type in (mdt.UUID, mdt.GeoPoint):
         return _Val(values, validity)  # (n, 2) lanes, special consumers only
     if node.data_type == mdt.Bool:
@@ -352,6 +409,14 @@ def _emit_call(node: E.Call, ctx: _EvalCtx, plan: CompiledQuery) -> _Val:
         return _emit_numeric_bucket(node, ctx, plan)
     if name in (E.LENGTH, E.CONTAINS, E.ELEMENT_AT):
         raise QueryError("array columns are not ported yet")
+    if name == "__tz_offset":
+        # per-row UTC offset through the joined timezone enum rank
+        # (reference timezoneLookupD, aql_processor.go:487)
+        rank = _emit(node.args[0], ctx, plan)
+        table = torch.as_tensor(np.asarray(node.tz_offsets, np.int32),
+                                device=ctx.device)
+        idx = rank.value.to(torch.int64).clamp(0, table.shape[0] - 1)
+        return _Val(table[idx], rank.valid)
     raise QueryError(f"unsupported function {name!r} in kernel emitter")
 
 
@@ -810,8 +875,9 @@ def make_dense_agg_kernel(plan: CompiledQuery, n_rows: int, dense_plan,
     plain scatter; the n_slots <= 4 and integer / min / max reductions are
     plain torch, as they are XLA ops in the JAX package.
 
-    Signature: fn(columns, n_valid, live_cutoff, acc) ->
-    ((agg[S], cnt[S], rows[S]) folded into acc, overflow).
+    Signature: fn(columns, n_valid, live_cutoff, acc, foreign=()) ->
+    ((agg[S], cnt[S], rows[S]) folded into acc, overflow); `foreign`
+    holds the joined tables' staged probes (_EvalCtx.foreign).
     """
     from aresdb_tpu_torch.query import fused_dense as FD
 
@@ -823,8 +889,8 @@ def make_dense_agg_kernel(plan: CompiledQuery, n_rows: int, dense_plan,
     out_float = plan.measure.out_float
     n_slots = dense_plan.n_slots
 
-    def fn(columns, n_valid, live_cutoff):
-        ctx = _EvalCtx(columns, n_rows, device)
+    def fn(columns, n_valid, live_cutoff, foreign):
+        ctx = _EvalCtx(columns, n_rows, device, foreign)
         mask, dim_vals = _eval_common(plan, ctx, n_valid, live_cutoff)
         mlane = _measure_lane(plan, ctx)
         slot, bad = dense_slot_lane(dim_vals, dense_plan, n_rows, device)
@@ -897,8 +963,9 @@ def make_dense_agg_kernel(plan: CompiledQuery, n_rows: int, dense_plan,
         return (aggv[:n_slots], cnt_rows[:n_slots, 0], cnt_rows[:n_slots, 1],
                 overflow)
 
-    def fn_acc(columns, n_valid, live_cutoff, acc):
-        aggv, cnt, rows, overflow = fn(columns, n_valid, live_cutoff)
+    def fn_acc(columns, n_valid, live_cutoff, acc, foreign=()):
+        aggv, cnt, rows, overflow = fn(columns, n_valid, live_cutoff,
+                                       foreign)
         return dense_fold_epilogue(agg, acc, aggv, cnt, rows, overflow)
 
     return fn_acc
@@ -926,11 +993,13 @@ def dense_acc_init(plan: CompiledQuery, n_slots: int, device: torch.device):
 
 
 def run_dense_kernel(fn, plan: CompiledQuery, n_slots: int, columns,
-                     n_valid, live_cutoff, device: torch.device):
+                     n_valid, live_cutoff, device: torch.device,
+                     foreign=()):
     """Single-batch convenience for tests: run a dense kernel against an
     identity accumulator and return (agg, cnt, rows, overflow)."""
     acc = dense_acc_init(plan, n_slots, device)
-    (aggv, cnt, rows), overflow = fn(columns, n_valid, live_cutoff, acc)
+    (aggv, cnt, rows), overflow = fn(columns, n_valid, live_cutoff, acc,
+                                     foreign)
     return aggv, cnt, rows, overflow
 
 
@@ -1199,10 +1268,11 @@ def _reduce_by_key_sorted_weighted(keys, wsum, wcnt, k_groups: int,
 
 
 def agg_batch_body(plan: CompiledQuery, n_rows: int, k_groups: int,
-                   columns, n_valid, live_cutoff, device: torch.device):
+                   columns, n_valid, live_cutoff, device: torch.device,
+                   foreign=()):
     """The per-batch keyed aggregation: filters, dims and measure, the
     group key, and reduce_by_key into k_groups slots."""
-    ctx = _EvalCtx(columns, n_rows, device)
+    ctx = _EvalCtx(columns, n_rows, device, foreign)
     mask, dim_vals = _eval_common(plan, ctx, n_valid, live_cutoff)
     mlane = _measure_lane(plan, ctx)
     ptypes = [_packing_type(d) for d in plan.dimensions]
@@ -1218,12 +1288,190 @@ def agg_batch_body(plan: CompiledQuery, n_rows: int, k_groups: int,
 def make_agg_kernel(plan: CompiledQuery, n_rows: int, k_groups: int,
                     device: torch.device):
     """The keyed aggregation of one padded batch of n_rows:
-    fn(columns, n_valid, live_cutoff) -> (group_keys[K] int64,
-    slot_used[K], agg[K], cnt[K], n_groups, dim_values, dim_valids)."""
+    fn(columns, n_valid, live_cutoff, foreign=()) -> (group_keys[K]
+    int64, slot_used[K], agg[K], cnt[K], n_groups, dim_values,
+    dim_valids)."""
 
-    def fn(columns, n_valid, live_cutoff):
+    def fn(columns, n_valid, live_cutoff, foreign=()):
         return agg_batch_body(plan, n_rows, k_groups, columns, n_valid,
-                              live_cutoff, device)
+                              live_cutoff, device, foreign)
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# HLL distinct counts: the 64-bit murmur hash on int64 tensors, and the
+# per-batch register build
+# ---------------------------------------------------------------------------
+
+def _fmix64(k: torch.Tensor) -> torch.Tensor:
+    k = k ^ _lsr(k, 33)
+    k = k * _signed64(0xFF51AFD7ED558CCD)
+    k = k ^ _lsr(k, 33)
+    k = k * _signed64(0xC4CEB9FE1A85EC53)
+    return k ^ _lsr(k, 33)
+
+
+def murmur3_64(values: torch.Tensor, width_bytes: int) -> torch.Tensor:
+    """hll.murmur3_64 on a torch lane: the first 64 bits of murmur3 x64
+    128 (seed 0) of each value's low `width_bytes` bytes, as int64 bits.
+    torch's uint64 lacks most ops, so the u64 arithmetic runs on int64:
+    products wrap mod 2^64 with the same bits, right shifts are made
+    logical, and the constants are their signed 64-bit patterns. A value
+    widens as the JAX package's astype(uint64) does: integers sign-extend
+    (the width mask then keeps the low bytes), floats convert with
+    saturation (XLA's float -> u64: 0 below zero and for NaN, all ones
+    from 2^64)."""
+    if values.dtype.is_floating_point:
+        f = values.to(torch.float64)
+        below = 2.0 ** 63 - 1024   # the largest float64 below 2^63
+        k1 = torch.where(f >= 2.0 ** 63,
+                         (f - 2.0 ** 63).clamp(0.0, below).to(torch.int64)
+                         | _SIGN,
+                         f.clamp(0.0, below).to(torch.int64))
+        k1 = torch.where(f >= 2.0 ** 64, -1, k1)
+        k1 = torch.where(torch.isnan(f), 0, k1)
+    else:
+        k1 = values.to(torch.int64)
+    if width_bytes < 8:
+        k1 = k1 & ((1 << (8 * width_bytes)) - 1)
+    k1 = k1 * _signed64(H._C1)
+    k1 = (k1 << 31) | _lsr(k1, 33)
+    k1 = k1 * _signed64(H._C2)
+    h1 = k1 ^ width_bytes
+    h2 = torch.full_like(h1, width_bytes)
+    h1 = h1 + h2
+    h2 = h2 + h1
+    return _fmix64(h1) + _fmix64(h2)
+
+
+def hll_value_from_hash(hashed: torch.Tensor) -> torch.Tensor:
+    """hll.hll_value_from_hash on int64 hash bits: rho << 16 | group, where
+    group is the hash's low 14 bits and rho the count of zero bits from
+    bit 14 up, capped at 50 (int64 values below 2^32)."""
+    group = hashed & (H.HLL_M - 1)
+    x = _lsr(hashed, H.HLL_BITS)   # below 2^50: plain shifts from here
+    rho = torch.zeros_like(hashed)
+    for shift in (32, 16, 8, 4, 2, 1):
+        low_zero = (x & ((1 << shift) - 1)) == 0
+        rho = rho + low_zero.to(torch.int64) * shift
+        x = torch.where(low_zero, x >> shift, x)
+    rho = rho.clamp(max=64 - H.HLL_BITS)
+    return (rho << 16) | group
+
+
+def _hll_lane(plan: CompiledQuery, ctx: _EvalCtx):
+    """Per-row HLL value lane -> (value int64 in [0, 2^32) with the
+    measure's validity, register id, rho clamped at 254). A column marked
+    as client-hashed HLL values is taken as it is; a UUID hashes as the
+    XOR of its two 64-bit lanes; any other value through murmur3_64 at
+    its column's byte width (4 for an expression).
+    Reference: GetHLLValueFunctor (query/functor.hpp:446)."""
+    expr_ast = plan.measure.expr
+    is_var = isinstance(expr_ast, E.VarRef)
+    is_hll_col = (is_var and expr_ast.table_id == 0
+                  and expr_ast.column_id >= 0
+                  and plan.main_schema.table.columns[expr_ast.column_id]
+                  .hll_config.is_hll_column)
+    v = _emit(expr_ast, ctx, plan)
+    if is_hll_col:
+        hv = v.value.to(torch.int64) & 0xFFFFFFFF
+    else:
+        if is_var and expr_ast.data_type == mdt.UUID:
+            hashed = v.value[:, 0] ^ v.value[:, 1]
+        else:
+            width = mdt.data_type_bytes(expr_ast.data_type) if is_var else 4
+            hashed = murmur3_64(v.value, width)
+        hv = hll_value_from_hash(hashed)
+    reg = hv & (H.HLL_M - 1)
+    rho = (hv >> 16).clamp(max=254)
+    return _Val(hv, v.valid), reg, rho
+
+
+def hll_batch_body(plan: CompiledQuery, n_rows: int, k_groups: int,
+                   columns, n_valid, live_cutoff, device: torch.device,
+                   foreign=()):
+    """One batch's HLL group-by: rows co-sorted by group key, then every
+    (group, register) pair's largest rho in ONE scatter-max over
+    [k_groups * 16384] registers. Returns (group_keys[K] int64,
+    slot_used[K], registers[K, 16384] uint8 holding rho + 1 (0 = empty),
+    cnt[K] float32 of valid measures, n_groups, dim_values, dim_valids).
+    Reference: query/hll.cu HyperLogLog. The JAX package's packed
+    single-operand sort (ARES_HLL_SORT=packed) is a TPU sort-operand
+    device and is not carried over."""
+    m = H.HLL_M
+    ctx = _EvalCtx(columns, n_rows, device, foreign)
+    mask, dim_vals = _eval_common(plan, ctx, n_valid, live_cutoff)
+    hv, reg, rho = _hll_lane(plan, ctx)
+    dim_types = [_packing_type(d) for d in plan.dimensions]
+    exact, _ = pack_modes(dim_types)
+    keys = pack_dim_keys(dim_vals, dim_types, mask)
+    perm, skeys, first, live, idx, starts, ends = _sorted_runs(keys,
+                                                               k_groups)
+    sreg, srho, svalid = reg[perm], rho[perm], hv.valid[perm]
+    valid_m = svalid & (idx < k_groups)
+    # the other rows spread over spare slots past the last register, as
+    # _scatter_index does, instead of piling on one address
+    spill = k_groups * m + (torch.arange(n_rows, device=device)
+                            & (_SPILL - 1))
+    reg_key = torch.where(valid_m, idx * m + sreg, spill)
+    # stored register = trailing-zero count + 1 (the reference's write
+    # functor, query/functor.hpp:1364): 0 means empty
+    registers = torch.zeros(k_groups * m + _SPILL, dtype=torch.int32,
+                            device=device).scatter_reduce_(
+        0, reg_key, torch.where(valid_m, srho + 1, 0).to(torch.int32),
+        "amax")[:k_groups * m]
+    registers = registers.to(torch.uint8).reshape(k_groups, m)
+    # valid measures per group from the sorted runs' prefix sums (the JAX
+    # package's default prefix path): an index_add_ would pile every row
+    # of a few-group query onto a few float64 atomics
+    csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
+                      torch.cumsum(svalid, 0)])
+    cnt = csum[ends[:k_groups]] - csum[starts[:k_groups]]
+    gkeys, slot_used, n_groups, dim_values, dim_valids = _group_table(
+        perm, skeys, first, live, starts, k_groups, dim_vals,
+        dim_types if (exact and dim_vals) else None)
+    return (gkeys, slot_used, registers, cnt.to(torch.float32), n_groups,
+            dim_values, dim_valids)
+
+
+def make_hll_kernel(plan: CompiledQuery, n_rows: int, k_groups: int,
+                    device: torch.device):
+    """fn(columns, n_valid, live_cutoff, foreign=()) -> hll_batch_body's
+    group table for one padded batch of n_rows."""
+
+    def fn(columns, n_valid, live_cutoff, foreign=()):
+        return hll_batch_body(plan, n_rows, k_groups, columns, n_valid,
+                              live_cutoff, device, foreign)
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# non-aggregate queries: the filter mask and dimension lanes, no reduce
+# ---------------------------------------------------------------------------
+
+def make_select_kernel(plan: CompiledQuery, n_rows: int, top_l: int,
+                       device: torch.device):
+    """fn(columns, n_valid, live_cutoff, foreign=()) over one padded batch.
+    top_l = 0: (mask[n], dim values, dim valids) of every row. top_l > 0:
+    (n_found, dims[top_l], valids[top_l]): the first top_l passing rows in
+    scan order, compacted on the device so that only they reach the host;
+    n_found counts every passing row and may exceed top_l.
+    Reference: query/aql_nonaggr_batchexecutor.go."""
+
+    def fn(columns, n_valid, live_cutoff, foreign=()):
+        ctx = _EvalCtx(columns, n_rows, device, foreign)
+        mask, dim_vals = _eval_common(plan, ctx, n_valid, live_cutoff)
+        if not top_l:
+            return (mask, tuple(dv.value for dv in dim_vals),
+                    tuple(dv.valid for dv in dim_vals))
+        # a stable sort of the inverted mask moves passing rows to the
+        # front in scan order
+        idx = torch.sort((~mask).to(torch.int8), stable=True)[1][:top_l]
+        return (mask.sum(dtype=torch.int32),
+                tuple(dv.value[idx] for dv in dim_vals),
+                tuple(dv.valid[idx] for dv in dim_vals))
 
     return fn
 
@@ -1236,18 +1484,44 @@ def plan_signature(plan: CompiledQuery) -> str:
     """Structural key so textually-identical queries share kernels.
 
     Expressions print column names, so the key also carries each used
-    column's id and type: two tables of one name with other layouts (the
-    JAX package's key omits this) must not share a kernel, which would
-    read the other layout's columns."""
-    cols = plan.main_schema.table.columns
-    parts = [plan.main_schema.table.name,
-             ",".join(f"{cols[c].name}={c}:{cols[c].data_type}"
-                      for c in plan.used_columns),
+    column's id and type, of the main table and of every joined one: two
+    tables of one name with other layouts (the JAX package's key omits
+    this) must not share a kernel, which would read the other layout's
+    columns. It also carries the UTC offsets a timezone join resolved at
+    compile time, which the expressions do not print."""
+    def layout(table, used):
+        cols = table.columns
+        return table.name + ":" + ",".join(
+            f"{cols[c].name}={c}:{cols[c].data_type}" for c in used)
+
+    parts = [layout(plan.main_schema.table, plan.used_columns),
              "|".join(str(f) for f in plan.filters),
              "|".join(str(f) for f in plan.time_filter_expr),
              "|".join(str(d.expr) for d in plan.dimensions)]
     if plan.measure:
         parts.append(f"{plan.measure.agg}:{plan.measure.expr}:{plan.measure.out_float}")
+    for ft in plan.foreign_tables:
+        parts.append(f"join:{ft.alias}:{ft.main_key_expr}:"
+                     f"{ft.foreign_key_column}:"
+                     + layout(ft.schema.table, ft.used_columns))
+    if plan.geo is not None:
+        g = plan.geo
+        parts.append(f"geo:{g.alias}:{g.shape_column}:{g.point_expr}:"
+                     f"{g.has_filter}:{g.exclude}")
+    parts.append("geodims:" + ",".join(
+        "1" if d.geo_dim else "0" for d in plan.dimensions))
+    parts.append(f"nonagg:{plan.is_non_agg}")
+    tz = []
+
+    def visit(node):
+        if isinstance(node, E.Call) and node.name == "__tz_offset":
+            tz.append(np.asarray(node.tz_offsets, np.int32).tobytes().hex())
+
+    for e in (list(plan.filters) + list(plan.time_filter_expr)
+              + [d.expr for d in plan.dimensions]):
+        E.walk(e, visit)
+    if tz:
+        parts.append("tz:" + ",".join(tz))
     return "\x01".join(parts)
 
 
@@ -1278,6 +1552,24 @@ class KernelCache:
         fn = self._cache.get(key)
         if fn is None:
             fn = make_agg_kernel(plan, n_rows, k_groups, device)
+            self._cache[key] = fn
+        return fn
+
+    def select_kernel(self, plan: CompiledQuery, n_rows: int, top_l: int,
+                      device: torch.device):
+        key = ("sel", plan_signature(plan), n_rows, top_l, str(device))
+        fn = self._cache.get(key)
+        if fn is None:
+            fn = make_select_kernel(plan, n_rows, top_l, device)
+            self._cache[key] = fn
+        return fn
+
+    def hll_kernel(self, plan: CompiledQuery, n_rows: int, k_groups: int,
+                   device: torch.device):
+        key = ("hll", plan_signature(plan), n_rows, k_groups, str(device))
+        fn = self._cache.get(key)
+        if fn is None:
+            fn = make_hll_kernel(plan, n_rows, k_groups, device)
             self._cache[key] = fn
         return fn
 

@@ -85,6 +85,13 @@ def format_dimension(value, valid: bool, dim: DimensionPlan,
 
 def _measure_value(plan: CompiledQuery, agg_value, count: int) -> Optional[float]:
     m = plan.measure
+    if m.agg == "hll":
+        from aresdb_tpu_torch.query import hll as H
+        a = np.asarray(agg_value)
+        if a.ndim == 0:
+            # executor already estimated on device stats (JSON fast path)
+            return float(a)
+        return H.compute_estimate(a)
     if m.agg == "avg":
         if count == 0:
             return None
@@ -169,6 +176,12 @@ def measure_column(plan: CompiledQuery, aggs: np.ndarray,
     """Vectorized _measure_value over the finalized columns."""
     m = plan.measure
     a = np.asarray(aggs)
+    if m.agg == "hll":
+        from aresdb_tpu_torch.query import hll as H
+        if a.ndim <= 1:
+            # executor already estimated on device stats (JSON fast path)
+            return np.asarray(a, np.float64).tolist()
+        return [H.compute_estimate(a[j]) for j in range(len(a))]
     if m.agg == "avg":
         cnts = np.asarray(cnts)
         safe = np.maximum(cnts, 1)
@@ -210,3 +223,16 @@ def build_agg_result(plan: CompiledQuery, table) -> Dict[str, Any]:
         node[NULL_STRING if s is None else s] = measures[j]
     return result
 
+
+def build_non_agg_result(plan: CompiledQuery, rows) -> Dict[str, Any]:
+    headers = []
+    for d in plan.dimensions:
+        headers.append(d.raw.alias or (d.raw.expr or str(d.expr)))
+    matrix: List[List[Any]] = []
+    for row in rows:
+        out = []
+        for i, (value, valid) in enumerate(row):
+            s = format_dimension(value, valid, plan.dimensions[i], plan)
+            out.append(NULL_STRING if s is None else s)
+        matrix.append(out)
+    return {"headers": headers, "matrixData": matrix}

@@ -1,13 +1,15 @@
 """Query service: AQL request → compile → execute → postprocess.
 
-Port of `aresdb_tpu/query/service.py` for the group-by paths, dense and
-keyed (sort). The store is anything that offers `get_schemas()` and
+Port of `aresdb_tpu/query/service.py`: group-by queries (dense and keyed),
+HLL distinct counts (also as the binary `application/hll` frame),
+non-aggregate listings, and joins to dimension tables, the timezone table
+included. The store is anything that offers `get_schemas()` and
 `get_table_shard(name, shard_id)`, as `ShardExecutor` uses it.
 
 What the port does not run yet is answered with a "not ported yet" error
 in the response, never with a wrong result: multi-measure composite
-queries, SQL, non-aggregate queries, HLL, joins, geo, array columns,
-archive batches and admission (executor.py).
+queries, SQL, geo, array columns, archive batches and admission
+(executor.py).
 """
 
 from __future__ import annotations
@@ -15,18 +17,23 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, List
 
+from aresdb_tpu_torch.query import hll_wire as W
 from aresdb_tpu_torch.query.aql import AQLQuery
 from aresdb_tpu_torch.query.compiler import Compiler, QueryError
 from aresdb_tpu_torch.query.executor import ShardExecutor, not_ported
-from aresdb_tpu_torch.query.postprocess import build_agg_result
+from aresdb_tpu_torch.query.postprocess import (build_agg_result,
+                                                build_non_agg_result)
 from aresdb_tpu_torch.utils.torch_env import resolve_device
 
 
 class QueryService:
-    def __init__(self, memstore, device=None):
+    def __init__(self, memstore, device=None, timezone_table: str = ""):
         """device: where the query kernels run; `cuda` unless the caller
-        passes another (`"cpu"` runs every kernel's plain version)."""
+        passes another (`"cpu"` runs every kernel's plain version).
+        timezone_table: the table that `timezone(join_key)` queries join
+        for each row's timezone (reference query.timezone_table)."""
         self.memstore = memstore
+        self.timezone_table = timezone_table
         self.device = resolve_device(device)
         self.executor = ShardExecutor(memstore, self.device)
 
@@ -61,6 +68,30 @@ class QueryService:
             resp["context"] = contexts
         return resp
 
+    def handle_aql_hll(self, request: Dict[str, Any]) -> bytes:
+        """Process an AQLRequest with `Accept: application/hll`: the binary
+        HLLQueryResults frame (api/query_handler.go:382
+        HLLQueryResponseWriter); every query must be an HLL query
+        (broker/query_compiler.go:305)."""
+        out = W.HLLQueryResults()
+        for qd in request.get("queries", []):
+            try:
+                q = AQLQuery.from_json(qd)
+                plan = Compiler(self.memstore.get_schemas(),
+                                timezone_table=self.timezone_table).compile(q)
+                if plan.is_non_agg or plan.measure.agg != "hll":
+                    raise QueryError(
+                        "expect hll aggregate function when Accept is "
+                        "application/hll")
+                # binary responses need the register rows; JSON queries
+                # fetch only per-group estimator sums
+                plan.hll_registers = True
+                table, _ = self.executor.execute(plan)
+                out.write_result(W.serialize_result_table(plan, table))
+            except (QueryError, KeyError, ValueError) as e:
+                out.write_error(str(e))
+        return out.get_bytes()
+
     def handle_sql(self, request: Dict[str, Any]) -> Dict[str, Any]:
         """SQL is not ported yet: every statement answers with that error."""
         n = len(request.get("queries", []))
@@ -68,14 +99,18 @@ class QueryService:
         return {"results": [{}] * n, "errors": [err] * n}
 
     def _run(self, q: AQLQuery, data_only: bool = False):
-        compiler = Compiler(self.memstore.get_schemas())
+        compiler = Compiler(self.memstore.get_schemas(),
+                            timezone_table=self.timezone_table)
         t0 = time.perf_counter()
         plan = compiler.compile(q)
         plan.data_only = data_only
         compile_s = time.perf_counter() - t0
-        table, _ = self.executor.execute(plan)
+        table, rows = self.executor.execute(plan)
         plan.stats["compile"] = compile_s
         t0 = time.perf_counter()
-        result = build_agg_result(plan, table)
+        if plan.is_non_agg:
+            result = build_non_agg_result(plan, rows)
+        else:
+            result = build_agg_result(plan, table)
         plan.stats["postprocess"] = time.perf_counter() - t0
         return result, plan

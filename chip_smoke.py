@@ -22,6 +22,20 @@ service on the CPU (the kernels' plain versions):
   Q5  sum(fare) by day of month x status under ARES_FACTORED=0, through K3
   Q1 with an understated city domain: every batch overflows its dense
       plan and reruns on the sort path
+  J1  Q1 joined to a 300-row cities table, filtered on the joined
+      population: K1 with one joined lane
+  J2  Q2 with the same join: unfused, through K2
+  N1  the first 50 rejected trips (fare, city): a listing, no kernel;
+      the scan stops after the first batch
+  N2  N1 ordered by fare, descending, limit 20
+  H1  countdistincthll(request_at) by city: the HLL capacity ladder
+      climbs from 256 to 512 groups on the cold run
+  H2  countdistincthll(uuid), also as the binary application/hll frame
+The listings and HLL answers must equal the CPU run's exactly, and a
+numpy oracle over the ingested rows: N1's rows are the first 50 matching
+rows in order; H1's and H2's estimates are hll.compute_estimate of
+registers built with np.maximum.at, and H1's are within 5% of the exact
+distinct counts.
 
 Kernels and what they replace:
   K1 fused_dense  (csrc/fused_dense_template.cuh, one row function emitted
@@ -57,6 +71,18 @@ import numpy as np
 import torch
 
 BATCH_ROWS = 1 << 21          # the default live batch size (batchSize)
+N_CITIES = 300
+# the dimension table of the TPU battery, tools/drive_tpu_server.py:28-32
+CITIES_SCHEMA_JSON = {
+    "name": "cities",
+    "columns": [{"name": "id", "type": "Uint16"},
+                {"name": "population", "type": "Uint32"}],
+    "primaryKeyColumns": [0], "isFactTable": False,
+    "config": {"batchSize": 1024}}
+CITY_JOIN = [{"table": "cities", "alias": "c",
+              "conditions": ["c.id = city_id"]}]
+LISTINGS = ("N1", "N2")
+HLL_QUERIES = ("H1", "H2")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
 # float sums: atomics add in another order than the plain version (and
@@ -80,6 +106,7 @@ K2_CASES = (("uniform 13,338", 13_338, 3, None, 0.0),
             ("9 channels, 16,416 slots", 16_416, 9, None, 0.0))
 K2_ROW_CASE = "uniform 16,416"
 WIDE_K1_CASE = "Q1 over 1,000 cities (26,650 slots)"
+J1_K1_CASE = "J1: Q1 with a joined population lane"
 # each kernel's __global__ functions, as the profiler names them
 KERNEL_FUNCS = {"K1": r"fused_dense_kernel",
                 "K2": r"(?<!dense_)segment_sum_(cluster|global)",
@@ -110,6 +137,7 @@ K3_CASES = (("uniform 128", 128, 3, "dense", "dense_segment_sum_warp"),
             ("Q5 batch, one NaN and one inf measure", 128, 3, "Q5 nan inf",
              "dense_segment_sum_warp"))
 Q3_CAPACITY = 1 << 19    # the ladder's rung for about 300k groups a batch
+H1_CAPACITY = 512        # the HLL ladder's rung for 301 groups a batch
 
 
 def demo_variant(demo, measure, dims, filters=(), since="24 hours ago"):
@@ -130,7 +158,43 @@ def q2_query(demo) -> dict:
     return q
 
 
-def e2e_queries(demo) -> dict:
+def city_populations(seed: int) -> np.ndarray:
+    """The populations of cities 1..N_CITIES, drawn from the seed."""
+    return np.random.RandomState(seed + 1).randint(
+        1_000, 1_000_000, N_CITIES).astype(np.uint32)
+
+
+def joined(q: dict, seed: int) -> dict:
+    """q joined to the cities table, keeping the trips of the cities above
+    the median population."""
+    q = json.loads(json.dumps(q))
+    q["joins"] = CITY_JOIN
+    median = int(np.median(city_populations(seed)))
+    q["measures"][0].setdefault("rowFilters", []).append(
+        f"c.population > {median}")
+    return q
+
+
+def listing(demo, limit: int, sorts=()) -> dict:
+    """The first `limit` rejected trips' fare and city (the TPU battery's
+    non-agg query), ordered by `sorts` where given."""
+    q = {"table": "trips", "now": demo.DEMO_NOW,
+         "measures": [{"sqlExpression": "1"}],
+         "dimensions": [{"sqlExpression": "fare"},
+                        {"sqlExpression": "city_id"}],
+         "rowFilters": ["status='rejected'"], "limit": limit}
+    if sorts:
+        q["sorts"] = [{"name": n, "order": o} for n, o in sorts]
+    return q
+
+
+def hll_query(demo, measure: str, dims) -> dict:
+    return {"table": "trips", "now": demo.DEMO_NOW,
+            "measures": [{"sqlExpression": measure}],
+            "dimensions": [{"sqlExpression": d} for d in dims]}
+
+
+def e2e_queries(demo, seed: int = 0) -> dict:
     """name -> (query, environment, understate the city domain)."""
     minute_city = [("request_at", "minute"), ("city_id", None)]
     return {
@@ -145,6 +209,13 @@ def e2e_queries(demo) -> dict:
                                                 ("status", None)]),
                {"ARES_FACTORED": "0"}, False),
         "Q1 overflow": (demo.DEMO_QUERY, {}, True),
+        "J1": (joined(demo.DEMO_QUERY, seed), {}, False),
+        "J2": (joined(q2_query(demo), seed), {}, False),
+        "N1": (listing(demo, 50), {}, False),
+        "N2": (listing(demo, 20, [("fare", "desc")]), {}, False),
+        "H1": (hll_query(demo, "countdistincthll(request_at)",
+                         ["city_id"]), {}, False),
+        "H2": (hll_query(demo, "countdistincthll(uuid)", []), {}, False),
     }
 
 
@@ -164,16 +235,25 @@ def expected_launches(name, runs, batches, fused) -> dict:
         # more per batch where the cold run climbs from K = 4,096 to 8,192
         "Q1 overflow": {"K1": runs * fused,
                         "K2": unfused + runs * batches + batches, "K3": 0},
+        # K1 takes the joined lane as it takes Q1's columns
+        "J1": {"K1": runs * fused, "K2": unfused, "K3": 0},
+        "J2": {"K1": 0, "K2": runs * batches, "K3": 0},
+        # listings and HLL run no kernel of the TPU's
+        "N1": {"K1": 0, "K2": 0, "K3": 0},
+        "N2": {"K1": 0, "K2": 0, "K3": 0},
+        "H1": {"K1": 0, "K2": 0, "K3": 0},
+        "H2": {"K1": 0, "K2": 0, "K3": 0},
     }[name]
 
 
-def k1_cases(demo) -> dict:
+def k1_cases(demo, seed: int = 0) -> dict:
     """The plans K1 is checked on, each with the largest city id its dense
     plan assumes: the main path's Q1, then the other forms the emitter
     writes (avg with a post-division slot, count, CASE and IN, a numeric
     bucket, arithmetic with % and NOT), Q1 over a city domain that the
-    data overflows, and Q1 over 1,000 cities, whose 26,650 slots (320 KB)
-    no single block's shared memory holds."""
+    data overflows, Q1 over 1,000 cities, whose 26,650 slots (320 KB)
+    no single block's shared memory holds, and J1, Q1 with a joined
+    lane."""
     def q(measure, filters=(), dims=None):
         out = json.loads(json.dumps(demo.DEMO_QUERY))
         out["measures"] = [{"sqlExpression": measure,
@@ -199,12 +279,40 @@ def k1_cases(demo) -> dict:
                                      "NOT (status = 'rejected')"]), 300),
         "Q1 overflowing city domain": (demo.DEMO_QUERY, 100),
         WIDE_K1_CASE: (demo.DEMO_QUERY, 1000),
+        J1_K1_CASE: (joined(demo.DEMO_QUERY, seed), 300),
     }
+
+
+def compile_plan(demo, query):
+    """The plan of a query over the demo trips and the cities table."""
+    from aresdb_tpu_torch.common.schema import Table, TableSchema
+    from aresdb_tpu_torch.query.aql import AQLQuery
+    from aresdb_tpu_torch.query.compiler import Compiler
+
+    cities = TableSchema(Table.from_json(CITIES_SCHEMA_JSON))
+    return Compiler({"trips": demo.demo_schema(), "cities": cities}).compile(
+        AQLQuery.from_json(query))
+
+
+def city_columns(plan, seed: int, device) -> tuple:
+    """The cities table staged as the executor stages it, for a plan that
+    joins it: ({(table_id, column_id): (values, validity)}, the probes:
+    one dense id -> row table)."""
+    (ft,) = plan.foreign_tables
+    ids = np.arange(1, N_CITIES + 1)
+    lut = np.full(N_CITIES + 2, -1, np.int32)
+    lut[ids] = np.arange(N_CITIES, dtype=np.int32)
+    ones = torch.ones(N_CITIES, dtype=torch.bool, device=device)
+    cols = {(ft.table_id, 0): (torch.from_numpy(ids.astype(np.int16))
+                               .to(device), ones),
+            (ft.table_id, 1): (torch.from_numpy(
+                city_populations(seed).view(np.int32)).to(device), ones)}
+    return cols, ((torch.from_numpy(lut).to(device),),)
 
 
 def k1_spec(demo, FD, plan_dense, query, city_max):
     """(plan, dense plan, fused spec) of one K1 case."""
-    plan = demo.demo_plan(query)
+    plan = compile_plan(demo, query)
     stats = {(0, plan.main_schema.column_id("city_id")): (1, city_max),
              (0, plan.main_schema.column_id("fare")): (0.0, 50.0)}
     dp = plan_dense(plan, stats)
@@ -423,8 +531,8 @@ def q5_batch(seed: int) -> tuple:
     from aresdb_tpu_torch.query import pallas_ops as P
     from aresdb_tpu_torch.query.service import QueryService
 
-    store, _ = ingest_trips(BATCH_ROWS, seed)
-    q, env, understate = e2e_queries(demo)["Q5"]
+    store, _, _ = ingest_trips(BATCH_ROWS, seed)
+    q, env, understate = e2e_queries(demo, seed)["Q5"]
     seen = []
     real = P.dense_segment_sum
 
@@ -515,13 +623,14 @@ def phase_k3(P, device, rng, q5) -> dict:
 
 
 def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
-             device) -> dict:
+             device, seed: int = 0) -> dict:
     """K1 against its plain version at n = one batch for each plan; every
     plan, the 26,650-slot one included, reduces through the cluster
-    histogram."""
+    histogram. J1's joined lane is gathered through the cities table's
+    probe, as the executor's batches gather it."""
     n = BATCH_ROWS
     results = {}
-    for name, (query, city_max) in k1_cases(demo).items():
+    for name, (query, city_max) in k1_cases(demo, seed).items():
         plan, dp, spec = k1_spec(demo, FD, plan_dense, query, city_max)
         ranks = cuda_build.load_library("fused_dense", spec.source) \
             .ares_fused_dense_cluster(spec.n_slots, device.index or 0)
@@ -532,10 +641,15 @@ def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
                                        n_cities=max(city_max, 300))
         kern = FD.FusedDenseKernel(plan, n, dp, spec, device)
         columns = columns_from_numpy(cols_np, n, device)
+        foreign = ()
+        if spec.fkeys:
+            fcols, foreign = city_columns(plan, seed, device)
+            columns.update(fcols)
         n_valid = n - 777
         cutoff = demo.DEMO_NOW - 15 * 3600
-        got, got_ovf = kern.reduce(columns, n_valid, cutoff)
-        want, want_ovf = kern.reduce_plain(columns, n_valid, cutoff)
+        got, got_ovf = kern.reduce(columns, n_valid, cutoff, foreign)
+        want, want_ovf = kern.reduce_plain(columns, n_valid, cutoff,
+                                           foreign)
         torch.cuda.synchronize()
         if int(got_ovf) != int(want_ovf) or \
                 (city_max < 300) != (int(want_ovf) > 0):
@@ -543,14 +657,21 @@ def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
                                  f"{int(want_ovf)}")
         err = check_close(f"K1 {name}", got, want, exact_rows=(1, 2))
         rows_in = int(want[2].sum().item())
-        call = lambda: kern.reduce(columns, n_valid, cutoff)  # noqa: E731
+        call = lambda: kern.reduce(columns, n_valid, cutoff,  # noqa: E731
+                                   foreign)
         (ms, kernel_ms), call_ms = device_ms(call, kernel="K1"), wall_ms(call)
         plain_ms = device_ms(lambda: kern.reduce_plain(columns, n_valid,
-                                                       cutoff))
+                                                       cutoff, foreign))
         nbytes = sum(columns[(0, cid)][0].element_size() * n + n
                      for cid in spec.col_ids)
         if 0 not in spec.col_ids:
             nbytes += 4 * n      # the time column read for the cutoff
+        # a joined table's columns and probe, each read once
+        nbytes += sum(t.numel() * t.element_size() for probe in foreign
+                      for t in probe)
+        nbytes += sum(t.numel() * t.element_size()
+                      for key, pair in columns.items() if key[0] > 0
+                      for t in pair)
         nbytes += 3 * spec.n_slots * 4
         b_ms, b_by = bound_ms(nbytes, 3 * n)
         results[name] = dict(n_slots=spec.n_slots, max_abs_err=err, ms=ms,
@@ -581,9 +702,13 @@ class Store:
         return self.shards[(name, shard_id)]
 
 
-def ingest_trips(n_rows: int, seed: int) -> tuple:
+def ingest_trips(n_rows: int, seed: int, batch_rows: int = BATCH_ROWS
+                 ) -> tuple:
     """A trips TableShard holding n_rows demo rows, ingested through the
-    upsert wire format in batch-sized upserts. Returns (store, seconds)."""
+    upsert wire format in batch-sized upserts, and the cities table
+    (N_CITIES rows, populations from the seed) beside it. Returns (store,
+    seconds of the trips' ingest, each batch's columns as numpy arrays
+    by name, for the oracles)."""
     from aresdb_tpu_torch import demo
     from aresdb_tpu_torch.common import data_types as mdt
     from aresdb_tpu_torch.common.schema import Table, TableSchema
@@ -594,31 +719,42 @@ def ingest_trips(n_rows: int, seed: int) -> tuple:
     schema_json = dict(demo.TRIPS_SCHEMA_JSON)
     # rows are timed at DEMO_NOW (2020): the default 90-day retention
     # would drop every one of them
-    schema_json["config"] = {"batchSize": BATCH_ROWS,
+    schema_json["config"] = {"batchSize": batch_rows,
                              "recordRetentionInDays": 0}
     ts = TableSchema(Table.from_json(schema_json))
     ts.extend_enum("status", ["completed", "canceled", "rejected"])
     shard = TableShard(ts)
     rng = np.random.RandomState(seed)
+    data = []
     t0 = time.perf_counter()
-    for lo in range(0, n_rows, BATCH_ROWS):
-        n = min(BATCH_ROWS, n_rows - lo)
+    for lo in range(0, n_rows, batch_rows):
+        n = min(batch_rows, n_rows - lo)
         keys = np.arange(lo + 1, lo + n + 1, dtype=np.uint64)
-        cols = [
-            (0, mdt.Uint32, (demo.DEMO_NOW - rng.randint(0, 20 * 3600, n))
-             .astype(np.uint32), None, 0),
-            (1, mdt.UUID, np.stack([keys, keys * np.uint64(2654435761)], 1),
-             None, 0),
-            (2, mdt.Uint16, rng.randint(1, 301, n).astype(np.uint16),
-             rng.rand(n) > 0.02, 0),
-            (3, mdt.SmallEnum, rng.randint(0, 3, n).astype(np.uint8),
-             rng.rand(n) > 0.02, 0),
-            (4, mdt.Float32, (rng.rand(n) * 50).astype(np.float32),
-             rng.rand(n) > 0.02, 0),
-        ]
+        b = {"request_at": (demo.DEMO_NOW - rng.randint(0, 20 * 3600, n))
+             .astype(np.uint32),
+             "uuid": np.stack([keys, keys * np.uint64(2654435761)], 1),
+             "city_id": rng.randint(1, N_CITIES + 1, n).astype(np.uint16),
+             "city_valid": rng.rand(n) > 0.02,
+             "status": rng.randint(0, 3, n).astype(np.uint8),
+             "status_valid": rng.rand(n) > 0.02,
+             "fare": (rng.rand(n) * 50).astype(np.float32),
+             "fare_valid": rng.rand(n) > 0.02}
+        cols = [(0, mdt.Uint32, b["request_at"], None, 0),
+                (1, mdt.UUID, b["uuid"], None, 0),
+                (2, mdt.Uint16, b["city_id"], b["city_valid"], 0),
+                (3, mdt.SmallEnum, b["status"], b["status_valid"], 0),
+                (4, mdt.Float32, b["fare"], b["fare_valid"], 0)]
         shard.save_upsert_batch(UpsertBatch(build_columnar_upsert(cols, n)))
+        data.append(b)
     secs = time.perf_counter() - t0
-    return Store({"trips": ts}, {("trips", 0): shard}), secs
+    cities_ts = TableSchema(Table.from_json(CITIES_SCHEMA_JSON))
+    cities = TableShard(cities_ts)
+    cities.save_upsert_batch(UpsertBatch(build_columnar_upsert(
+        [(0, mdt.Uint16, np.arange(1, N_CITIES + 1, dtype=np.uint16), None,
+          0),
+         (1, mdt.Uint32, city_populations(seed), None, 0)], N_CITIES)))
+    return (Store({"trips": ts, "cities": cities_ts},
+                  {("trips", 0): shard, ("cities", 0): cities}), secs, data)
 
 
 def flatten(result, prefix=()) -> dict:
@@ -681,12 +817,106 @@ def ask(svc, name: str, q: dict) -> tuple:
     return resp["results"][0], resp["context"][0]
 
 
-def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None) -> tuple:
-    """Ingest, then every query of e2e_queries through QueryService on the
-    card (one cold and `warm` warm runs, each kernel's launch count set to
-    0 just before and read just after) against the CPU service. Returns
-    each kernel's launches over those runs, and {kernel: {query: device ms
-    per launch}} from one more warm run under the profiler."""
+def listing_oracle(data, limit: int) -> list:
+    """N1's rows from the ingested data: the first `limit` rejected trips
+    in ingest order, as the service formats fare and city."""
+    from aresdb_tpu_torch.query.postprocess import format_float32
+
+    rows = []
+    for b in data:
+        hit = np.flatnonzero(b["status_valid"] & (b["status"] == 2))
+        for i in hit[:limit - len(rows)]:
+            rows.append([format_float32(b["fare"][i]) if b["fare_valid"][i]
+                         else "NULL",
+                         str(b["city_id"][i]) if b["city_valid"][i]
+                         else "NULL"])
+        if len(rows) == limit:
+            break
+    return rows
+
+
+def hll_oracle(data, name: str) -> tuple:
+    """H1's or H2's answer from the ingested data with numpy: each row's
+    hash (hll.murmur3_64 of request_at, or the XOR of the UUID's lanes),
+    its HLL value, the registers by np.maximum.at and
+    hll.compute_estimate; and each group's exact distinct count. Returns
+    ({group: estimate}, {group: exact count})."""
+    from aresdb_tpu_torch.query import hll as H
+
+    by_city = name == "H1"
+    n_groups = N_CITIES + 1 if by_city else 1
+    regs = np.zeros(n_groups * H.HLL_M, np.uint8)
+    distinct = []
+    for b in data:
+        if by_city:
+            hashed = H.murmur3_64(b["request_at"], 4)
+            g = np.where(b["city_valid"], b["city_id"], 0).astype(np.int64)
+            distinct.append((g << 32) | b["request_at"].astype(np.int64))
+        else:   # every trip's key is distinct
+            hashed = b["uuid"][:, 0] ^ b["uuid"][:, 1]
+            g = np.zeros(len(hashed), np.int64)
+        hv = H.hll_value_from_hash(hashed)
+        rho = np.minimum(hv >> 16, 254).astype(np.uint8) + 1
+        np.maximum.at(regs, g * H.HLL_M + (hv & (H.HLL_M - 1)), rho)
+    regs = regs.reshape(n_groups, H.HLL_M)
+    if by_city:
+        uniq = np.unique(np.concatenate(distinct))
+        gs, counts = np.unique(uniq >> 32, return_counts=True)
+    else:
+        gs = np.zeros(1, np.int64)
+        counts = np.array([sum(len(b["uuid"]) for b in data)])
+    key = (lambda g: "NULL" if g == 0 else str(g)) if by_city \
+        else (lambda g: "")
+    estimates = {key(g): H.compute_estimate(regs[g]) for g in gs.tolist()}
+    return estimates, {key(g): int(c) for g, c in zip(gs.tolist(), counts)}
+
+
+def check_answer(name, answer, cpu_answer, contexts, data, gpu, cpu, q):
+    """A query's cuda answer against the CPU run's (listings and HLL
+    exactly, sums within RTOL/ATOL) and, for N1, H1 and H2, against the
+    ingested data."""
+    if name not in LISTINGS + HLL_QUERIES:
+        same_result(name, answer, cpu_answer)
+        return
+    if answer != cpu_answer:
+        raise AssertionError(f"{name}: the cuda answer differs from the cpu "
+                             "run's")
+    if name == "N1":
+        if [c["batches"] for c in contexts] != [1] * len(contexts):
+            raise AssertionError(f"N1: batches scanned "
+                                 f"{[c['batches'] for c in contexts]}")
+        if answer["matrixData"] != listing_oracle(data, 50):
+            raise AssertionError("N1: rows differ from the first 50 "
+                                 "rejected trips")
+    if name in HLL_QUERIES:
+        estimates, exact = hll_oracle(data, name)
+        if answer != estimates:
+            raise AssertionError(f"{name}: estimates differ from the numpy "
+                                 "oracle's")
+        ratio = {g: answer[g] / exact[g] for g in exact}
+        worst = max(abs(r - 1) for r in ratio.values())
+        print(f"{name}: {len(answer)} estimates equal the oracle's; "
+              f"estimate / exact distinct count from {min(ratio.values())}"
+              f" to {max(ratio.values())}", flush=True)
+        if name == "H1" and worst > 0.05:
+            raise AssertionError(f"H1: an estimate {worst:.3%} off its "
+                                 "exact distinct count")
+        if name == "H2":
+            wire = [svc.handle_aql_hll({"queries": [q]}) for svc in (gpu, cpu)]
+            if wire[0] != wire[1]:
+                raise AssertionError("H2: application/hll bytes differ")
+            print(f"H2: application/hll frame of {len(wire[0])} bytes, "
+                  "identical on cuda and cpu", flush=True)
+
+
+def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None,
+              batch_rows: int = BATCH_ROWS, names=None) -> tuple:
+    """Ingest, then every query of e2e_queries (or those in `names`)
+    through QueryService on the card (one cold and `warm` warm runs, each
+    kernel's launch count set to 0 just before and read just after)
+    against the CPU service. Returns each kernel's launches over those
+    runs, and {kernel: {query: device ms per launch}} from one more warm
+    run under the profiler."""
     from aresdb_tpu_torch import demo
     from aresdb_tpu_torch.query import executor as X
     from aresdb_tpu_torch.query import fused_dense as FD
@@ -694,12 +924,11 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None) -> tuple:
     from aresdb_tpu_torch.query.kernels import plan_signature, round_up_pow2
     from aresdb_tpu_torch.query.service import QueryService
 
-    store, ingest_s = ingest_trips(n_rows, seed)
-    batch_rows = [min(BATCH_ROWS, n_rows - lo)
-                  for lo in range(0, n_rows, BATCH_ROWS)]
-    n_batches = len(batch_rows)
+    store, ingest_s, data = ingest_trips(n_rows, seed, batch_rows)
+    batch_sizes = [len(b["fare"]) for b in data]
+    n_batches = len(batch_sizes)
     # K1 takes Q1's batches of at least FD_MIN_ROWS padded rows, K2 the rest
-    q1_k1 = sum(round_up_pow2(r) >= FD.FD_MIN_ROWS for r in batch_rows)
+    q1_k1 = sum(round_up_pow2(r) >= FD.FD_MIN_ROWS for r in batch_sizes)
     print(f"ingest: {n_rows} rows in {n_batches} batches, "
           f"{ingest_s:.3f} s, {n_rows / ingest_s:.0f} rows/s", flush=True)
 
@@ -711,7 +940,9 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None) -> tuple:
     in_situ = {k: {} for k in counters}
     cpu_answers = {}
     runs = 1 + warm
-    for name, (q, env, understate) in e2e_queries(demo).items():
+    for name, (q, env, understate) in e2e_queries(demo, seed).items():
+        if names is not None and name not in names:
+            continue
         with query_setting(X, env, understate):
             for c in counters.values():
                 c.launches = 0
@@ -733,13 +964,18 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None) -> tuple:
             reruns = [(c["ladderReruns"], c["overflowReruns"])
                       for c in contexts]
             want_reruns = [(0, 0)] * runs
-            if name in ("Q3", "Q4"):
+            if name in ("Q3", "Q4", "H1"):
                 want_reruns[0] = (n_batches, 0)
             if name == "Q3":
                 hint = gpu.executor._k_hints.get(
                     plan_signature(demo.demo_plan(q)))
                 if hint != Q3_CAPACITY:
                     raise AssertionError(f"Q3: capacity hint {hint}")
+            elif name == "H1":
+                hint = gpu.executor._k_hints.get(
+                    "hll:" + plan_signature(demo.demo_plan(q)))
+                if hint != H1_CAPACITY:
+                    raise AssertionError(f"H1: capacity hint {hint}")
             elif name == "Q1 overflow":
                 want_reruns = [(0, n_batches)] * runs
                 want_reruns[0] = (n_batches, n_batches)
@@ -768,7 +1004,7 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None) -> tuple:
             t0 = time.perf_counter()
             cpu_answer, _ = ask(cpu, name, q)
             cpu_s = time.perf_counter() - t0
-        same_result(name, answer, cpu_answer)
+        check_answer(name, answer, cpu_answer, contexts, data, gpu, cpu, q)
         if name == "Q1 overflow":
             same_result(name + " against the dense path", answer,
                         cpu_answers["Q1"])
@@ -780,13 +1016,16 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None) -> tuple:
             by_name[ev_name] = by_name.get(ev_name, 0.0) + us / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         last = contexts[-1]
+        size = f"{len(answer['matrixData'])} rows" if name in LISTINGS \
+            else f"{len(flatten(answer))} groups"
         print(f"{name}: cold {1e3 * times[0]:.3f} ms, warm median "
               f"{warm_ms:.3f} ms ({n_rows / warm_ms * 1e3:.0f} rows/s), "
-              f"{len(flatten(answer))} groups, launches "
+              f"{size}, launches "
               + " ".join(f"{k}={v}" for k, v in got.items())
               + f", (ladder, overflow) reruns by run {reruns}, host fetches "
               f"cold {contexts[0]['hostFetches']} warm "
-              f"{last['hostFetches']}", flush=True)
+              f"{last['hostFetches']}, batches scanned {last['batches']}",
+              flush=True)
         print(f"{name} last warm run, seconds by stage: "
               + ", ".join(f"{k}={v:.6f}" for k, v in last.items()
                           if isinstance(v, float)), flush=True)
@@ -807,15 +1046,16 @@ MEASURED = ("max_abs_err", "ms", "kernel_ms", "wall_ms", "plain_ms",
 
 
 def kernel_row(name, source, replaces, launches, measured, in_situ,
-               q5_traffic=None) -> dict:
-    """One kernel of the {"kernels": [...]} line; K3's also holds its case
-    on Q5's batch under `q5_traffic`."""
+               traffic=None) -> dict:
+    """One kernel of the {"kernels": [...]} line; `traffic` adds other
+    cases of its phase by key (K1's J1 plan with a joined lane, K3's case
+    on Q5's batch)."""
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
            **{k: measured[k] for k in MEASURED},
            "in_situ_ms_per_launch": in_situ}
-    if q5_traffic is not None:
-        row["q5_traffic"] = {m: q5_traffic[m] for m in MEASURED}
+    for key, case in (traffic or {}).items():
+        row[key] = {m: case[m] for m in MEASURED}
     return row
 
 
@@ -848,7 +1088,7 @@ def main(argv=None) -> int:
     sources = [("segment_sum", cuda_build.csrc_text(P.SOURCE), "nvcc"),
                ("dense_segment_sum", cuda_build.csrc_text(P.K3_SOURCE),
                 "nvcc")]
-    for query, city_max in k1_cases(demo).values():
+    for query, city_max in k1_cases(demo, args.seed).values():
         spec = k1_spec(demo, FD, plan_dense, query, city_max)[2]
         sources.append(("fused_dense", spec.source, "nvcc"))
     build_s = cuda_build.build_all(sources)
@@ -859,14 +1099,15 @@ def main(argv=None) -> int:
     k2 = phase_k2(P, device, rng)
     k3 = phase_k3(P, device, rng, q5_batch(args.seed))
     k1 = phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
-                  device)
+                  device, args.seed)
     launches, in_situ = phase_e2e(args.rows, args.seed)
 
     kernels = [
         kernel_row("fused_dense",
                    "aresdb_tpu_torch/csrc/fused_dense_template.cuh",
                    "aresdb_tpu/query/fused_dense.py:286", launches["K1"],
-                   k1["Q1 sum(fare) hour x city"], in_situ["K1"]),
+                   k1["Q1 sum(fare) hour x city"], in_situ["K1"],
+                   traffic={"j1_joined_lane": k1[J1_K1_CASE]}),
         kernel_row("segment_sum", "aresdb_tpu_torch/csrc/segment_sum.cu",
                    "aresdb_tpu/query/pallas_ops.py:308", launches["K2"],
                    k2[K2_ROW_CASE], in_situ["K2"]),
@@ -874,7 +1115,7 @@ def main(argv=None) -> int:
                    "aresdb_tpu_torch/csrc/dense_segment_sum.cu",
                    "aresdb_tpu/query/pallas_ops.py:99", launches["K3"],
                    k3[K3_CASES[0][0]], in_situ["K3"],
-                   q5_traffic=k3[K3_Q5_CASE]),
+                   traffic={"q5_traffic": k3[K3_Q5_CASE]}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

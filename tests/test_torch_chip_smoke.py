@@ -1,10 +1,13 @@
-"""The inputs and checks of `chip_smoke.py`'s K3 phase, on the CPU.
+"""The inputs and checks of `chip_smoke.py`, on the CPU.
 
 The K3 phase holds the kernel against its plain version on the card; what
 it feeds the kernel and how it compares the results is plain numpy and
 torch, checked here: the Q5 batch is one real batch of the end-to-end
 phase's data, the NaN and inf case puts each in a slot of its own, and
-`check_close` holds non-finite values to the indices it is given.
+`check_close` holds non-finite values to the indices it is given. The
+end-to-end phase runs here for the joined, listing and HLL queries at a
+small size, with the kernel wrappers counting their plain versions as
+launches: its launch, rerun and oracle checks run as on the card.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import pytest
 import torch
 
 import chip_smoke as S
+from aresdb_tpu_torch import demo
+from aresdb_tpu_torch.query import fused_dense as FD
 from aresdb_tpu_torch.query import pallas_ops as P
 
 
@@ -76,3 +81,64 @@ def test_check_close_holds_nonfinite_values_to_their_indices(got_value,
     else:
         with pytest.raises(AssertionError):
             S.check_close("case", got, want, nonfinite=nonfinite)
+
+
+@pytest.fixture
+def cpu_rehearsal(monkeypatch):
+    """The smoke's end-to-end phase on the CPU, as on the card: K2 and K3
+    take their CUDA routes (ARES_FACTORED=1, ARES_PALLAS=1), and every
+    kernel wrapper adds one to its count when it runs its plain version,
+    where on the card it launches the kernel."""
+    monkeypatch.setenv("ARES_FACTORED", "1")
+    monkeypatch.setenv("ARES_PALLAS", "1")
+
+    def counted(fn):
+        def wrapper(*args, **kw):
+            wrapper.launches += 1
+            return fn(*args, **kw)
+        wrapper.launches = 0
+        return wrapper
+
+    for name in ("segment_sum", "dense_segment_sum"):
+        monkeypatch.setattr(P, name, counted(getattr(P, name)))
+    real = FD.FusedDenseKernel.reduce
+
+    def reduce(self, *args, **kw):
+        FD.FusedDenseKernel.launches += 1
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(FD.FusedDenseKernel, "reduce", reduce)
+
+
+def test_phase_e2e_runs_the_new_queries_with_their_launches(cpu_rehearsal,
+                                                            capsys):
+    """J1, J2, N1, N2, H1 and H2 over three batches of FD_MIN_ROWS rows:
+    the launch and rerun counts assert inside the phase, every answer
+    against the CPU service, N1's rows and H1's and H2's estimates against
+    the numpy oracles over the ingested rows."""
+    names = ("J1", "J2", "N1", "N2", "H1", "H2")
+    batch = FD.FD_MIN_ROWS
+    launches, in_situ = S.phase_e2e(3 * batch, 0, warm=1, device="cpu",
+                                    batch_rows=batch, names=names)
+    # J1: K1 on every batch of both runs; J2: K2 on every batch
+    assert launches == {"K1": 6, "K2": 6, "K3": 0}
+    out = capsys.readouterr().out
+    for name in names:
+        assert f"{name}: cuda result matches the cpu run" in out
+    assert "H2: application/hll frame of" in out
+    assert "batches scanned 1" in out   # N1 stops after the first batch
+
+
+def test_cities_table_and_join_filter():
+    store, _, data = S.ingest_trips(5000, 3, batch_rows=2048)
+    assert [len(b["fare"]) for b in data] == [2048, 2048, 904]
+    cities = store.get_table_shard("cities")
+    assert cities.schema.table.columns[1].name == "population"
+    pops = S.city_populations(3)
+    assert pops.shape == (S.N_CITIES,) and len(np.unique(pops)) > 290
+    q = S.joined(S.q2_query(demo), 3)
+    median = int(np.median(pops))
+    assert q["joins"] == S.CITY_JOIN
+    assert q["measures"][0]["rowFilters"][-1] == f"c.population > {median}"
+    rows = S.listing_oracle(data, 50)
+    assert len(rows) == 50 and all(len(r) == 2 for r in rows)

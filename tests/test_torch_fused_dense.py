@@ -12,6 +12,11 @@ the staged lanes, and its per-row keep mask, out-of-domain flag, slot and
 measure must equal the torch emitter's. That is the check of K1's logic
 that runs without a GPU.
 
+A plan joined to a dimension table takes the joined column as one more
+input lane, gathered through the join's probe before the kernel runs; it
+is held against the JAX package's fused kernel, and its row function
+against the torch emitter, the same way.
+
 Tolerances are the JAX package's: counts, row totals and overflow exact,
 float sums within rtol=2e-4, atol=1e-3.
 """
@@ -27,6 +32,7 @@ import pytest
 import torch
 
 from aresdb_tpu import demo as JD
+from aresdb_tpu.common import data_types as dt
 from aresdb_tpu.query import fused_dense as JFD
 from aresdb_tpu.query import kernels as JK
 from aresdb_tpu.query.dense import plan_dense as j_plan_dense
@@ -194,3 +200,118 @@ def test_batches_below_fd_min_rows_stay_on_the_unfused_kernel():
     big = K.make_dense_agg_kernel(plan, FD.FD_MIN_ROWS, dp, CPU)
     assert not isinstance(small, FD.FusedDenseKernel)
     assert isinstance(big, FD.FusedDenseKernel)
+
+
+CITIES = {"name": "cities",
+          "columns": [{"name": "id", "type": "Uint16"},
+                      {"name": "population", "type": "Uint32"}],
+          "primaryKeyColumns": [0], "isFactTable": False}
+
+
+def _joined_case():
+    """Q1 joined to 300 cities by id, with the measure filter
+    c.population > 200000: (JAX plan, dense plan and spec, port plan,
+    dense plan and spec, main columns, joined columns, lookup table)."""
+    from aresdb_tpu.common.schema import Table as JTable
+    from aresdb_tpu.common.schema import TableSchema as JTableSchema
+    from aresdb_tpu.query.aql import AQLQuery as JQ
+    from aresdb_tpu.query.compiler import Compiler as JC
+    from aresdb_tpu_torch.common.schema import Table, TableSchema
+    from aresdb_tpu_torch.query.aql import AQLQuery
+    from aresdb_tpu_torch.query.compiler import Compiler
+
+    q = _q(joins=[{"table": "cities", "alias": "c",
+                   "conditions": ["c.id = city_id"]}])
+    q["measures"][0]["rowFilters"].append("c.population > 200000")
+    jplan = JC({"trips": JD.demo_schema(),
+                "cities": JTableSchema(JTable.from_json(CITIES))}).compile(
+        JQ.from_json(q))
+    tplan = Compiler({"trips": TD.demo_schema(),
+                      "cities": TableSchema(Table.from_json(CITIES))}
+                     ).compile(AQLQuery.from_json(q))
+    cols_np, _ = JD.demo_columns(jplan, N_ROWS, seed=13, n_cities=320)
+    rng = np.random.RandomState(14)
+    ids = np.arange(1, 301, dtype=np.uint16)
+    pop = rng.randint(1000, 400_000, 300).astype(np.uint32)
+    fcols = {(1, 0): (ids, np.ones(300, bool)),
+             (1, 1): (pop, rng.rand(300) > 0.1)}
+    lut = np.full(302, -1, np.int32)
+    lut[ids] = np.arange(300, dtype=np.int32)
+    stats = {(0, jplan.main_schema.column_id("city_id")): (0, 320)}
+    jdp, tdp = j_plan_dense(jplan, stats), plan_dense(tplan, stats)
+    jspec, tspec = JFD.plan_fused(jplan, jdp), FD.plan_fused(tplan, tdp)
+    assert jspec is not None and tspec is not None
+    assert tspec.fkeys == jspec.fkeys == [(1, 1, dt.Uint32)]
+    return jplan, jdp, jspec, tplan, tdp, tspec, cols_np, fcols, lut
+
+
+def _port_joined_columns(cols_np, fcols, lut):
+    cols = columns_from_numpy(cols_np, N_ROWS, CPU)
+    for key, (v, b) in fcols.items():
+        signed = v.view(np.int16) if v.dtype == np.uint16 else v.view(
+            np.int32)
+        cols[key] = (torch.from_numpy(signed), torch.from_numpy(b))
+    return cols, ((torch.from_numpy(lut),),)
+
+
+def test_k1_with_a_joined_lane_matches_pallas_kernel(monkeypatch):
+    monkeypatch.setenv("ARES_FUSED", "interp")
+    import jax.numpy as jnp
+
+    (jplan, jdp, jspec, tplan, tdp, tspec, cols_np, fcols,
+     lut) = _joined_case()
+    jcols = {k: (jnp.asarray(v), jnp.asarray(b))
+             for k, (v, b) in list(cols_np.items()) + list(fcols.items())}
+    jfn = JFD.make_fused_dense_kernel(jplan, N_ROWS, jdp, jspec,
+                                      interpret=True)
+    cutoff = JD.DEMO_NOW - 5 * 3600
+    ja, jc, jr, jo = [np.asarray(x) for x in JK.run_dense_kernel(
+        jfn, jplan, jdp.n_slots, jcols, ((jnp.asarray(lut),),),
+        np.int32(N_ROWS - 100), np.int64(cutoff))]
+    tcols, foreign = _port_joined_columns(cols_np, fcols, lut)
+    kern = FD.FusedDenseKernel(tplan, N_ROWS, tdp, tspec, CPU)
+    ta, tc, tr, to = [x.numpy() for x in K.run_dense_kernel(
+        kern, tplan, tdp.n_slots, tcols, N_ROWS - 100, cutoff, CPU,
+        foreign)]
+    np.testing.assert_array_equal(tc, jc)
+    np.testing.assert_array_equal(tr, jr)
+    assert int(to) == int(jo) == 0
+    np.testing.assert_allclose(ta, ja, rtol=RTOL, atol=ATOL)
+    assert 0 < tc.sum() < N_ROWS / 3
+
+
+def test_emitted_row_function_reads_the_joined_lane(gxx_build_dir):
+    """The g++-built row function, fed the main columns and the gathered
+    joined lane (FusedDenseKernel._lanes), against the torch emitter,
+    which probes the joined table itself."""
+    _, _, _, tplan, tdp, tspec, cols_np, fcols, lut = _joined_case()
+    cols, foreign = _port_joined_columns(cols_np, fcols, lut)
+    kern = FD.FusedDenseKernel(tplan, N_ROWS, tdp, tspec, CPU)
+    lanes = kern._lanes(cols, foreign)
+    assert len(lanes) == len(tspec.col_ids) + 1
+    assert "V[4]" in tspec.source and "V[5]" not in tspec.source
+    lib = cuda_build.load_library("fused_rows", tspec.source, "g++",
+                                  gxx_build_dir)
+    fn = lib.ares_rows_host
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, ctypes.c_longlong, p, p, p, p, p]
+    fn.restype = None
+    vals = (p * len(lanes))(*[v.data_ptr() for v, _ in lanes])
+    valids = (p * len(lanes))(*[b.data_ptr() for _, b in lanes])
+    keep = np.zeros(N_ROWS, np.uint8)
+    bad = np.zeros(N_ROWS, np.uint8)
+    slot = np.zeros(N_ROWS, np.int32)
+    mval = np.zeros(N_ROWS, np.float32)
+    mvalid = np.zeros(N_ROWS, np.uint8)
+    fn(vals, valids, N_ROWS, keep.ctypes.data, bad.ctypes.data,
+       slot.ctypes.data, mval.ctypes.data, mvalid.ctypes.data)
+    ctx = K._EvalCtx(cols, N_ROWS, CPU, foreign)
+    mask, dim_vals = K._eval_common(tplan, ctx, N_ROWS, None)
+    want_slot, want_bad = K.dense_slot_lane(dim_vals, tdp, N_ROWS, CPU)
+    mlane = K._measure_lane(tplan, ctx)
+    np.testing.assert_array_equal(keep.astype(bool), mask.numpy())
+    np.testing.assert_array_equal(bad.astype(bool), want_bad.numpy())
+    np.testing.assert_array_equal(slot, want_slot.numpy())
+    np.testing.assert_array_equal(mvalid.astype(bool), mlane.valid.numpy())
+    np.testing.assert_array_equal(mval, mlane.value.numpy())
+    assert keep.any() and not keep.all()
