@@ -1,8 +1,17 @@
-"""Query executor: batch loop over a shard's live batches, device staging,
-dense, keyed, HLL or select kernels, few fetches, exact host merge.
+"""Query executor: batch loop over a shard's live and archive batches,
+device staging, dense, keyed, run-length, HLL or select kernels, few
+fetches, exact host merge.
 
-Port of the dense, keyed (sort), HLL and non-aggregate paths of
-`aresdb_tpu/query/executor.py`, with joins to dimension tables:
+Port of the dense, keyed (sort), run-length, HLL and non-aggregate paths
+of `aresdb_tpu/query/executor.py`, with joins to dimension tables:
+- A fact table's archive day batches follow its live batches
+  (`_iter_batches`): day-ranged by a time filter on column 0, narrowed by
+  a binary search of the sorted columns (`_prefilter_slice`) and staged
+  in chunks of at most ARCHIVE_CHUNK_ROWS rows (`_stage_archive_batch`),
+  expanded from their run-length (mode-3) form, or, under ARES_RUNLEN=1,
+  as per-run lanes (`_stage_runlen`) for the run-length kernel
+  (`kernels.make_runlen_agg_kernel`), whose group tables join the sort
+  path's merge.
 - A batch whose dimensions all have a bounded domain runs one dense
   kernel (K1, or the unfused kernel over K2, K3 or a scatter) whose
   per-slot table folds into a device-resident float64 accumulator. After
@@ -27,12 +36,12 @@ Port of the dense, keyed (sort), HLL and non-aggregate paths of
 GroupTable merges the piles exactly on the host.
 
 What is not ported yet raises QueryError, never a wrong answer: geo,
-array columns, archive batches, and the JAX package's mesh and
-run-length batches.
+array columns, and the JAX package's mesh batches.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -45,6 +54,7 @@ from aresdb_tpu_torch.common import data_types as mdt
 from aresdb_tpu_torch.query import expr as E
 from aresdb_tpu_torch.query import hll as H
 from aresdb_tpu_torch.query import kernels as K
+from aresdb_tpu_torch.query import runlen as RL
 from aresdb_tpu_torch.query.compiler import CompiledQuery, QueryError
 from aresdb_tpu_torch.query.dense import _underlying_column_key, plan_dense
 from aresdb_tpu_torch.query.kernels import (
@@ -354,6 +364,9 @@ class ShardExecutor:
         # staged dimension tables keyed on their live batches' (uid,
         # version) and the device
         self._foreign_cache: Dict[tuple, tuple] = {}
+        # composite run boundaries of run-length batches, keyed on the
+        # run columns' uids and the row slice (immutable for both)
+        self._runlen_memo: Dict[tuple, np.ndarray] = {}
 
     # -- public --
 
@@ -364,7 +377,10 @@ class ShardExecutor:
         batches rerun on the sort path (`overflowReruns`), on a larger
         group capacity (`ladderReruns`, HLL reruns included), and the
         process's device-to-host copies during the query
-        (`hostFetches`)."""
+        (`hostFetches`), and the archive rows a prefilter skipped
+        (`prefilterRowsSkipped`) and the run-length batches, runs and
+        rows (`runlenBatches`, `runlenRuns`, `runlenRowsCompressed`) where
+        there are any."""
         plan.stats = {"batches": 0, "rows_scanned": 0, "stagedBytes": 0,
                       "peakBatchStagedBytes": 0, "overflowReruns": 0,
                       "ladderReruns": 0}
@@ -408,13 +424,13 @@ class ShardExecutor:
             while True:
                 with _Stage("transfer"):
                     try:
-                        (batch_cols, n_valid, n_padded, stats,
-                         cutoff) = next(it)
+                        (batch_cols, n_valid, n_padded, stats, cutoff,
+                         runinfo) = next(it)
                     except StopIteration:
                         break
                 with _Stage("batchExec"):
                     self._run_agg_batch(plan, foreign, batch_cols, n_valid,
-                                        n_padded, stats, cutoff)
+                                        n_padded, stats, cutoff, runinfo)
                 plan.stats["batches"] += 1
                 plan.stats["rows_scanned"] += n_valid
                 nb = sum(t.numel() * t.element_size()
@@ -457,13 +473,19 @@ class ShardExecutor:
     # -- batch iteration + staging --
 
     def _iter_batches(self, plan: CompiledQuery, shard, stat_keys=frozenset()):
-        """Yield (columns, n_valid, n_padded, stats, live_cutoff) for the
-        shard's live batches."""
+        """Yield (columns, n_valid, n_padded, stats, live_cutoff, runinfo)
+        for the shard's live batches, then, for a fact table, its archive
+        chunks (live_cutoff 0; runinfo a runlen.RunLenInfo for a
+        run-length chunk, else None)."""
         live = shard.live_store
         used = plan.used_columns
         schema = plan.main_schema
-        # snapshot LIVE first, then take the archive version ONCE (the
-        # order the JAX executor needs under a concurrent archiving swap)
+        # snapshot LIVE first, then take the archive version ONCE: under a
+        # concurrent archiving swap the snapshot keeps the pre-purge live
+        # batches, and whichever version is then observed either excludes
+        # the moved rows (old cutoff, no archive copy) or filters their
+        # live copies by its cutoff while the archive copy is scanned once.
+        # The cutoff and the batch list come from that ONE version object.
         with live.lock:
             snapshots = live.snapshot_columns(used)
         version = None
@@ -489,10 +511,86 @@ class ShardExecutor:
                                             stat_keys)
             M.root().count(M.QUERY_LIVE_BATCH_PROCESSED, 1)
             M.root().count(M.QUERY_LIVE_RECORDS_PROCESSED, staged[1])
-            yield staged + (live_cutoff,)
+            yield staged + (live_cutoff, None)
 
-        if version is not None and version.get_batch_ids_for_range(0, 0):
-            raise not_ported("archive batches are")
+        # archive batches (fact tables), day-ranged by the time filter only
+        # when it is on the event time column (column 0): a time filter on
+        # another column is a plain row filter and skips no archive day
+        # (reference processTimeFilter, aql_compiler_test.go:1206)
+        if version is None:
+            return
+        if plan.time_column_id == 0:
+            day_ids = version.get_batch_ids_for_range(plan.from_ts or 0,
+                                                      plan.to_ts or 0)
+        else:
+            day_ids = version.get_batch_ids_for_range(0, 0)
+        for day in day_ids:
+            ab = version.request_batch(day)
+            for staged in self._stage_archive_batch(schema, ab, used,
+                                                    stat_keys, plan):
+                M.root().count(M.QUERY_ARCHIVE_BATCH_PROCESSED, 1)
+                M.root().count(M.QUERY_ARCHIVE_RECORDS_PROCESSED, staged[1])
+                yield staged[:4] + (0, staged[4])
+
+    @staticmethod
+    def _prefilter_slice(prefilters, vps, n: int, stats: dict):
+        """Candidate [lo, hi) row range of a sorted archive batch: each
+        prefilter narrows it by a binary search of its sort column.
+        Archive batches are ordered by raw value first, validity second
+        (archiving._lexsort_order), so a raw-value run is a superset of
+        the matching valid rows; deeper sort columns are sorted only
+        within each parent run, so narrowing stops where the slice is not
+        monotone. A mode-3 column is searched in its entry space (the
+        runs' sorted values) and mapped back to rows through its counts,
+        without expansion (reference iterator.hpp:214). Adds the rows
+        skipped to stats["prefilterRowsSkipped"]."""
+        lo, hi = 0, n
+        for cid, op, val in prefilters:
+            if hi <= lo:
+                break
+            vp = vps.get(cid)
+            if vp is None or vp.is_list or vp.values is None or \
+                    vp.values.ndim != 1:
+                break
+            if vp.is_compressed:
+                counts = vp.counts.astype(np.int64)
+                e0 = max(int(np.searchsorted(counts, lo, "right")) - 1, 0)
+                e1 = int(np.searchsorted(counts, hi, "left"))
+                seg = vp.values[e0:e1]
+                if len(seg) > 1 and not np.all(seg[1:] >= seg[:-1]):
+                    break
+                if op == "=":
+                    a = e0 + int(np.searchsorted(seg, val, "left"))
+                    b = e0 + int(np.searchsorted(seg, val, "right"))
+                    lo = max(lo, int(counts[a]))
+                    hi = min(hi, int(counts[b]))
+                elif op in (">=", ">"):
+                    side = "left" if op == ">=" else "right"
+                    a = e0 + int(np.searchsorted(seg, val, side))
+                    lo = max(lo, int(counts[a]))
+                elif op in ("<", "<="):
+                    side = "left" if op == "<" else "right"
+                    a = e0 + int(np.searchsorted(seg, val, side))
+                    hi = min(hi, int(counts[a]))
+                continue
+            seg = vp.values[lo:hi]
+            if len(seg) > 1 and not np.all(seg[1:] >= seg[:-1]):
+                break
+            if op == "=":
+                lo, hi = (lo + int(np.searchsorted(seg, val, "left")),
+                          lo + int(np.searchsorted(seg, val, "right")))
+            elif op == ">=":
+                lo += int(np.searchsorted(seg, val, "left"))
+            elif op == ">":
+                lo += int(np.searchsorted(seg, val, "right"))
+            elif op == "<":
+                hi = lo + int(np.searchsorted(seg, val, "left"))
+            elif op == "<=":
+                hi = lo + int(np.searchsorted(seg, val, "right"))
+        if (lo, hi) != (0, n):
+            stats["prefilterRowsSkipped"] = \
+                stats.get("prefilterRowsSkipped", 0) + (n - max(hi - lo, 0))
+        return lo, hi
 
     def _minmax(self, vp, values, validity, n_key):
         """Memoized (min, max) over valid values (None = all invalid)."""
@@ -543,6 +641,173 @@ class ShardExecutor:
                                     n_padded, dev))
         return cols, n, n_padded, stats
 
+    # Archive day batches stage in slices of at most this many rows. It
+    # also bounds the run-length path's float32 lanes: a run's and a
+    # group's row counts in one slice stay below 2^24, where float32
+    # counts are exact (kernels.make_runlen_agg_kernel).
+    ARCHIVE_CHUNK_ROWS = 1 << 22
+
+    def _stage_archive_batch(self, schema, ab, used: List[int],
+                             stat_keys=frozenset(), plan=None):
+        """Yield (columns, n_rows, n_padded, stats, runinfo) for one
+        archive day batch, sliced to ARCHIVE_CHUNK_ROWS-row chunks after
+        prefilter narrowing. The row count comes from the raw (possibly
+        mode-3) columns."""
+        vps_raw = {}
+        n = ab.size
+        for cid in used:
+            vp = ab.request_column(cid)
+            if vp is not None:
+                n = max(n, vp.num_rows)
+            vps_raw[cid] = vp
+        if n == 0:
+            return
+        # binary-search the sorted batch down to the candidate rows before
+        # staging anything on the device
+        lo, hi = 0, n
+        if plan is not None and plan.prefilters:
+            lo, hi = self._prefilter_slice(plan.prefilters, vps_raw, n,
+                                           plan.stats)
+            if hi <= lo:
+                return
+        chunk = self.ARCHIVE_CHUNK_ROWS
+        for clo in range(lo, hi, chunk):
+            yield self._stage_archive_slice(schema, vps_raw, used, clo,
+                                            min(clo + chunk, hi), plan,
+                                            stat_keys)
+
+    def _stage_archive_slice(self, schema, vps_raw, used: List[int],
+                             lo: int, hi: int, plan, stat_keys=frozenset()):
+        """Stage rows [lo, hi) of an archive batch: per-run lanes under
+        ARES_RUNLEN=1 where the plan and the batch allow
+        (_stage_runlen), else the expanded columns, cached on the device
+        under ("arch", uid, lo, hi, n_padded). The run-length path is
+        opt-in, as in the JAX package: it saves the expansion's host
+        memory and host-to-device bytes."""
+        if plan is not None and os.environ.get("ARES_RUNLEN") == "1":
+            staged = self._stage_runlen(schema, vps_raw, lo, hi, plan)
+            if staged is not None:
+                return staged
+        vps = {cid: (vp.expanded() if vp is not None else None)
+               for cid, vp in vps_raw.items()}
+        n_rows = hi - lo
+        n_padded = round_up_pow2(max(n_rows, 1))
+        cols = {}
+        stats = {}
+        dev = self.device
+        for cid in used:
+            vp = vps[cid]
+            col_schema = schema.table.columns[cid]
+            if vp is None:
+                cols[(0, cid)] = self.device_cache.get_or_stage(
+                    dev, ("default", col_schema.data_type,
+                          col_schema.default_value, n_padded),
+                    lambda: _default_column(col_schema, n_padded, dev))
+                continue
+            if vp.is_list:
+                raise not_ported("array columns are")
+            self._column_stat(stats, stat_keys, cid, vp, vp.values[lo:hi],
+                              vp.validity[lo:hi], (lo, hi))
+            cols[(0, cid)] = self.device_cache.get_or_stage(
+                dev, ("arch", vp.uid, lo, hi, n_padded),
+                lambda: _pad_column(vp.values[lo:hi], vp.validity[lo:hi],
+                                    n_padded, dev))
+        return cols, n_rows, n_padded, stats, None
+
+    RUNLEN_MIN_RATIO = 2   # runs must compress >= 2:1 to beat expansion
+
+    def _stage_runlen(self, schema, vps, lo: int, hi: int, plan):
+        """Stage rows [lo, hi) of an archive batch for the run-length
+        kernel, or None where runlen.plan_runlen finds the plan and batch
+        ineligible or the runs compress less than RUNLEN_MIN_RATIO:1 (the
+        caller then expands). The composite run boundaries (host,
+        memoized) give n_runs; run-level columns stage one value a run,
+        row-level columns their expanded rows, (-2, 0) the runs' (starts,
+        lengths) relative to lo and, for an integer row-level sum, (-2, 1)
+        each row's run id."""
+        spec = RL.plan_runlen(plan, vps)
+        if spec is None:
+            return None
+        bkey = (tuple(sorted(getattr(vps[c], "uid", 0) or 0
+                             for c in spec.run_cols)), lo, hi)
+        bnds = self._runlen_memo.get(bkey)
+        if bnds is None:
+            bnds = RL.composite_boundaries(vps, spec.run_cols, lo, hi)
+            if len(self._runlen_memo) > 512:
+                self._runlen_memo.clear()
+            self._runlen_memo[bkey] = bnds
+        n_runs = len(bnds) - 1
+        n_rows = hi - lo
+        if n_runs <= 0 or n_runs * self.RUNLEN_MIN_RATIO > n_rows:
+            return None
+        n_runs_pad = round_up_pow2(n_runs, 256)
+        n_rows_pad = round_up_pow2(max(n_rows, 1))
+        starts_rel = (bnds[:-1] - lo).astype(np.int32)
+        lens = np.diff(bnds).astype(np.int32)
+        dev = self.device
+        cols = {}
+
+        def _meta():
+            # padded runs start at n_rows and hold no rows
+            s = np.full(n_runs_pad, n_rows, np.int32)
+            s[:n_runs] = starts_rel
+            ln = np.zeros(n_runs_pad, np.int32)
+            ln[:n_runs] = lens
+            return torch.from_numpy(s).to(dev), torch.from_numpy(ln).to(dev)
+
+        cols[(-2, 0)] = self.device_cache.get_or_stage(
+            dev, ("archrunmeta",) + bkey + (n_runs_pad,), _meta)
+        if spec.measure_level == "row" and plan.measure.agg == "sum" \
+                and not plan.measure.out_float:
+            def _rid():
+                r = np.zeros(n_rows_pad, np.int32)
+                r[:n_rows] = np.repeat(np.arange(n_runs, dtype=np.int32),
+                                       lens)
+                return (torch.from_numpy(r).to(dev),
+                        torch.zeros(1, dtype=torch.int32, device=dev))
+
+            cols[(-2, 1)] = self.device_cache.get_or_stage(
+                dev, ("archrunrid",) + bkey + (n_rows_pad,), _rid)
+        for cid in spec.run_cols:
+            vp = vps[cid]
+            col_schema = schema.table.columns[cid]
+            if vp is None:
+                cols[(0, cid)] = self.device_cache.get_or_stage(
+                    dev, ("default", col_schema.data_type,
+                          col_schema.default_value, n_runs_pad),
+                    lambda cs=col_schema: _default_column(cs, n_runs_pad,
+                                                          dev))
+                continue
+
+            def _run_col(vp=vp):
+                vals, valid = RL.run_values_at(vp, bnds[:-1])
+                return _pad_column(vals, valid, n_runs_pad, dev)
+
+            cols[(0, cid)] = self.device_cache.get_or_stage(
+                dev, ("archrun", vp.uid) + bkey + (n_runs_pad,), _run_col)
+        for cid in spec.row_cols:
+            vp = vps[cid]
+            col_schema = schema.table.columns[cid]
+            if vp is None:
+                cols[(0, cid)] = self.device_cache.get_or_stage(
+                    dev, ("default", col_schema.data_type,
+                          col_schema.default_value, n_rows_pad),
+                    lambda cs=col_schema: _default_column(cs, n_rows_pad,
+                                                          dev))
+                continue
+            vp = vp.expanded()
+            cols[(0, cid)] = self.device_cache.get_or_stage(
+                dev, ("arch", vp.uid, lo, hi, n_rows_pad),
+                lambda vp=vp: _pad_column(vp.values[lo:hi],
+                                          vp.validity[lo:hi], n_rows_pad,
+                                          dev))
+        plan.stats["runlenBatches"] = plan.stats.get("runlenBatches", 0) + 1
+        plan.stats["runlenRuns"] = plan.stats.get("runlenRuns", 0) + n_runs
+        plan.stats["runlenRowsCompressed"] = \
+            plan.stats.get("runlenRowsCompressed", 0) + n_rows
+        return cols, n_rows, n_rows_pad, {}, RL.RunLenInfo(
+            spec=spec, n_runs=n_runs, n_runs_pad=n_runs_pad)
+
     # -- agg execution --
 
     @staticmethod
@@ -557,11 +822,15 @@ class ShardExecutor:
         return columns, tuple(probe for probe, _ in foreign)
 
     def _run_agg_batch(self, plan, foreign, batch_cols, n_valid, n_padded,
-                       batch_stats=None, live_cutoff=0):
+                       batch_stats=None, live_cutoff=0, runinfo=None):
         columns, foreign_idx = self._with_foreign(plan, foreign, batch_cols)
         if plan.measure.agg == "hll":
             self._run_hll_batch(plan, columns, foreign_idx, n_valid,
                                 n_padded, live_cutoff)
+            return
+        if runinfo is not None:
+            self._run_runlen_batch(plan, columns, foreign_idx, n_valid,
+                                   n_padded, runinfo)
             return
         # dense slot aggregation when every dim is bounded, else the sort
         dense_plan = plan_dense(plan, batch_stats)
@@ -593,7 +862,23 @@ class ShardExecutor:
         kernel = self.kernel_cache.agg_kernel(plan, n_padded, k, self.device)
         out = kernel(columns, n_valid, live_cutoff, foreign_idx)
         plan._exec_sort_pending.append(
-            (k, out, columns, foreign_idx, n_valid, n_padded, live_cutoff))
+            (k, out, columns, foreign_idx, n_valid, n_padded, live_cutoff,
+             None))
+
+    def _run_runlen_batch(self, plan, columns, foreign_idx, n_valid,
+                          n_padded, runinfo, k: int = 0):
+        """Keyed aggregation of one run-length archive chunk
+        (_stage_runlen) at group capacity k (default: the plan's hint);
+        its group table joins the sort path's pending merge, and a
+        capacity rerun takes this kernel again."""
+        if not k:
+            k = self._k_hints.get(plan_signature(plan),
+                                  DEFAULT_GROUP_CAPACITY)
+        kernel = self.kernel_cache.runlen_kernel(
+            plan, n_padded, runinfo.n_runs_pad, k, runinfo.spec, self.device)
+        out = kernel(columns, n_valid, runinfo.n_runs, foreign_idx)
+        plan._exec_sort_pending.append(
+            (k, out, columns, foreign_idx, n_valid, n_padded, 0, runinfo))
 
     def _resolve_pending(self, plan, table: GroupTable) -> None:
         """ONE host fetch for every batch's overflow count and every
@@ -624,7 +909,10 @@ class ShardExecutor:
         """Resolve every pending keyed batch with one device-side merge:
         the group counts come first (one copy, with the whole tables of
         small capacities), batches whose groups outgrew their capacity
-        rerun at the next power of two, live slots are sliced on the
+        rerun at the next power of two (a run-length chunk on the
+        run-length kernel, any other on the sort kernel; each pending
+        entry's last element is the chunk's RunLenInfo or None), live
+        slots are sliced on the
         device, the slices concatenate and fold by key
         (_merge_big_device, _keyed_merge_device), and one merged table is
         fetched."""
@@ -667,10 +955,15 @@ class ShardExecutor:
                     sig = plan_signature(plan)
                     self._k_hints[sig] = max(self._k_hints.get(sig, 0), k2)
                     (_, _, columns, foreign_idx, n_valid, n_padded,
-                     live_cutoff) = entry
-                    self._run_sort_batch(plan, columns, foreign_idx,
-                                         n_valid, n_padded, live_cutoff,
-                                         k=k2)
+                     live_cutoff, runinfo) = entry
+                    if runinfo is not None:
+                        self._run_runlen_batch(plan, columns, foreign_idx,
+                                               n_valid, n_padded, runinfo,
+                                               k=k2)
+                    else:
+                        self._run_sort_batch(plan, columns, foreign_idx,
+                                             n_valid, n_padded, live_cutoff,
+                                             k=k2)
                     plan.stats["ladderReruns"] += 1
                     continue
                 kg = min(round_up_pow2(max(ng, 1), 64), k)
@@ -831,7 +1124,7 @@ class ShardExecutor:
         for shard_id in shards:
             shard = self.memstore.get_table_shard(
                 plan.main_schema.table.name, shard_id)
-            for batch_cols, n_valid, n_padded, _, cutoff in \
+            for batch_cols, n_valid, n_padded, _, cutoff, _ in \
                     self._iter_batches(plan, shard):
                 columns, foreign_idx = self._with_foreign(plan, foreign,
                                                           batch_cols)

@@ -1,12 +1,13 @@
 """Device kernel layer of the query paths, on torch tensors.
 
 Port of `aresdb_tpu/query/kernels.py` for the dense and the keyed (sort)
-group-by, HLL distinct counts and non-aggregate listings: the expression
-emitter (filters, dimensions and measures traced into tensor ops on
-(value, validity) lanes, joined columns probed through their dimension
-table), the dense slot map, the dense aggregation kernel with its 64-bit
-running fold, the group-key packing, the adaptive per-batch
-reduce_by_key, the HLL register build with its 64-bit murmur hash, the
+group-by, run-length archive batches, HLL distinct counts and
+non-aggregate listings: the expression emitter (filters, dimensions and
+measures traced into tensor ops on (value, validity) lanes, joined
+columns probed through their dimension table), the dense slot map, the
+dense aggregation kernel with its 64-bit running fold, the group-key
+packing, the adaptive per-batch reduce_by_key and its weighted form for
+per-run lanes, the HLL register build with its 64-bit murmur hash, the
 select kernel, and the numpy group-key helpers GroupTable needs.
 
 Every function takes its tensors on one device and returns tensors on the
@@ -1071,14 +1072,21 @@ def _runtime_dense_slots(keys: torch.Tensor, dim_types: List[int],
 
 
 def _runtime_dense_reduce(slot, slot_keys, slots_total: int, mval, mvalid,
-                          k_groups: int):
+                          k_groups: int, stacked=None):
     """Dense branch of the adaptive group-by: K2 over the rebased slots,
     then the slot table compacted to the sort path's first-k_groups-keys
-    layout. Returns (gkeys, slot_used, agg, cnt, n_groups)."""
-    contrib = torch.where(mvalid, mval, torch.zeros_like(mval))
-    stacked = torch.stack([contrib, mvalid.to(torch.float32),
-                           torch.ones_like(contrib)], dim=1)
-    table = P.segment_sum(slot, stacked, RT_DENSE_CAP, ones_channels=(2,))
+    layout. Returns (gkeys, slot_used, agg, cnt, n_groups).
+
+    stacked: an [n, 3] float32 (measure sum, valid count, row count)
+    matrix built by the caller in place of (mval, mvalid): the run-length
+    path's weighted per-run lanes, whose counts are not 0/1."""
+    ones_ch = ()
+    if stacked is None:
+        contrib = torch.where(mvalid, mval, torch.zeros_like(mval))
+        stacked = torch.stack([contrib, mvalid.to(torch.float32),
+                               torch.ones_like(contrib)], dim=1)
+        ones_ch = (2,)
+    table = P.segment_sum(slot, stacked, RT_DENSE_CAP, ones_channels=ones_ch)
     device = slot.device
     sidx = torch.arange(RT_DENSE_CAP, device=device)
     live_slot = (table[:, 2] > 0) & (sidx < slots_total)
@@ -1265,6 +1273,149 @@ def _reduce_by_key_sorted_weighted(keys, wsum, wcnt, k_groups: int,
     gkeys, slot_used, n_groups, dim_values, dim_valids = _group_table(
         perm, skeys, first, live, starts, k_groups, dim_vals, dim_types)
     return gkeys, slot_used, aggv, cnt, n_groups, dim_values, dim_valids
+
+
+def reduce_by_key_weighted(keys, wsum, wcnt, wrows, k_groups: int,
+                           dim_vals, dim_types, dim_strides=None):
+    """Adaptive weighted group-by of per-run lanes (run-length archive
+    batches): wsum, wcnt and wrows are each run's measure sum, valid
+    measure rows and filter-passing rows. Routed as reduce_by_key: where
+    the live keys fit RT_DENSE_CAP slots, the three lanes go through K2
+    unchanged (_runtime_dense_reduce's `stacked`), else through the
+    weighted sort. Same output as reduce_by_key."""
+    rt_ok = (dim_types is not None and bool(dim_vals)
+             and wsum.dtype == torch.float32 and _rt_dense_enabled())
+    if not rt_ok:
+        return _reduce_by_key_sorted_weighted(keys, wsum, wcnt, k_groups,
+                                              dim_vals, dim_types)
+    rt = _runtime_dense_slots(keys, dim_types, dim_strides)
+    if rt is not None:
+        out = _runtime_dense_reduce(
+            *rt, None, None, k_groups,
+            stacked=torch.stack([wsum, wcnt, wrows], dim=1))
+    else:
+        out = _reduce_by_key_sorted_weighted(keys, wsum, wcnt, k_groups,
+                                             None, None)[:5]
+    gkeys, slot_used, aggv, cnt, n_groups = out
+    dim_values, dim_valids = unpack_dim_keys(gkeys, dim_vals, dim_types,
+                                             slot_used)
+    return (gkeys, slot_used, aggv, cnt, n_groups, tuple(dim_values),
+            tuple(dim_valids))
+
+
+def _run_sums(lanes: List[torch.Tensor], starts, ends) -> List[torch.Tensor]:
+    """Each lane summed over every run's contiguous rows [start, end), as
+    the difference of its prefix sums at the run's ends, in float32.
+
+    Boolean lanes add in int64, exactly. A float lane adds its finite
+    values in a float64 prefix (the JAX package's sorted_segment_sum
+    keeps an exact float64 block prefix too) and counts its NaNs and
+    infinities in int64 prefixes, so that a NaN poisons only its own run
+    and an infinity propagates, as direct summation does; a float64
+    prefix would spread one NaN over every later run. No atomics: a run
+    holds thousands of rows, which an index_add_ on a run-id lane would
+    pile onto one address each."""
+    def prefix_diff(x, dtype):
+        c = torch.zeros(x.shape[0] + 1, dtype=dtype, device=x.device)
+        torch.cumsum(x, 0, dtype=dtype, out=c[1:])
+        return c[ends] - c[starts]
+
+    out = []
+    for lane in lanes:
+        if lane.dtype == torch.bool:
+            out.append(prefix_diff(lane, torch.int64).to(torch.float32))
+            continue
+        finite = torch.isfinite(lane)
+        s = prefix_diff(torch.where(finite, lane, 0.0), torch.float64)
+        nan = prefix_diff(torch.isnan(lane), torch.int64) > 0
+        pinf = prefix_diff(lane == np.inf, torch.int64) > 0
+        ninf = prefix_diff(lane == -np.inf, torch.int64) > 0
+        s = torch.where(pinf, np.inf, s)
+        s = torch.where(ninf, -np.inf, s)
+        s = torch.where(nan | (pinf & ninf), np.nan, s)
+        out.append(s.to(torch.float32))
+    return out
+
+
+def make_runlen_agg_kernel(plan: CompiledQuery, n_rows: int, n_runs: int,
+                           k_groups: int, spec, device: torch.device):
+    """The aggregation of one run-length archive batch (runlen.py):
+    fn(columns, n_valid_rows, n_valid_runs, foreign=()) -> the keyed
+    kernel's 7-tuple (make_agg_kernel).
+
+    columns holds [n_runs] lanes for spec.run_cols, [n_rows] lanes for
+    spec.row_cols, (-2, 0) = (run_starts[n_runs], run_lens[n_runs])
+    int32 and, for an integer row-level sum, (-2, 1) = (run_id[n_rows]
+    int32, unused). A row-level float measure and the counts sum over each
+    run's rows by prefix differences (_run_sums); an integer one adds in
+    int64 by run id, as the JAX package's segment_sum does. Every lane
+    reaching K2 is exact in float32 while a run's and a group's row counts
+    stay below 2^24 in one call, which the archive chunk
+    (executor.ShardExecutor.ARCHIVE_CHUNK_ROWS, 4,194,304 rows) bounds.
+    Reference role: the compressed iteration of
+    query/iterator.hpp:214-240."""
+    filters = list(plan.filters) + list(plan.time_filter_expr)
+
+    def fn(columns, n_valid_rows, n_valid_runs, foreign=()):
+        row_ctx = _EvalCtx(columns, n_rows, device, foreign)
+        run_ctx = _EvalCtx(columns, n_runs, device, foreign)
+        starts, lens = (t.long() for t in columns[(-2, 0)])
+        ends = starts + lens
+
+        rmask = None
+        if spec.row_filters or spec.measure_level == "row":
+            rmask = torch.arange(n_rows, device=device) < n_valid_rows
+            for i in spec.row_filters:
+                v = _truthy(_emit(filters[i], row_ctx, plan))
+                rmask = rmask & v.value & v.valid
+
+        if spec.measure_level == "row":
+            mlane = _measure_lane(plan, row_ctx)
+            mvalid = mlane.valid & rmask
+            if mlane.value.dtype == torch.float32:
+                contrib = torch.where(mvalid, mlane.value, 0.0)
+                wsum, wcnt, wrows = _run_sums([contrib, mvalid, rmask],
+                                              starts, ends)
+            else:
+                rid, _ = columns[(-2, 1)]
+                contrib = torch.where(mvalid, mlane.value,
+                                      torch.zeros_like(mlane.value))
+                wsum = torch.zeros(n_runs, dtype=torch.int64,
+                                   device=device).index_add_(
+                    0, rid.long(), contrib.to(torch.int64))
+                wcnt, wrows = _run_sums([mvalid, rmask], starts, ends)
+        else:
+            mlane = _measure_lane(plan, run_ctx)
+            if spec.row_filters:
+                (wrows,) = _run_sums([rmask], starts, ends)
+            else:
+                wrows = lens.to(torch.float32)
+            mv = mlane.valid
+            wcnt = torch.where(mv, wrows, 0.0)
+            value = torch.where(mv, mlane.value,
+                                torch.zeros_like(mlane.value))
+            wsum = value * wrows.to(value.dtype)
+
+        runmask = torch.arange(n_runs, device=device) < n_valid_runs
+        for i in spec.run_filters:
+            v = _truthy(_emit(filters[i], run_ctx, plan))
+            runmask = runmask & v.value & v.valid
+        dim_vals = [_emit(d.expr, run_ctx, plan) for d in plan.dimensions]
+        ptypes = [_packing_type(d) for d in plan.dimensions]
+        # a run forms a group only if one of its rows passes every filter;
+        # dropped runs contribute exact zeros, the dense branch included
+        mask = runmask & (wrows > 0)
+        wsum = torch.where(mask, wsum, torch.zeros_like(wsum))
+        wcnt = torch.where(mask, wcnt, 0.0)
+        wrows = torch.where(mask, wrows, 0.0)
+        keys = pack_dim_keys(dim_vals, ptypes, mask)
+        exact, _ = pack_modes(ptypes)
+        return reduce_by_key_weighted(
+            keys, wsum, wcnt, wrows, k_groups, dim_vals,
+            dim_types=ptypes if (exact and dim_vals) else None,
+            dim_strides=[dim_pack_stride(d) for d in plan.dimensions])
+
+    return fn
 
 
 def agg_batch_body(plan: CompiledQuery, n_rows: int, k_groups: int,
@@ -1570,6 +1721,17 @@ class KernelCache:
         fn = self._cache.get(key)
         if fn is None:
             fn = make_hll_kernel(plan, n_rows, k_groups, device)
+            self._cache[key] = fn
+        return fn
+
+    def runlen_kernel(self, plan: CompiledQuery, n_rows: int, n_runs: int,
+                      k_groups: int, spec, device: torch.device):
+        key = ("runlen", plan_signature(plan), n_rows, n_runs, k_groups,
+               spec.key(), str(device))
+        fn = self._cache.get(key)
+        if fn is None:
+            fn = make_runlen_agg_kernel(plan, n_rows, n_runs, k_groups, spec,
+                                        device)
             self._cache[key] = fn
         return fn
 

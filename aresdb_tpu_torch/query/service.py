@@ -1,15 +1,16 @@
 """Query service: AQL request → compile → execute → postprocess.
 
-Port of `aresdb_tpu/query/service.py`: group-by queries (dense and keyed),
-HLL distinct counts (also as the binary `application/hll` frame),
-non-aggregate listings, and joins to dimension tables, the timezone table
-included. The store is anything that offers `get_schemas()` and
-`get_table_shard(name, shard_id)`, as `ShardExecutor` uses it.
+Port of `aresdb_tpu/query/service.py`: group-by queries (dense and keyed)
+over live and archive batches, HLL distinct counts (also as the binary
+`application/hll` frame), non-aggregate listings, joins to dimension
+tables, the timezone table included, SQL statements (`handle_sql`) and
+multi-measure composite queries (`_run_composite`). The store is anything
+that offers `get_schemas()` and `get_table_shard(name, shard_id)`, as
+`ShardExecutor` uses it.
 
 What the port does not run yet is answered with a "not ported yet" error
-in the response, never with a wrong result: multi-measure composite
-queries, SQL, geo, array columns, archive batches and admission
-(executor.py).
+in the response, never with a wrong result: geo and array columns
+(executor.py). Admission and the query deadline are not ported.
 """
 
 from __future__ import annotations
@@ -17,12 +18,14 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, List
 
+from aresdb_tpu_torch.query import composite as C
 from aresdb_tpu_torch.query import hll_wire as W
 from aresdb_tpu_torch.query.aql import AQLQuery
 from aresdb_tpu_torch.query.compiler import Compiler, QueryError
-from aresdb_tpu_torch.query.executor import ShardExecutor, not_ported
+from aresdb_tpu_torch.query.executor import ShardExecutor
 from aresdb_tpu_torch.query.postprocess import (build_agg_result,
                                                 build_non_agg_result)
+from aresdb_tpu_torch.query.sql import SQLParseError, parse_sql
 from aresdb_tpu_torch.utils.torch_env import resolve_device
 
 
@@ -51,7 +54,10 @@ class QueryService:
             try:
                 q = AQLQuery.from_json(qd)
                 if len(q.measures) > 1 or q.supporting_measures:
-                    raise not_ported("multi-measure composite queries are")
+                    results.append(self._run_composite(q))
+                    errors.append(None)
+                    contexts.append(None)
+                    continue
                 result, plan = self._run(q, data_only=data_only)
                 results.append(result)
                 errors.append(None)
@@ -93,10 +99,52 @@ class QueryService:
         return out.get_bytes()
 
     def handle_sql(self, request: Dict[str, Any]) -> Dict[str, Any]:
-        """SQL is not ported yet: every statement answers with that error."""
-        n = len(request.get("queries", []))
-        err = str(not_ported("SQL queries are"))
-        return {"results": [{}] * n, "errors": [err] * n}
+        """Process {"queries": ["SELECT ..."]} (reference /query/sql);
+        verbose/debug return per-stage stats as the AQL form does."""
+        results: List[Dict[str, Any]] = []
+        errors: List[Any] = []
+        contexts: List[Any] = []
+        had_error = False
+        verbose = bool(request.get("verbose") or request.get("debug"))
+        for stmt in request.get("queries", []):
+            try:
+                q = parse_sql(stmt)
+                if len(q.measures) > 1 or q.supporting_measures:
+                    results.append(self._run_composite(q))
+                    contexts.append(None)
+                else:
+                    result, plan = self._run(q)
+                    results.append(result)
+                    contexts.append(plan.stats)
+                errors.append(None)
+            except (QueryError, SQLParseError, KeyError, ValueError) as e:
+                results.append({})
+                errors.append(str(e))
+                contexts.append(None)
+                had_error = True
+        resp: Dict[str, Any] = {"results": results}
+        if had_error:
+            resp["errors"] = errors
+        if verbose:
+            resp["context"] = contexts
+        return resp
+
+    def handle_query(self, q: AQLQuery) -> Dict[str, Any]:
+        if len(q.measures) > 1 or q.supporting_measures:
+            return self._run_composite(q)
+        return self._run(q)[0]
+
+    def _run_composite(self, q: AQLQuery) -> Dict[str, Any]:
+        """A multi-measure query: one engine run per aggregate measure,
+        the results joined by group and the derived expressions evaluated
+        on the host (composite.py). The reference parses these from SQL
+        but refuses to run them (query/sql/sql_parser.go:2018)."""
+        try:
+            return C.execute_composite(
+                q.to_json(),
+                lambda b: self._run(AQLQuery.from_json(b))[0])
+        except C.CompositeError as e:
+            raise QueryError(str(e)) from e
 
     def _run(self, q: AQLQuery, data_only: bool = False):
         compiler = Compiler(self.memstore.get_schemas(),

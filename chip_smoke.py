@@ -1,11 +1,12 @@
 """Smoke run of the PyTorch/CUDA port (`aresdb_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--rows N] [--seed S]
+    python3 chip_smoke.py [--rows N] [--atrips-rows M] [--seed S]
 
 Builds the port's hand-written CUDA kernels from `aresdb_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card at the main
-path's shapes (K2 also on the engine's skewed traffic, a NaN measure and,
-through its global-atomic kernel, nine channels; K3 also on one real Q5
+path's shapes (K2 also on the engine's skewed traffic, a NaN measure,
+the run-length path's weighted per-run rows and, through its
+global-atomic kernel, nine channels; K3 also on one real Q5
 batch's slots and values, and on that batch with a NaN and an inf), and
 asserts which `__global__` function each K2 and K3 case ran,
 then drives the main paths end to end: N rows (default 32M,
@@ -37,6 +38,30 @@ rows in order; H1's and H2's estimates are hll.compute_estimate of
 registers built with np.maximum.at, and H1's are within 5% of the exact
 distinct counts.
 
+The archive half: M rows (default 16M, 8 upserts of 2,097,152) of the
+TPU battery's atrips table, timed over three days in time order, are
+ingested, then the port's Archiver archives the first two days (the
+cutoff falls inside one live batch) through a DiskMetaStore and a
+LocalDiskStore in a temporary directory: two days of about 5.6M rows,
+each staged as two chunks (ARCHIVE_CHUNK_ROWS = 4,194,304 and the rest),
+one live batch straddling the cutoff and two above it. Each query runs
+on the card against the CPU run and a numpy oracle over the rows; its
+K1 row functions are built first, all at once, from the CPU run's plans:
+  A1  sum(fare) by city_id, no time filter: K1 on every batch and chunk
+  A2  A1 under ARES_RUNLEN=1: archive chunks through the run-length
+      kernel and K2 (runlenBatches = the chunks, every run), equal to A1
+      within rel 1e-5
+  A3  count(*) by city_id x status, through K1; exact
+  A4  A3 under ARES_RUNLEN=1; equal to A3
+  A5  sum(fare) where city_id = 7, no dimensions: prefilterRowsSkipped
+      > 0; one slot, reduced with masked sums, no kernel
+  A6  sum(fare) by hour x city_id over the last 36 hours: the first
+      archived day is not scanned
+  S1  SELECT count(*) ... WHERE fare > 25, through handle_sql
+  S2  SELECT sum(fare), through handle_sql
+  C1  Requested, Completed and Completed/Requested by city_id: a
+      composite query, two engine runs (K1)
+
 Kernels and what they replace:
   K1 fused_dense  (csrc/fused_dense_template.cuh, one row function emitted
                    per plan) <- aresdb_tpu/query/fused_dense.py _make_kernel
@@ -50,8 +75,9 @@ Prints the card's name and power limit, per-phase results, one
 kernel's `ms` is the device time of one wrapper call (its output memset
 included), `kernel_ms` that of the kernel's own `__global__` functions,
 and `in_situ_ms_per_launch` its device time per launch inside each query
-of the end-to-end phase, from one profiled warm run; K3's row also
-holds its case on Q5's batch under `q5_traffic`.
+of the end-to-end phases, from one profiled warm run; K2's row also
+holds its run-length cases under `runlen_a2` and `runlen_a4`, K3's its
+case on Q5's batch under `q5_traffic`.
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails. Needs one card.
 """
@@ -65,6 +91,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -82,6 +109,24 @@ CITIES_SCHEMA_JSON = {
 CITY_JOIN = [{"table": "cities", "alias": "c",
               "conditions": ["c.id = city_id"]}]
 LISTINGS = ("N1", "N2")
+# the storage table of the TPU battery, tools/drive_tpu_server.py:216-259,
+# without its GeoPoint column
+ATRIPS_SCHEMA_JSON = {
+    "name": "atrips",
+    "columns": [{"name": "request_at", "type": "Uint32"},
+                {"name": "id", "type": "Uint32"},
+                {"name": "city_id", "type": "Uint16"},
+                {"name": "status", "type": "SmallEnum"},
+                {"name": "fare", "type": "Float32"}],
+    "primaryKeyColumns": [1], "archivingSortColumns": [2, 3],
+    "isFactTable": True,
+    "config": {"batchSize": BATCH_ROWS, "recordRetentionInDays": 0}}
+STATUSES = ["completed", "canceled", "rejected"]
+DAY = 86400
+ATRIPS_ROWS = 8 * BATCH_ROWS
+ATRIPS_NOW = 1_600_000_000 // DAY * DAY
+ATRIPS_BASE = ATRIPS_NOW - 3 * DAY     # rows over the three days before
+ATRIPS_CUTOFF = ATRIPS_BASE + 2 * DAY  # two days archived
 HLL_QUERIES = ("H1", "H2")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
@@ -105,6 +150,14 @@ K2_CASES = (("uniform 13,338", 13_338, 3, None, 0.0),
             ("one NaN measure, 16,416 slots", 16_416, 3, None, 0.0),
             ("9 channels, 16,416 slots", 16_416, 9, None, 0.0))
 K2_ROW_CASE = "uniform 16,416"
+# K2 at the run-length path's shape: one row a run (n_runs_pad rows), the
+# runtime-dense table of 16,384 slots, three weighted channels (each
+# run's fare sum, valid rows and rows; counts up to thousands, not 0/1).
+# A run is one group of its chunk, so the live runs fall on distinct
+# slots; padded runs are dropped. (name, n_runs_pad, live runs): A2's
+# chunks hold about 225 runs (one a city), A4's about 675 (city x status).
+K2_RUNLEN_CASES = (("run-length A2: 225 of 256 runs", 256, 225),
+                   ("run-length A4: 675 of 1,024 runs", 1024, 675))
 WIDE_K1_CASE = "Q1 over 1,000 cities (26,650 slots)"
 J1_K1_CASE = "J1: Q1 with a joined population lane"
 # each kernel's __global__ functions, as the profiler names them
@@ -122,6 +175,7 @@ KERNEL_FUNCS = {"K1": r"fused_dense_kernel",
 # 2; 8 x 65,536 floats, more than a cluster of 8 holds and more than any
 # engine call has, the global-atomic kernel.
 K3_Q5_CASE = "Q5 batch: 8 of 128 slots"
+RT_DENSE_SLOTS = 16_384   # the runtime-dense slot table (kernels.RT_DENSE_CAP)
 K3_CASES = (("uniform 128", 128, 3, "dense", "dense_segment_sum_warp"),
             ("uniform 4,104", 4_104, 3, "dense", "dense_segment_sum_cluster"),
             ("uniform 8,192", 8_192, 3, "dense", "dense_segment_sum_cluster"),
@@ -472,14 +526,34 @@ def kernel_function(call, kernel: str) -> str:
     return names.pop()
 
 
+def runlen_k2_inputs(n: int, live: int, rng) -> tuple:
+    """numpy slots int32 [n] (-1 for padded runs) and weighted values
+    float32 [n, 3] of K2's call on a run-length chunk (K2_RUNLEN_CASES):
+    the live runs on distinct slots in key order, each with its rows,
+    valid rows and fare sum."""
+    slots = np.full(n, -1, np.int32)
+    slots[:live] = np.sort(rng.choice(RT_DENSE_SLOTS, live, replace=False))
+    rows = np.zeros(n, np.float32)
+    rows[:live] = rng.randint(1, 20_000, live)
+    valid = np.floor(rows * rng.uniform(0.9, 1.0, n)).astype(np.float32)
+    fare = (valid * rng.uniform(0, 50, n)).astype(np.float32)
+    return slots, np.stack([fare, valid, rows], axis=1)
+
+
 def phase_k2(P, device, rng) -> dict:
-    """K2 against its plain version at n = one batch for each of K2_CASES;
-    at the engine's C = 3 through the cluster kernel, above 8 channels
-    through the global-atomic one."""
-    n = BATCH_ROWS
+    """K2 against its plain version for each of K2_CASES at n = one
+    batch, and K2_RUNLEN_CASES at n = n_runs_pad; at C <= 8 through the
+    cluster kernel, above 8 channels through the global-atomic one."""
     results = {}
-    for name, n_slots, c, live, dropped in K2_CASES:
-        slots_np, vals_np = k2_inputs(n_slots, c, live, dropped, rng)
+    cases = [(name, n_slots, c, live, dropped, BATCH_ROWS)
+             for name, n_slots, c, live, dropped in K2_CASES] + \
+        [(name, RT_DENSE_SLOTS, 3, live, None, n)
+         for name, n, live in K2_RUNLEN_CASES]
+    for name, n_slots, c, live, dropped, n in cases:
+        if dropped is None:
+            slots_np, vals_np = runlen_k2_inputs(n, live, rng)
+        else:
+            slots_np, vals_np = k2_inputs(n_slots, c, live, dropped, rng)
         nonfinite = []
         if "NaN" in name:
             row = int(np.flatnonzero(slots_np >= 0)[n // 2])
@@ -722,7 +796,7 @@ def ingest_trips(n_rows: int, seed: int, batch_rows: int = BATCH_ROWS
     schema_json["config"] = {"batchSize": batch_rows,
                              "recordRetentionInDays": 0}
     ts = TableSchema(Table.from_json(schema_json))
-    ts.extend_enum("status", ["completed", "canceled", "rejected"])
+    ts.extend_enum("status", STATUSES)
     shard = TableShard(ts)
     rng = np.random.RandomState(seed)
     data = []
@@ -809,9 +883,12 @@ def query_setting(X, env: dict, understate: bool):
                 os.environ[k] = v
 
 
-def ask(svc, name: str, q: dict) -> tuple:
-    """(result, verbose context) of one query; raises on an error."""
-    resp = svc.handle_aql({"queries": [q], "verbose": True})
+def ask(svc, name: str, q) -> tuple:
+    """(result, verbose context) of one AQL query, or of one SQL
+    statement where q is a string; raises on an error."""
+    request = {"queries": [q], "verbose": True}
+    resp = svc.handle_sql(request) if isinstance(q, str) \
+        else svc.handle_aql(request)
     if "errors" in resp:
         raise AssertionError(f"{name} on {svc.device}: {resp['errors']}")
     return resp["results"][0], resp["context"][0]
@@ -909,6 +986,101 @@ def check_answer(name, answer, cpu_answer, contexts, data, gpu, cpu, q):
                   "identical on cuda and cpu", flush=True)
 
 
+def run_query(gpu, cpu, name: str, q, env: dict, understate: bool,
+              runs: int, counters: dict, want: dict, cpu_answer=None) -> dict:
+    """One query `runs` times on the card (each kernel's launch count set
+    to 0 just before and read just after; raises unless they equal
+    `want`), once more under the profiler, and once on the CPU service
+    unless its answer is given. Returns the answers, the contexts and
+    wall seconds of the runs, the launches, the profiled run's device
+    events and each kernel's device ms per launch in it, and the CPU
+    run's seconds."""
+    from aresdb_tpu_torch.query import executor as X
+
+    with query_setting(X, env, understate):
+        for c in counters.values():
+            c.launches = 0
+        times, contexts = [], []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            answer, ctx = ask(gpu, name, q)
+            if gpu.device.type == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            contexts.append(ctx)
+        got = {k: c.launches for k, c in counters.items()}
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want}")
+
+        def profiled_run():
+            # a retaken session's launches are counted afresh
+            for c in counters.values():
+                c.launches = 0
+            ask(gpu, name, q)
+
+        events = device_events(profiled_run, 1) \
+            if gpu.device.type == "cuda" else []
+        for k, c in counters.items():
+            if events and c.launches and \
+                    len(kernel_events(events, k)) != c.launches:
+                events = counted_events(profiled_run, 1, k, c.launches)
+        in_situ = {}
+        for k, c in counters.items():
+            if c.launches and events:
+                in_situ[k] = sum(kernel_events(events, k)) / 1e3 / c.launches
+                print(f"{name} in situ: {k} {in_situ[k]:.4f} ms per launch "
+                      f"over {c.launches} launches", flush=True)
+        t0 = time.perf_counter()
+        if cpu_answer is None:
+            cpu_answer, _ = ask(cpu, name, q)
+        cpu_s = time.perf_counter() - t0
+    return dict(answer=answer, cpu_answer=cpu_answer, contexts=contexts,
+                times=times, launches=got, events=events, in_situ=in_situ,
+                cpu_s=cpu_s)
+
+
+def report(name: str, rec: dict, n_rows: int, listing_rows: bool = False):
+    """Print one query's latencies, launches, stages and device time."""
+    answer, contexts, times = rec["answer"], rec["contexts"], rec["times"]
+    events = rec["events"]
+    warm_ms = 1e3 * float(np.median(times[1:]))
+    busy = sum(us for _, us in events) / 1e3
+    by_name = {}
+    for ev_name, us in events:
+        by_name[ev_name] = by_name.get(ev_name, 0.0) + us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    last = contexts[-1] or {}
+    size = f"{len(answer['matrixData'])} rows" if listing_rows \
+        else f"{len(flatten(answer))} groups"
+    reruns = [(c["ladderReruns"], c["overflowReruns"]) for c in contexts
+              if c is not None]
+    print(f"{name}: cold {1e3 * times[0]:.3f} ms, warm median "
+          f"{warm_ms:.3f} ms ({n_rows / warm_ms * 1e3:.0f} rows/s), "
+          f"{size}, launches "
+          + " ".join(f"{k}={v}" for k, v in rec["launches"].items())
+          + f", (ladder, overflow) reruns by run {reruns}, host fetches "
+          f"cold {(contexts[0] or {}).get('hostFetches')} warm "
+          f"{last.get('hostFetches')}, batches scanned "
+          f"{last.get('batches')}", flush=True)
+    print(f"{name} last warm run, seconds by stage: "
+          + ", ".join(f"{k}={v:.6f}" for k, v in last.items()
+                      if isinstance(v, float)), flush=True)
+    print(f"{name} warm run under the profiler: device busy "
+          f"{busy:.3f} ms = {100 * busy / warm_ms:.1f}% of the "
+          f"unprofiled warm median, {len(events)} device ops; top: "
+          + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top), flush=True)
+    print(f"{name}: cuda result matches the cpu run ({rec['cpu_s']:.1f} s "
+          f"on the cpu)", flush=True)
+
+
+def kernel_counters() -> dict:
+    from aresdb_tpu_torch.query import fused_dense as FD
+    from aresdb_tpu_torch.query import pallas_ops as P
+
+    return {"K1": FD.FusedDenseKernel, "K2": P.segment_sum,
+            "K3": P.dense_segment_sum}
+
+
 def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None,
               batch_rows: int = BATCH_ROWS, names=None) -> tuple:
     """Ingest, then every query of e2e_queries (or those in `names`)
@@ -920,7 +1092,6 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None,
     from aresdb_tpu_torch import demo
     from aresdb_tpu_torch.query import executor as X
     from aresdb_tpu_torch.query import fused_dense as FD
-    from aresdb_tpu_torch.query import pallas_ops as P
     from aresdb_tpu_torch.query.kernels import plan_signature, round_up_pow2
     from aresdb_tpu_torch.query.service import QueryService
 
@@ -934,8 +1105,7 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None,
 
     gpu = QueryService(store, device=device)
     cpu = QueryService(store, device="cpu")
-    counters = {"K1": FD.FusedDenseKernel, "K2": P.segment_sum,
-                "K3": P.dense_segment_sum}
+    counters = kernel_counters()
     totals = dict.fromkeys(counters, 0)
     in_situ = {k: {} for k in counters}
     cpu_answers = {}
@@ -943,101 +1113,310 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None,
     for name, (q, env, understate) in e2e_queries(demo, seed).items():
         if names is not None and name not in names:
             continue
-        with query_setting(X, env, understate):
-            for c in counters.values():
-                c.launches = 0
-            times, contexts = [], []
-            for _ in range(runs):
-                t0 = time.perf_counter()
-                answer, ctx = ask(gpu, name, q)
-                if gpu.device.type == "cuda":
-                    torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-                contexts.append(ctx)
-            got = {k: c.launches for k, c in counters.items()}
-            want = expected_launches(name, runs, n_batches, q1_k1)
-            if got != want:
-                raise AssertionError(f"{name}: launches {got}, expected "
-                                     f"{want}")
-            for k in totals:
-                totals[k] += got[k]
-            reruns = [(c["ladderReruns"], c["overflowReruns"])
-                      for c in contexts]
-            want_reruns = [(0, 0)] * runs
-            if name in ("Q3", "Q4", "H1"):
-                want_reruns[0] = (n_batches, 0)
-            if name == "Q3":
-                hint = gpu.executor._k_hints.get(
-                    plan_signature(demo.demo_plan(q)))
-                if hint != Q3_CAPACITY:
-                    raise AssertionError(f"Q3: capacity hint {hint}")
-            elif name == "H1":
-                hint = gpu.executor._k_hints.get(
-                    "hll:" + plan_signature(demo.demo_plan(q)))
-                if hint != H1_CAPACITY:
-                    raise AssertionError(f"H1: capacity hint {hint}")
-            elif name == "Q1 overflow":
-                want_reruns = [(0, n_batches)] * runs
-                want_reruns[0] = (n_batches, n_batches)
-            if reruns != want_reruns:
-                raise AssertionError(f"{name}: (ladder, overflow) reruns "
-                                     f"{reruns}, expected {want_reruns}")
-            def profiled_run():
-                # a retaken session's launches are counted afresh
-                for c in counters.values():
-                    c.launches = 0
-                ask(gpu, name, q)
-
-            events = device_events(profiled_run, 1) \
-                if gpu.device.type == "cuda" else []
-            for k, c in counters.items():
-                if events and c.launches and \
-                        len(kernel_events(events, k)) != c.launches:
-                    events = counted_events(profiled_run, 1, k, c.launches)
-            for k, c in counters.items():
-                if c.launches and events:
-                    in_situ[k][name] = \
-                        sum(kernel_events(events, k)) / 1e3 / c.launches
-                    print(f"{name} in situ: {k} {in_situ[k][name]:.4f} ms "
-                          f"per launch over {c.launches} launches",
-                          flush=True)
-            t0 = time.perf_counter()
-            cpu_answer, _ = ask(cpu, name, q)
-            cpu_s = time.perf_counter() - t0
+        rec = run_query(gpu, cpu, name, q, env, understate, runs, counters,
+                        expected_launches(name, runs, n_batches, q1_k1))
+        for k in totals:
+            totals[k] += rec["launches"][k]
+        for k, ms in rec["in_situ"].items():
+            in_situ[k][name] = ms
+        contexts = rec["contexts"]
+        reruns = [(c["ladderReruns"], c["overflowReruns"])
+                  for c in contexts]
+        want_reruns = [(0, 0)] * runs
+        if name in ("Q3", "Q4", "H1"):
+            want_reruns[0] = (n_batches, 0)
+        if name == "Q3":
+            hint = gpu.executor._k_hints.get(
+                plan_signature(demo.demo_plan(q)))
+            if hint != Q3_CAPACITY:
+                raise AssertionError(f"Q3: capacity hint {hint}")
+        elif name == "H1":
+            hint = gpu.executor._k_hints.get(
+                "hll:" + plan_signature(demo.demo_plan(q)))
+            if hint != H1_CAPACITY:
+                raise AssertionError(f"H1: capacity hint {hint}")
+        elif name == "Q1 overflow":
+            want_reruns = [(0, n_batches)] * runs
+            want_reruns[0] = (n_batches, n_batches)
+        if reruns != want_reruns:
+            raise AssertionError(f"{name}: (ladder, overflow) reruns "
+                                 f"{reruns}, expected {want_reruns}")
+        answer, cpu_answer = rec["answer"], rec["cpu_answer"]
         check_answer(name, answer, cpu_answer, contexts, data, gpu, cpu, q)
         if name == "Q1 overflow":
             same_result(name + " against the dense path", answer,
                         cpu_answers["Q1"])
         cpu_answers[name] = cpu_answer
-        warm_ms = 1e3 * float(np.median(times[1:]))
-        busy = sum(us for _, us in events) / 1e3
-        by_name = {}
-        for ev_name, us in events:
-            by_name[ev_name] = by_name.get(ev_name, 0.0) + us / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        last = contexts[-1]
-        size = f"{len(answer['matrixData'])} rows" if name in LISTINGS \
-            else f"{len(flatten(answer))} groups"
-        print(f"{name}: cold {1e3 * times[0]:.3f} ms, warm median "
-              f"{warm_ms:.3f} ms ({n_rows / warm_ms * 1e3:.0f} rows/s), "
-              f"{size}, launches "
-              + " ".join(f"{k}={v}" for k, v in got.items())
-              + f", (ladder, overflow) reruns by run {reruns}, host fetches "
-              f"cold {contexts[0]['hostFetches']} warm "
-              f"{last['hostFetches']}, batches scanned {last['batches']}",
-              flush=True)
-        print(f"{name} last warm run, seconds by stage: "
-              + ", ".join(f"{k}={v:.6f}" for k, v in last.items()
-                          if isinstance(v, float)), flush=True)
-        print(f"{name} warm run under the profiler: device busy "
-              f"{busy:.3f} ms = {100 * busy / warm_ms:.1f}% of the "
-              f"unprofiled warm median, {len(events)} device ops; top: "
-              + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top),
-              flush=True)
-        print(f"{name}: cuda result matches the cpu run ({cpu_s:.1f} s on "
-              f"the cpu)", flush=True)
+        report(name, rec, n_rows, listing_rows=name in LISTINGS)
     print(f"device column cache: {X.GLOBAL_DEVICE_CACHE.stats()}",
           flush=True)
+    return totals, in_situ
+
+
+def ingest_atrips(n_rows: int, seed: int, batch_rows: int, root: str
+                  ) -> tuple:
+    """The atrips fact table: n_rows trips from the seed, timed uniformly
+    over [ATRIPS_BASE, ATRIPS_BASE + 3 days) and ingested in time order
+    through the upsert wire format in batch-sized upserts, then archived
+    to ATRIPS_CUTOFF by the port's Archiver through a DiskMetaStore and a
+    LocalDiskStore under root. Returns (store, shard, the rows as numpy
+    arrays by column, ingest seconds, archiving seconds)."""
+    from aresdb_tpu_torch.common import data_types as mdt
+    from aresdb_tpu_torch.common.schema import Table, TableSchema
+    from aresdb_tpu_torch.common.upsert_batch import (UpsertBatch,
+                                                      build_columnar_upsert)
+    from aresdb_tpu_torch.diskstore.local_diskstore import LocalDiskStore
+    from aresdb_tpu_torch.memstore.archiving import Archiver
+    from aresdb_tpu_torch.memstore.table_shard import TableShard
+    from aresdb_tpu_torch.metastore.disk_metastore import DiskMetaStore
+
+    ts = TableSchema(Table.from_json(dict(
+        ATRIPS_SCHEMA_JSON, config={"batchSize": batch_rows,
+                                    "recordRetentionInDays": 0})))
+    ts.extend_enum("status", STATUSES)
+    meta, disk = DiskMetaStore(root), LocalDiskStore(root)
+    shard = TableShard(ts, diskstore=disk, metastore=meta)
+    rng = np.random.RandomState(seed + 2)
+    data = {"request_at": np.sort(ATRIPS_BASE + rng.randint(
+                0, 3 * DAY, n_rows)).astype(np.uint32),
+            "city_id": rng.randint(0, N_CITIES, n_rows).astype(np.uint16),
+            "status": rng.randint(0, 3, n_rows).astype(np.uint8),
+            "fare": (rng.rand(n_rows) * 50).astype(np.float32)}
+    t0 = time.perf_counter()
+    for lo in range(0, n_rows, batch_rows):
+        s = slice(lo, lo + batch_rows)
+        n = len(data["fare"][s])
+        cols = [(0, mdt.Uint32, data["request_at"][s], None, 0),
+                (1, mdt.Uint32, np.arange(lo, lo + n, dtype=np.uint32),
+                 None, 0),
+                (2, mdt.Uint16, data["city_id"][s], None, 0),
+                (3, mdt.SmallEnum, data["status"][s], None, 0),
+                (4, mdt.Float32, data["fare"][s], None, 0)]
+        shard.save_upsert_batch(UpsertBatch(build_columnar_upsert(cols, n)))
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Archiver(shard, meta, disk).archive(ATRIPS_CUTOFF)
+    archive_s = time.perf_counter() - t0
+    return (Store({"atrips": ts}, {("atrips", 0): shard}), shard, data,
+            ingest_s, archive_s)
+
+
+def atrips_queries() -> dict:
+    """name -> (AQL query, or SQL statement, and its environment)."""
+    def aql(measure, dims=(), **extra):
+        return {"table": "atrips", "now": ATRIPS_NOW,
+                "measures": [{"sqlExpression": measure}],
+                "dimensions": [{"sqlExpression": e, "timeBucketizer": b}
+                               if b else {"sqlExpression": e}
+                               for e, b in dims], **extra}
+
+    by_city = aql("sum(fare)", [("city_id", None)])
+    city_status = aql("count(*)", [("city_id", None), ("status", None)])
+    runlen = {"ARES_RUNLEN": "1"}
+    composite = aql("count(*)", [("city_id", None)])
+    composite["measures"] = [
+        {"sqlExpression": "count(*)", "alias": "Requested"},
+        {"sqlExpression": "count(*)", "alias": "Completed",
+         "rowFilters": ["status='completed'"]},
+        {"sqlExpression": "Completed/Requested", "alias": "rate"}]
+    return {
+        "A1": (by_city, {}),
+        "A2": (by_city, runlen),
+        "A3": (city_status, {}),
+        "A4": (city_status, runlen),
+        "A5": (aql("sum(fare)", rowFilters=["city_id = 7"]), {}),
+        "A6": (aql("sum(fare)", [("request_at", "hour"), ("city_id", None)],
+                   timeFilter={"column": "request_at",
+                               "from": "36 hours ago", "to": "now"}), {}),
+        "S1": ("SELECT count(*) FROM atrips WHERE fare > 25 AND "
+               f"aql_now(request_at, {ATRIPS_NOW})", {}),
+        "S2": ("SELECT sum(fare) FROM atrips WHERE "
+               f"aql_now(request_at, {ATRIPS_NOW})", {}),
+        "C1": (composite, {}),
+    }
+
+
+def atrips_layout(shard, chunk_rows: int) -> dict:
+    """The padded row counts of the batches each atrips query scans: the
+    live batches, and the archive chunks of every day and of the last
+    archived day (A6's 36 hours start inside it)."""
+    from aresdb_tpu_torch.query.kernels import round_up_pow2
+
+    live = [round_up_pow2(n)
+            for _, n, _ in shard.live_store.snapshot_columns([0])]
+    days = shard.archive_store.get_current_version().batches
+    chunks = {day: [round_up_pow2(min(chunk_rows, b.size - lo))
+                    for lo in range(0, b.size, chunk_rows)]
+              for day, b in sorted(days.items())}
+    last = max(chunks)
+    return {"live": live, "chunks": [n for c in chunks.values() for n in c],
+            "last_day": chunks[last]}
+
+
+def atrips_launches(name: str, runs: int, layout: dict) -> dict:
+    """Each kernel's launches over `runs` runs of an atrips query: a
+    dense batch of at least FD_MIN_ROWS padded rows takes K1, a smaller
+    one the unfused kernel and K2; a run-length chunk reduces through K2
+    (the runtime-dense branch); a plan with no dimensions reduces its one
+    slot with masked sums, through no kernel of the TPU's."""
+    from aresdb_tpu_torch.query import fused_dense as FD
+
+    def dense(batches, times=1):
+        k1 = sum(n >= FD.FD_MIN_ROWS for n in batches)
+        return {"K1": runs * times * k1,
+                "K2": runs * times * (len(batches) - k1), "K3": 0}
+
+    every = layout["live"] + layout["chunks"]
+    if name in ("A1", "A3"):
+        return dense(every)
+    if name in ("A2", "A4"):
+        out = dense(layout["live"])
+        out["K2"] += runs * len(layout["chunks"])
+        return out
+    if name == "A6":
+        return dense(layout["live"] + layout["last_day"])
+    if name == "C1":   # one engine run for each of its two counts
+        return dense(every, times=2)
+    return {"K1": 0, "K2": 0, "K3": 0}   # A5, S1, S2
+
+
+def check_atrips(name: str, answer: dict, contexts, data: dict,
+                 answers: dict, n_chunks: int) -> None:
+    """An atrips answer against the numpy oracle over the ingested rows
+    (sums within rel 1e-5, counts exactly), the run-length answers
+    against their expanded twins, and the stats that show the path
+    ran: runlenBatches on every run of A2 and A4, prefilterRowsSkipped
+    on A5."""
+    city, status = data["city_id"], data["status"]
+    fare = data["fare"].astype(np.float64)
+
+    def close(got, want, what):
+        if abs(got - want) > max(1e-3, abs(want) * 1e-5):
+            raise AssertionError(f"{name}: {what} {got} against {want}")
+
+    def sums_by_city(sel):
+        return np.bincount(city[sel], weights=fare[sel], minlength=N_CITIES)
+
+    if name in ("A2", "A4"):
+        got = [c.get("runlenBatches") for c in contexts]
+        if got != [n_chunks] * len(contexts):
+            raise AssertionError(f"{name}: runlenBatches {got}, expected "
+                                 f"{n_chunks} a run")
+        twin = answers["A1" if name == "A2" else "A3"]
+        if name == "A4" and answer != twin:
+            raise AssertionError("A4: counts differ from A3's")
+        g, w = flatten(answer), flatten(twin)
+        if set(g) != set(w):
+            raise AssertionError(f"{name}: groups differ from the expanded")
+        for k in w:
+            if abs(g[k] - w[k]) > abs(w[k]) * 1e-5:
+                raise AssertionError(f"{name}: {k} {g[k]} against {w[k]}")
+    if name in ("A1", "A2"):
+        want = sums_by_city(np.ones(len(city), bool))
+        if set(answer) != {str(c) for c in range(N_CITIES)}:
+            raise AssertionError(f"{name}: cities {len(answer)}")
+        for c in range(N_CITIES):
+            close(answer[str(c)], want[c], f"city {c}")
+    elif name in ("A3", "A4"):
+        want = np.bincount(city.astype(np.int64) * 3 + status,
+                           minlength=3 * N_CITIES)
+        got = {(int(c), STATUSES.index(s)): v
+               for c, by in answer.items() for s, v in by.items()}
+        if got != {divmod(i, 3): float(v) for i, v in enumerate(want) if v}:
+            raise AssertionError(f"{name}: counts differ from the oracle's")
+    elif name == "A5":
+        close(answer[""], fare[city == 7].sum(), "sum")
+        skipped = [c.get("prefilterRowsSkipped", 0) for c in contexts]
+        if min(skipped) <= 0:
+            raise AssertionError(f"A5: prefilterRowsSkipped {skipped}")
+    elif name == "A6":
+        since = ATRIPS_NOW - 36 * 3600
+        sel = data["request_at"] >= since
+        hour = (data["request_at"][sel] // 3600).astype(np.int64)
+        n_groups = len(np.unique(hour * N_CITIES + city[sel]))
+        got = flatten(answer)
+        if len(got) != n_groups:
+            raise AssertionError(f"A6: {len(got)} groups, the oracle "
+                                 f"{n_groups}")
+        by_city = np.zeros(N_CITIES)
+        for (_, c), v in got.items():
+            by_city[int(c)] += v
+        want = sums_by_city(sel)
+        for c in range(N_CITIES):
+            close(by_city[c], want[c], f"city {c}")
+    elif name == "S1":
+        if answer != {"": float((data["fare"] > 25).sum())}:
+            raise AssertionError(f"S1: {answer}")
+    elif name == "S2":
+        close(answer[""], fare.sum(), "sum")
+    elif name == "C1":
+        total = np.bincount(city, minlength=N_CITIES)
+        done = np.bincount(city[status == 0], minlength=N_CITIES)
+        for c in range(N_CITIES):
+            got = answer[str(c)]
+            if (got["Requested"], got["Completed"]) != (total[c], done[c]):
+                raise AssertionError(f"C1: city {c} {got}")
+            close(got["rate"], done[c] / total[c], f"city {c} rate")
+
+
+def phase_atrips(n_rows: int, seed: int, warm: int = 5, device=None,
+                 batch_rows: int = BATCH_ROWS, names=None) -> tuple:
+    """The archive half: ingest and archive atrips (ingest_atrips), answer
+    every query of atrips_queries (or those in `names`) on the CPU
+    service, build the K1 row functions those answers planned (all
+    nvcc's at once), then run each on the card as phase_e2e does, with
+    its launches asserted, against the CPU answer and the numpy oracle.
+    Returns each kernel's launches and {kernel: {query: device ms per
+    launch}}."""
+    from aresdb_tpu_torch.query import executor as X
+    from aresdb_tpu_torch.query import fused_dense as FD
+    from aresdb_tpu_torch.query.service import QueryService
+    from aresdb_tpu_torch.utils import cuda_build
+
+    with tempfile.TemporaryDirectory() as root:
+        store, shard, data, ingest_s, archive_s = ingest_atrips(
+            n_rows, seed, batch_rows, root)
+        layout = atrips_layout(shard, X.ShardExecutor.ARCHIVE_CHUNK_ROWS)
+        version = shard.archive_store.get_current_version()
+        print(f"atrips: {n_rows} rows ingested in {ingest_s:.3f} s, "
+              f"archived to {ATRIPS_CUTOFF} in {archive_s:.3f} s: days "
+              f"{ {d: b.size for d, b in sorted(version.batches.items())} }"
+              f", live batches {len(layout['live'])}, archive chunks "
+              f"{len(layout['chunks'])} of padded rows {layout['chunks']}",
+              flush=True)
+        gpu = QueryService(store, device=device)
+        cpu = QueryService(store, device="cpu")
+        queries = {k: v for k, v in atrips_queries().items()
+                   if names is None or k in names}
+        cpu_answers = {}
+        for name, (q, env) in queries.items():
+            with query_setting(X, env, False):
+                cpu_answers[name] = ask(cpu, name, q)[0]
+        if gpu.device.type == "cuda":
+            sources = {("fused_dense", fn.spec.source, "nvcc")
+                       for fn in cpu.executor.kernel_cache._cache.values()
+                       if isinstance(fn, FD.FusedDenseKernel)}
+            build_s = cuda_build.build_all(sorted(sources))
+            print(f"atrips: built {len(sources)} K1 row functions in "
+                  f"{build_s:.1f} s", flush=True)
+        counters = kernel_counters()
+        totals = dict.fromkeys(counters, 0)
+        in_situ = {k: {} for k in counters}
+        runs = 1 + warm
+        answers = {}
+        for name, (q, env) in queries.items():
+            rec = run_query(gpu, cpu, name, q, env, False, runs, counters,
+                            atrips_launches(name, runs, layout),
+                            cpu_answer=cpu_answers[name])
+            for k in totals:
+                totals[k] += rec["launches"][k]
+            for k, ms in rec["in_situ"].items():
+                in_situ[k][name] = ms
+            same_result(name, rec["answer"], rec["cpu_answer"])
+            answers[name] = rec["answer"]
+            check_atrips(name, rec["answer"], rec["contexts"], data,
+                         answers, len(layout["chunks"]))
+            report(name, rec, n_rows)
     return totals, in_situ
 
 
@@ -1048,8 +1427,8 @@ MEASURED = ("max_abs_err", "ms", "kernel_ms", "wall_ms", "plain_ms",
 def kernel_row(name, source, replaces, launches, measured, in_situ,
                traffic=None) -> dict:
     """One kernel of the {"kernels": [...]} line; `traffic` adds other
-    cases of its phase by key (K1's J1 plan with a joined lane, K3's case
-    on Q5's batch)."""
+    cases of its phase by key (K1's J1 plan with a joined lane, K2's
+    run-length shapes, K3's case on Q5's batch)."""
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
            **{k: measured[k] for k in MEASURED},
@@ -1062,6 +1441,7 @@ def kernel_row(name, source, replaces, launches, measured, in_situ,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=16 * BATCH_ROWS)
+    ap.add_argument("--atrips-rows", type=int, default=ATRIPS_ROWS)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1101,6 +1481,11 @@ def main(argv=None) -> int:
     k1 = phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
                   device, args.seed)
     launches, in_situ = phase_e2e(args.rows, args.seed)
+    archive_launches, archive_in_situ = phase_atrips(args.atrips_rows,
+                                                     args.seed)
+    for k in launches:
+        launches[k] += archive_launches[k]
+        in_situ[k].update(archive_in_situ[k])
 
     kernels = [
         kernel_row("fused_dense",
@@ -1110,7 +1495,9 @@ def main(argv=None) -> int:
                    traffic={"j1_joined_lane": k1[J1_K1_CASE]}),
         kernel_row("segment_sum", "aresdb_tpu_torch/csrc/segment_sum.cu",
                    "aresdb_tpu/query/pallas_ops.py:308", launches["K2"],
-                   k2[K2_ROW_CASE], in_situ["K2"]),
+                   k2[K2_ROW_CASE], in_situ["K2"],
+                   traffic={"runlen_a2": k2[K2_RUNLEN_CASES[0][0]],
+                            "runlen_a4": k2[K2_RUNLEN_CASES[1][0]]}),
         kernel_row("dense_segment_sum",
                    "aresdb_tpu_torch/csrc/dense_segment_sum.cu",
                    "aresdb_tpu/query/pallas_ops.py:99", launches["K3"],

@@ -142,3 +142,49 @@ def test_cities_table_and_join_filter():
     assert q["measures"][0]["rowFilters"][-1] == f"c.population > {median}"
     rows = S.listing_oracle(data, 50)
     assert len(rows) == 50 and all(len(r) == 2 for r in rows)
+
+
+def test_phase_atrips_runs_the_archive_queries_with_their_launches(
+        cpu_rehearsal, monkeypatch, capsys):
+    """A1-C1 over eight batches of FD_MIN_ROWS rows, two days of them
+    archived, with the archive chunk cut to two batches' rows so that
+    each day stages as two chunks: the launch counts assert inside the
+    phase (K1 on every dense batch and chunk, K2 on every run-length
+    chunk, none for the plans with no dimensions), as do runlenBatches,
+    prefilterRowsSkipped, every answer against the CPU service and the
+    numpy oracles."""
+    from aresdb_tpu_torch.query import executor as X
+
+    batch = FD.FD_MIN_ROWS
+    monkeypatch.setattr(X.ShardExecutor, "ARCHIVE_CHUNK_ROWS", 2 * batch)
+    launches, in_situ = S.phase_atrips(8 * batch, 0, warm=1, device="cpu",
+                                       batch_rows=batch)
+    out = capsys.readouterr().out
+    # 3 live batches and 4 chunks; two runs of each query
+    assert "live batches 3, archive chunks 4" in out
+    assert launches == {"K1": 2 * (7 + 3 + 7 + 3 + 5 + 14),
+                        "K2": 2 * (4 + 4), "K3": 0}
+    for name in S.atrips_queries():
+        assert f"{name}: cuda result matches the cpu run" in out
+
+
+def test_runlen_k2_inputs_are_one_weighted_run_a_slot():
+    """K2's run-length cases: the live runs on distinct slots of the
+    16,384-slot runtime-dense table in key order, counts in the thousands,
+    padded runs dropped; each slot's sum is its run's row, exactly."""
+    from aresdb_tpu_torch.query import kernels as K
+
+    assert S.RT_DENSE_SLOTS == K.RT_DENSE_CAP
+    rng = np.random.RandomState(2)
+    for name, n, live in S.K2_RUNLEN_CASES:
+        slots, vals = S.runlen_k2_inputs(n, live, rng)
+        assert slots.shape == (n,) and vals.shape == (n, 3)
+        kept = slots[slots >= 0]
+        assert len(kept) == live and np.all(np.diff(kept) > 0)
+        assert kept.max() < S.RT_DENSE_SLOTS
+        assert (vals[live:] == 0).all() and vals[:live, 2].max() > 1000
+        assert (vals[:live, 2] >= vals[:live, 1]).all()
+        out = P.segment_sum_plain(torch.from_numpy(slots),
+                                  torch.from_numpy(vals), S.RT_DENSE_SLOTS)
+        assert S.check_close(name, out.t(), out.t(), exact_rows=(1, 2)) == 0
+        np.testing.assert_array_equal(out[kept].numpy(), vals[:live])

@@ -214,8 +214,8 @@ def test_batch_registers_match_the_jax_kernel(trips):
     jplan = JC(jsvc.memstore.get_schemas()).compile(JQ.from_json(query))
     tplan = TC(tsvc.memstore.get_schemas()).compile(TQ.from_json(query))
     shard = tsvc.memstore.get_table_shard("trips", 0)
-    cols, n, n_pad, _, cutoff = next(tsvc.executor._iter_batches(tplan,
-                                                                 shard))
+    cols, n, n_pad, _, cutoff, _ = next(
+        tsvc.executor._iter_batches(tplan, shard))
     np_cols = {k: (v.numpy(), b.numpy()) for k, (v, b) in cols.items()}
     jcols = {}
     for (t, c), (v, b) in np_cols.items():

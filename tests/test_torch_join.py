@@ -254,7 +254,8 @@ def test_foreign_column_gives_the_jax_bits_for_both_probes(store):
     jforeign = jsvc.executor._stage_foreign_tables(jp)
     tforeign = tsvc.executor._stage_foreign_tables(tp)
     shard = tsvc.memstore.get_table_shard("trips", 0)
-    batch_cols, n, n_pad, _, _ = next(tsvc.executor._iter_batches(tp, shard))
+    batch_cols, n, n_pad, _, _, _ = next(
+        tsvc.executor._iter_batches(tp, shard))
     tcols, tidx = tsvc.executor._with_foreign(tp, tforeign, batch_cols)
     jcols = {}
     for key, (v, b) in batch_cols.items():

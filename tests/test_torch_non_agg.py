@@ -114,8 +114,8 @@ def test_select_kernel_compacts_the_first_rows_in_scan_order(top_l, store):
     plan = TC(tsvc.memstore.get_schemas()).compile(
         TQ.from_json(_query(["fare", "city_id"], ["fare > 10"])))
     shard = tsvc.memstore.get_table_shard("trips", 0)
-    cols, n, n_pad, _, cutoff = next(tsvc.executor._iter_batches(plan,
-                                                                 shard))
+    cols, n, n_pad, _, cutoff, _ = next(
+        tsvc.executor._iter_batches(plan, shard))
     fare = cols[(0, plan.main_schema.column_id("fare"))]
     want_rows = np.nonzero((fare[0] > 10).numpy() & fare[1].numpy())[0]
     fn = K.make_select_kernel(plan, n_pad, top_l, torch.device("cpu"))

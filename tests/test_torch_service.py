@@ -8,8 +8,9 @@ device="cpu")`. Keys must agree exactly, counts exactly, float measures
 within rtol=2e-4, atol=1e-3 (the JAX package's float-sum tolerance).
 
 What the port does not run yet must answer with a "not ported yet" error.
-The keyed (sort) path, joins, listings and HLL have their own service
-tests in test_torch_{sort_path,join,non_agg,hll}.py.
+The keyed (sort) path, joins, listings, HLL, archive batches, the
+run-length path, SQL and composite queries have their own service tests
+in test_torch_{sort_path,join,non_agg,hll,archive,runlen,sql}.py.
 """
 
 from __future__ import annotations
@@ -321,12 +322,6 @@ def test_headline_query_through_k1_matches(fused_store, monkeypatch):
     assert calls == [FD.FD_MIN_ROWS, FD.FD_MIN_ROWS]
 
 
-def _port_error(svc, query):
-    resp = svc.handle_aql({"queries": [dict(query, table="trips", now=NOW)]})
-    assert resp["results"] == [{}]
-    return resp["errors"][0]
-
-
 def test_sort_path_plan_is_not_ported(small, monkeypatch):
     """A group-by over a dimension with no bounded domain (fare) plans no
     dense slots; the port answers it on the sort path, as the JAX package
@@ -346,25 +341,21 @@ def test_sort_path_plan_is_not_ported(small, monkeypatch):
     assert runs and len(result) == 12
 
 
-@pytest.mark.parametrize("query,ported", [
-    ({"measures": [{"sqlExpression": "count(*)"}],
-      "joins": [{"table": "cities", "alias": "c",
-                 "conditions": ["c.id = city_id"]}],
-      "dimensions": [{"sqlExpression": "c.name"}]}, True),
-    ({"measures": [{"sqlExpression": "1"}],
-      "dimensions": [{"sqlExpression": "city_id"}]}, True),
-    ({"measures": [{"sqlExpression": "count(*)"},
-                   {"sqlExpression": "sum(fare)"}]}, False),
-    ({"measures": [{"sqlExpression": "hll(uuid)"}]}, True),
+@pytest.mark.parametrize("query", [
+    {"measures": [{"sqlExpression": "count(*)"}],
+     "joins": [{"table": "cities", "alias": "c",
+                "conditions": ["c.id = city_id"]}],
+     "dimensions": [{"sqlExpression": "c.name"}]},
+    {"measures": [{"sqlExpression": "1"}],
+     "dimensions": [{"sqlExpression": "city_id"}]},
+    {"measures": [{"sqlExpression": "count(*)"},
+                  {"sqlExpression": "sum(fare)"}]},
+    {"measures": [{"sqlExpression": "hll(uuid)"}]},
 ], ids=["join", "non_agg", "composite", "hll"])
-def test_paths_not_ported_answer_with_an_error(query, ported, small):
-    """Composite queries still answer "not ported yet"; joins, listings
-    and HLL, refused until they were ported, now answer as the JAX
-    package does, exactly. (The name is kept from when all four were
-    refused.)"""
-    if not ported:
-        assert "not ported yet" in _port_error(small[1], query)
-        return
+def test_paths_not_ported_answer_with_an_error(query, small):
+    """Joins, listings, composite queries and HLL, refused until they
+    were ported, now answer as the JAX package does, exactly. (The name
+    is kept from when all four were refused.)"""
     request = {"queries": [dict(query, table="trips", now=NOW)]}
     jr, tr = (svc.handle_aql(request) for svc in small)
     assert "errors" not in tr, tr.get("errors")
@@ -396,9 +387,12 @@ def test_overflowing_batch_is_not_answered(small, monkeypatch):
 
 
 def test_sql_is_not_ported(small):
-    resp = small[1].handle_sql({"queries": ["SELECT count(*) FROM trips"]})
-    assert resp["results"] == [{}]
-    assert "not ported yet" in resp["errors"][0]
+    """SQL, refused until it was ported, answers as the JAX package does.
+    (The name is kept from then.)"""
+    request = {"queries": ["SELECT count(*) FROM trips"]}
+    jr, tr = (svc.handle_sql(request) for svc in small)
+    assert "errors" not in tr, tr.get("errors")
+    assert tr == jr and tr["results"][0]
 
 
 def test_joins_to_tables_of_one_name_and_another_layout_do_not_share_kernels(
