@@ -33,10 +33,17 @@ of `aresdb_tpu/query/executor.py`, with joins to dimension tables:
 - Each joined dimension table is staged once per query
   (`_stage_foreign_tables`, cached on its batches' versions) and probed
   per batch by the kernels (`kernels._EvalCtx.foreign_row`).
+- A geo join's shapes are read from the geo table's live store and
+  staged once per query (`_stage_geo`); every batch matches its points
+  against them (`kernels._geo_matched`, `geo.matched`).
+- Array columns stage as padded ragged lanes (`_pad_array_column`) from
+  live and archive batches; a joined table's array column stages as
+  all-null, so an array op on it answers "not staged", as in the JAX
+  package.
 GroupTable merges the piles exactly on the host.
 
-What is not ported yet raises QueryError, never a wrong answer: geo,
-array columns, and the JAX package's mesh batches.
+Not ported yet: the JAX package's mesh batches; every batch runs on the
+executor's one device.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import torch
 
 from aresdb_tpu_torch.common import data_types as mdt
 from aresdb_tpu_torch.query import expr as E
+from aresdb_tpu_torch.query import geo as G
 from aresdb_tpu_torch.query import hll as H
 from aresdb_tpu_torch.query import kernels as K
 from aresdb_tpu_torch.query import runlen as RL
@@ -71,12 +79,6 @@ DEFAULT_HLL_CAPACITY = 256   # HLL group capacity before the ladder climbs
 MAX_HLL_CAPACITY = 4096      # 16 KB of registers a group
 SMALL_K_FULL_FETCH = 4096  # sort tables at/below this capacity fetch whole
                            # with their group counts (one copy)
-
-
-def not_ported(what: str, path: str = "") -> QueryError:
-    """The error for work the port does not do yet; `path` names the JAX
-    package's code path that does it there."""
-    return QueryError(f"{what} not ported yet" + (f": {path}" if path else ""))
 
 
 class DeviceColumnCache:
@@ -397,14 +399,15 @@ class ShardExecutor:
                 plan.stats[self.name] = plan.stats.get(self.name, 0.0) + (
                     time.perf_counter() - self.t0)
 
-        if plan.geo is not None:
-            raise not_ported("geo queries are")
         with _Stage("foreignTransfer"):
             foreign = self._stage_foreign_tables(plan)
+            plan._exec_geo = self._stage_geo(plan)
         plan.stats["stagedBytes"] = sum(
             t.numel() * t.element_size() for probe, fcols in foreign
             for t in list(probe) + [t for pair in fcols.values()
                                     for t in pair])
+        if plan._exec_geo is not None:
+            plan.stats["stagedBytes"] += plan._exec_geo.nbytes()
         shards = plan.shards or [0]
         if plan.is_non_agg:
             rows = self._execute_non_agg(plan, foreign, shards)
@@ -625,7 +628,12 @@ class ShardExecutor:
             vp = batch.column(cid)
             col_schema = schema.table.columns[cid]
             if vp is not None and vp.is_list:
-                raise not_ported("array columns are")
+                cols[(0, cid)] = self.device_cache.get_or_stage(
+                    dev, ("live-arr", vp.uid, vp.version, n, n_padded),
+                    lambda: _pad_array_column(
+                        vp.list_values[:n], vp.validity[:n], n_padded,
+                        col_schema.data_type, dev))
+                continue
             if vp is None or vp.values is None:
                 cols[(0, cid)] = self.device_cache.get_or_stage(
                     dev, ("default", col_schema.data_type,
@@ -705,7 +713,12 @@ class ShardExecutor:
                     lambda: _default_column(col_schema, n_padded, dev))
                 continue
             if vp.is_list:
-                raise not_ported("array columns are")
+                cols[(0, cid)] = self.device_cache.get_or_stage(
+                    dev, ("arch", vp.uid, lo, hi, n_padded),
+                    lambda: _pad_array_column(
+                        vp.list_values[lo:hi], vp.validity[lo:hi], n_padded,
+                        col_schema.data_type, dev))
+                continue
             self._column_stat(stats, stat_keys, cid, vp, vp.values[lo:hi],
                               vp.validity[lo:hi], (lo, hi))
             cols[(0, cid)] = self.device_cache.get_or_stage(
@@ -813,9 +826,12 @@ class ShardExecutor:
     @staticmethod
     def _with_foreign(plan, foreign, batch_cols):
         """(the batch's columns with every joined table's staged columns
-        under their (table_id, column_id) keys, the joined tables'
-        probes)."""
+        under their (table_id, column_id) keys and a geo join's staged
+        shapes under kernels.GEO_SHAPES, the joined tables' probes)."""
         columns = dict(batch_cols)
+        shapes = getattr(plan, "_exec_geo", None)   # set by execute()
+        if shapes is not None:
+            columns[K.GEO_SHAPES] = shapes
         for ft, (_, fcols) in zip(plan.foreign_tables, foreign):
             for (_, cid), pair in fcols.items():
                 columns[(ft.table_id, cid)] = pair
@@ -1226,8 +1242,9 @@ class ShardExecutor:
                 for cid in ft.used_columns:
                     vp = batch.column(cid)
                     col_schema = ft.schema.table.columns[cid]
-                    if vp is not None and vp.is_list:
-                        raise not_ported("array columns are")
+                    # an array column (values None) stages as all-null,
+                    # as in the JAX package: array ops on it answer
+                    # "not staged" (kernels._array_entry)
                     if vp is None or vp.values is None:
                         npdt = mdt.numpy_dtype(col_schema.data_type)
                         shape = (n, 2) if mdt.lanes(col_schema.data_type) \
@@ -1281,6 +1298,50 @@ class ShardExecutor:
         if len(self._foreign_cache) > 128:
             self._foreign_cache.clear()
         self._foreign_cache[ckey] = entry
+
+    def _stage_geo(self, plan: CompiledQuery):
+        """The geo join's candidate shapes on the device (geo.DeviceShapes,
+        with the bbox walk's tables unless ARES_GEO2=0), or None for a
+        plan with no geo join. The shapes are read from the geo table's
+        live store at each query, in its row order, kept or dropped by
+        the geo filter's candidate keys, and their keys become
+        plan.geo.shape_values (the geo dimension's values).
+        Reference: prepareForGeoIntersect (query/aql_processor.go:333)."""
+        if plan.geo is None:
+            return None
+        geo = plan.geo
+        shard = self.memstore.get_table_shard(geo.schema.table.name, 0)
+        live = shard.live_store
+        with live.lock:
+            snaps = live.snapshot_columns([geo.pk_column, geo.shape_column])
+        shapes, values = [], []
+        cands = None
+        if geo.candidates is not None:
+            cands = {tuple(c) if isinstance(c, (list, tuple)) else c
+                     for c in geo.candidates}
+        for _, n, batch in snaps:
+            pk_vp = batch.column(geo.pk_column)
+            sh_vp = batch.column(geo.shape_column)
+            if pk_vp is None or sh_vp is None:
+                continue
+            for r in range(n):
+                pk = pk_vp.read_value(r)
+                shape = sh_vp.read_value(r)
+                if pk is None or shape is None:
+                    continue
+                key = tuple(pk) if isinstance(pk, (list, tuple)) else pk
+                # IN keeps the candidates; NOT IN also stages only them,
+                # and the kernel keeps the rows that match none
+                if cands is not None and key not in cands:
+                    continue
+                shapes.append(shape)
+                values.append(pk)
+        batch_ = G.build_shape_batch(shapes, values)
+        geo.shape_values = values
+        if batch_ is None:
+            # no candidate shapes: nothing matches
+            batch_ = G.empty_shape_batch()
+        return G.stage_shapes(batch_, self.device, G.use_pruned())
 
 
 def _host_table(plan, host: List[np.ndarray]):
@@ -1427,6 +1488,47 @@ def _pad_column(values: np.ndarray, validity: np.ndarray, n_padded: int,
     b[:n] = validity
     return (torch.from_numpy(_signed_view(v)).to(device),
             torch.from_numpy(b).to(device))
+
+
+def _pad_array_column(list_values, validity, n_padded: int, data_type: int,
+                      device: torch.device):
+    """Ragged array column -> (items[n, L], item_valid[n, L], lengths[n],
+    row_valid[n]) on `device`, padded to n_padded rows (padded rows are
+    null). L is the power-of-two bucket of the longest row; UUID and
+    GeoPoint items are (n, L, 2) lanes; unsigned items are signed views
+    of their bits (_signed_view). The JAX package's layout, built with one
+    vectorized scatter of the flattened items."""
+    item_dt = mdt.item_type(data_type)
+    two_lane = mdt.lanes(item_dt) == 2  # UUID / GeoPoint items
+    npdt = mdt.numpy_dtype(item_dt)
+    n = len(validity)
+    lens = np.fromiter((0 if v is None else len(v) for v in list_values),
+                       np.int64, n)
+    width = 1
+    while width < (int(lens.max()) if n else 0):
+        width <<= 1
+    shape = (n_padded, width, 2) if two_lane else (n_padded, width)
+    items = np.zeros(shape, npdt)
+    item_valid = np.zeros((n_padded, width), bool)
+    lengths = np.zeros(n_padded, np.int32)
+    lengths[:n] = lens
+    row_valid = np.zeros(n_padded, bool)
+    row_valid[:n] = np.asarray(validity, bool)
+    row_valid[:n] &= np.fromiter((v is not None for v in list_values), bool,
+                                 n)
+    flat = [x for v in list_values if v is not None for x in v]
+    if flat:
+        rows = np.repeat(np.arange(n), lens)
+        cols = np.arange(len(flat)) - np.repeat(np.cumsum(lens) - lens, lens)
+        present = np.fromiter((x is not None for x in flat), bool, len(flat))
+        zero = (0, 0) if two_lane else 0
+        items[rows, cols] = np.asarray(
+            [zero if x is None else x for x in flat], npdt)
+        item_valid[rows, cols] = present
+    return (torch.from_numpy(_signed_view(items)).to(device),
+            torch.from_numpy(item_valid).to(device),
+            torch.from_numpy(lengths).to(device),
+            torch.from_numpy(row_valid).to(device))
 
 
 def _default_column(col_schema, n_padded: int, device: torch.device):

@@ -4,11 +4,13 @@ Port of `aresdb_tpu/query/kernels.py` for the dense and the keyed (sort)
 group-by, run-length archive batches, HLL distinct counts and
 non-aggregate listings: the expression emitter (filters, dimensions and
 measures traced into tensor ops on (value, validity) lanes, joined
-columns probed through their dimension table), the dense slot map, the
-dense aggregation kernel with its 64-bit running fold, the group-key
-packing, the adaptive per-batch reduce_by_key and its weighted form for
-per-run lanes, the HLL register build with its 64-bit murmur hash, the
-select kernel, and the numpy group-key helpers GroupTable needs.
+columns probed through their dimension table, array ops over padded
+ragged lanes), the geo filter and dimension (geo.py), the dense slot
+map, the dense aggregation kernel with its 64-bit running fold, the
+group-key packing, the adaptive per-batch reduce_by_key and its weighted
+form for per-run lanes, the HLL register build with its 64-bit murmur
+hash, the select kernel, and the numpy group-key helpers GroupTable
+needs.
 
 Every function takes its tensors on one device and returns tensors on the
 same device. Eligible dense plans route to the fused kernel K1
@@ -39,6 +41,7 @@ import torch
 
 from aresdb_tpu_torch.common import data_types as mdt
 from aresdb_tpu_torch.query import expr as E
+from aresdb_tpu_torch.query import geo as G
 from aresdb_tpu_torch.query import hll as H
 from aresdb_tpu_torch.query import pallas_ops as P
 from aresdb_tpu_torch.query.compiler import CompiledQuery, QueryError
@@ -47,6 +50,8 @@ from aresdb_tpu_torch.utils.torch_env import fetch_to_host
 _F32_MAX = float(np.finfo(np.float32).max)
 _I32_MAX = int(np.iinfo(np.int32).max)
 _I32_MIN = int(np.iinfo(np.int32).min)
+# the columns key of a geo query's staged shapes (geo.DeviceShapes)
+GEO_SHAPES = (-1, 0)
 
 
 class _Val:
@@ -73,6 +78,7 @@ class _EvalCtx:
         self.device = device
         self._foreign_rows: Dict[int, Tuple] = {}
         self._foreign_cols: Dict[Tuple, Tuple] = {}
+        self.geo_matched: Optional[Tuple] = None
 
     def foreign_column(self, table_id: int, column_id: int, plan,
                        values, validity):
@@ -197,6 +203,10 @@ def _emit_varref(node: E.VarRef, ctx: _EvalCtx, plan: CompiledQuery) -> _Val:
     entry = ctx.columns.get((node.table_id, node.column_id))
     if entry is None:
         raise QueryError(f"column {node.val!r} not staged")
+    if len(entry) == 4:
+        raise QueryError(
+            f"array column {node.val!r} can only be used via "
+            f"length()/contains()/element_at()")
     values, validity = entry
     if node.table_id > 0:
         values, validity = ctx.foreign_column(
@@ -409,7 +419,7 @@ def _emit_call(node: E.Call, ctx: _EvalCtx, plan: CompiledQuery) -> _Val:
     if name == "__numeric_bucket":
         return _emit_numeric_bucket(node, ctx, plan)
     if name in (E.LENGTH, E.CONTAINS, E.ELEMENT_AT):
-        raise QueryError("array columns are not ported yet")
+        return _emit_array_op(node, ctx, plan)
     if name == "__tz_offset":
         # per-row UTC offset through the joined timezone enum rank
         # (reference timezoneLookupD, aql_processor.go:487)
@@ -419,6 +429,80 @@ def _emit_call(node: E.Call, ctx: _EvalCtx, plan: CompiledQuery) -> _Val:
         idx = rank.value.to(torch.int64).clamp(0, table.shape[0] - 1)
         return _Val(table[idx], rank.valid)
     raise QueryError(f"unsupported function {name!r} in kernel emitter")
+
+
+def _array_entry(node: E.Call, ctx: _EvalCtx):
+    arg = node.args[0]
+    if not (isinstance(arg, E.VarRef) and mdt.is_array_type(arg.data_type)):
+        raise QueryError(
+            f"{node.name} requires an array column, got {arg}")
+    entry = ctx.columns.get((arg.table_id, arg.column_id))
+    if entry is None or len(entry) != 4:
+        raise QueryError(f"array column {arg.val!r} not staged")
+    return entry  # (items[n,L], item_valid[n,L], lengths[n], row_valid[n])
+
+
+def _array_items32(items: torch.Tensor, item_type: int) -> torch.Tensor:
+    """Non-float items as the JAX package's int32 lanes: 16-bit unsigned
+    items, staged as int16 bit views, zero-extend; Uint32 items keep their
+    two's-complement bits (an item at 2^31 or above wraps, as jnp's
+    astype(int32) of uint32 does); Int64 items keep their low 32 bits."""
+    out = items.to(torch.int32)
+    if item_type in (mdt.Uint16, mdt.BigEnum):
+        out = out & 0xFFFF
+    return out
+
+
+def _emit_array_op(node: E.Call, ctx: _EvalCtx, plan: CompiledQuery) -> _Val:
+    """Array ops over padded ragged staging (executor._pad_array_column).
+
+    Semantics parity with the reference functors (query/functor.hpp:470-640):
+    length(null array) is null; element_at supports negative (from-end)
+    indices and yields null out of range or when the element is null;
+    contains matches only valid elements. UUID and GeoPoint items are
+    staged as (n, L, 2) lanes, UUID lanes as int64 bit views.
+    """
+    items, item_valid, lengths, row_valid = _array_entry(node, ctx)
+    item_type = mdt.item_type(node.args[0].data_type)
+    two_lane = items.ndim == 3
+    name = node.name
+    if name == E.LENGTH:
+        return _Val(lengths.to(torch.int32), row_valid)
+    if name == E.CONTAINS:
+        lanes = getattr(node.args[1], "uuid_lanes", None)
+        if two_lane:
+            if lanes is None:
+                raise QueryError(
+                    "contains() over a UUID array requires a UUID literal")
+            hi, lo = lanes
+            eq = (items[:, :, 0] == _signed64(int(hi))) & \
+                (items[:, :, 1] == _signed64(int(lo)))
+            return _Val((item_valid & eq).any(dim=1), row_valid)
+        needle = _emit(node.args[1], ctx, plan)
+        nv = needle.value
+        if items.dtype == torch.float32 or nv.dtype == torch.float32:
+            a, b = items.to(torch.float32), nv.to(torch.float32)
+        else:
+            a, b = _array_items32(items, item_type), nv.to(torch.int32)
+        hit = (item_valid & (a == b[:, None])).any(dim=1)
+        return _Val(hit, row_valid & needle.valid)
+    # element_at
+    idx = _to_numeric(_emit(node.args[1], ctx, plan), torch.int32)
+    width = items.shape[1]
+    lengths32 = lengths.to(torch.int32)
+    eff = torch.where(idx.value < 0, lengths32 + idx.value, idx.value)
+    in_range = (eff >= 0) & (eff < lengths32)
+    safe = eff.clamp(0, width - 1).long()
+    if two_lane:
+        value = torch.gather(items, 1, safe[:, None, None].expand(
+            -1, 1, 2))[:, 0, :]
+    else:
+        value = torch.gather(items, 1, safe[:, None])[:, 0]
+    evalid = torch.gather(item_valid, 1, safe[:, None])[:, 0]
+    valid = row_valid & idx.valid & in_range & evalid
+    if not two_lane and value.dtype not in (torch.float32, torch.bool):
+        value = _array_items32(value, item_type)
+    return _Val(value, valid)
 
 
 def _emit_numeric_bucket(node: E.Call, ctx: _EvalCtx, plan: CompiledQuery) -> _Val:
@@ -667,6 +751,11 @@ def pack_dim_keys(dim_vals: List[_Val], dim_types: List[int],
     if dim_vals and pack_modes(dim_types)[0]:
         shift = 0
         for dv, t in zip(dim_vals, dim_types):
+            if dv.value.ndim != 1 and t not in (mdt.UUID, mdt.GeoPoint):
+                # element_at over a GeoPoint array: the compiler types it
+                # as a 32-bit integer; the JAX package fails to broadcast
+                raise QueryError("a two-lane value cannot group as "
+                                 f"{mdt.DATA_TYPE_NAME.get(t, t)}")
             bits = torch.where(dv.valid, _value_bits_u64(dv, t)[0], 0)
             key = key | (dv.valid.to(torch.int64) << shift)
             shift += 1
@@ -769,10 +858,35 @@ def _eval_common(plan: CompiledQuery, ctx: _EvalCtx, n_valid: int,
     for f in plan.filters + plan.time_filter_expr:
         v = _truthy(_emit(f, ctx, plan))
         mask = mask & v.value & v.valid
-    if plan.geo is not None:
-        raise QueryError("geo queries are not ported yet")
-    dim_vals = [_emit(d.expr, ctx, plan) for d in plan.dimensions]
+    if plan.geo is not None and plan.geo.has_filter:
+        matched, point_valid = _geo_matched(plan, ctx)
+        inside = matched >= 0
+        # null points are dropped in BOTH modes: the reference writes
+        # !inOrOut into the predicate for null points so the remove-if
+        # always filters them (query/iterator.hpp:1380-1388)
+        mask = mask & point_valid & (~inside if plan.geo.exclude else inside)
+    dim_vals = []
+    for d in plan.dimensions:
+        if d.geo_dim:
+            matched, _ = _geo_matched(plan, ctx)
+            dim_vals.append(_Val(matched, matched >= 0))
+        else:
+            dim_vals.append(_emit(d.expr, ctx, plan))
     return mask, dim_vals
+
+
+def _geo_matched(plan: CompiledQuery, ctx: _EvalCtx):
+    """Per-row (matched shape index, point validity), computed once a
+    batch for the filter and the dimension. The shapes are the query's
+    (executor._stage_geo), under GEO_SHAPES among the columns."""
+    if ctx.geo_matched is None:
+        shapes = ctx.columns.get(GEO_SHAPES)
+        if shapes is None:
+            raise QueryError("geo shapes not staged")
+        pv = _emit(plan.geo.point_expr, ctx, plan)
+        ctx.geo_matched = (G.matched(pv.value[:, 0], pv.value[:, 1],
+                                     pv.valid, shapes), pv.valid)
+    return ctx.geo_matched
 
 
 def _measure_lane(plan: CompiledQuery, ctx: _EvalCtx) -> _Val:

@@ -3,14 +3,15 @@
 Port of `aresdb_tpu/query/service.py`: group-by queries (dense and keyed)
 over live and archive batches, HLL distinct counts (also as the binary
 `application/hll` frame), non-aggregate listings, joins to dimension
-tables, the timezone table included, SQL statements (`handle_sql`) and
-multi-measure composite queries (`_run_composite`). The store is anything
-that offers `get_schemas()` and `get_table_shard(name, shard_id)`, as
-`ShardExecutor` uses it.
+tables, the timezone table included, geo intersection joins, array
+columns, SQL statements (`handle_sql`) and multi-measure composite
+queries (`_run_composite`). The store is anything that offers
+`get_schemas()` and `get_table_shard(name, shard_id)`, as `ShardExecutor`
+uses it: a `MemStore` recovered from its redo log
+(`memstore/memstore.py`), or a plain table-shard holder.
 
-What the port does not run yet is answered with a "not ported yet" error
-in the response, never with a wrong result: geo and array columns
-(executor.py). Admission and the query deadline are not ported.
+Not ported yet: the JAX package's mesh batches (the port runs every
+batch on its one device), admission and the query deadline.
 """
 
 from __future__ import annotations

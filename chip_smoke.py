@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (`aresdb_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--rows N] [--atrips-rows M] [--seed S]
+    python3 chip_smoke.py [--rows N] [--atrips-rows M] [--events-rows E]
+                          [--seed S]
 
 Builds the port's hand-written CUDA kernels from `aresdb_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card at the main
@@ -61,6 +62,36 @@ K1 row functions are built first, all at once, from the CPU run's plans:
   S2  SELECT sum(fare), through handle_sql
   C1  Requested, Completed and Completed/Requested by city_id: a
       composite query, two engine runs (K1)
+atrips carries the battery's `pickup` GeoPoint (lat and lng uniform in
+[0, 50)), so most points are archived, beside two geo tables: `zones`,
+the battery's two squares (ids 1, 2), and `zones128`, 128 regular 16-gons
+(ids 1-128; neighbours overlap in lng, so first-match order matters):
+  G1  the battery's `geo join archived points`: count(*) by z.id over
+      zones, z.id IN (1, 2); the keyed path's runtime-dense K2
+  G2  sum(fare) by z.id over zones128, all 128 ids in the IN list: the
+      bbox walk (geo.matched_shape_pruned), K2
+  G3  count(*) over zones128, z.id NOT IN (1..64): the exclude mode, no
+      dimensions, no kernel
+  G2 dense  G2 under ARES_GEO2=0, the dense sweep of 4,096 edges, on
+      the card only: equal to G2's answer (keys exactly, sums within the
+      float tolerance: K2 adds floats with atomics)
+each against a numpy crossing-test oracle (counts exactly, sums within
+rel 1e-5); and the geo sweep itself: both routes on the card against the
+oracle point by point over every atrips point, and their device ms per
+batch.
+
+The durable store: E rows (default 1M, batches of 65,536) of the
+battery's `events` table (ArrayInt32 tags of 0-4 items from 0-19, scores
+in steps of 1/8 below 10, so that every float32 partial sum is exact) over
+two days go through a `MemStore` (`handle_ingestion`, one redo-log append
+an upsert) in a temporary directory, and the first day is archived:
+  E1  the battery's `array contains by length`: sum(score) where
+      contains(tags, 7), by length(tags); K2
+  E2  count(*) by element_at(tags, -1); K2
+Then the store is closed and a new `MemStore` recovers from the same
+directory (archive metadata, then the redo log), timed, and E1 and E2 run
+again: equal to the first answers exactly, to the CPU run and to the
+oracle.
 
 Kernels and what they replace:
   K1 fused_dense  (csrc/fused_dense_template.cuh, one row function emitted
@@ -109,15 +140,15 @@ CITIES_SCHEMA_JSON = {
 CITY_JOIN = [{"table": "cities", "alias": "c",
               "conditions": ["c.id = city_id"]}]
 LISTINGS = ("N1", "N2")
-# the storage table of the TPU battery, tools/drive_tpu_server.py:216-259,
-# without its GeoPoint column
+# the storage table of the TPU battery, tools/drive_tpu_server.py:216-259
 ATRIPS_SCHEMA_JSON = {
     "name": "atrips",
     "columns": [{"name": "request_at", "type": "Uint32"},
                 {"name": "id", "type": "Uint32"},
                 {"name": "city_id", "type": "Uint16"},
                 {"name": "status", "type": "SmallEnum"},
-                {"name": "fare", "type": "Float32"}],
+                {"name": "fare", "type": "Float32"},
+                {"name": "pickup", "type": "GeoPoint"}],
     "primaryKeyColumns": [1], "archivingSortColumns": [2, 3],
     "isFactTable": True,
     "config": {"batchSize": BATCH_ROWS, "recordRetentionInDays": 0}}
@@ -127,7 +158,33 @@ ATRIPS_ROWS = 8 * BATCH_ROWS
 ATRIPS_NOW = 1_600_000_000 // DAY * DAY
 ATRIPS_BASE = ATRIPS_NOW - 3 * DAY     # rows over the three days before
 ATRIPS_CUTOFF = ATRIPS_BASE + 2 * DAY  # two days archived
+# the battery's geo table and its two squares (tools/drive_tpu_server.py:
+# 230-238), and a table of 128 regular 16-gons of the same schema
+ZONES_SCHEMA_JSON = {
+    "name": "zones",
+    "columns": [{"name": "id", "type": "Uint16"},
+                {"name": "shape", "type": "GeoShape"}],
+    "primaryKeyColumns": [0], "isFactTable": False,
+    "config": {"batchSize": 64}}
+ZONES128_SCHEMA_JSON = dict(ZONES_SCHEMA_JSON, name="zones128",
+                            config={"batchSize": 256})
+BATTERY_ZONES = ((1, "POLYGON((0 0, 0 10, 10 10, 10 0, 0 0))"),
+                 (2, "POLYGON((20 20, 20 30, 30 30, 30 20, 20 20))"))
+# the battery's array table (tools/drive_tpu_server.py:315-330), 16 times
+# its 65,536 rows, over the two days before EVENTS_NOW; the first archived
+EVENTS_SCHEMA_JSON = {
+    "name": "events",
+    "columns": [{"name": "ts", "type": "Uint32"},
+                {"name": "id", "type": "Uint32"},
+                {"name": "tags", "type": "ArrayInt32"},
+                {"name": "score", "type": "Float32"}],
+    "primaryKeyColumns": [1], "isFactTable": True,
+    "config": {"batchSize": 1 << 16, "recordRetentionInDays": 0}}
+EVENTS_ROWS = 1 << 20
+EVENTS_NOW = ATRIPS_NOW
+EVENTS_CUTOFF = EVENTS_NOW - DAY
 HLL_QUERIES = ("H1", "H2")
+GEO_QUERIES = ("G1", "G2", "G3", "G2 dense")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
 # float sums: atomics add in another order than the plain version (and
@@ -1153,14 +1210,53 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None,
     return totals, in_situ
 
 
+def zones128_wkt() -> list:
+    """(id, WKT) of zones128's 128 regular 16-gons of radius 2.0: ids
+    1-128 in row order, centred at lat 3.125 + 6.25 i (i < 8) and lng
+    1.5625 + 3.125 j (j < 16), so that lng neighbours overlap."""
+    ang = 2 * np.pi * np.arange(16) / 16
+    out = []
+    for i in range(8):
+        for j in range(16):
+            lat, lng = 3.125 + 6.25 * i, 1.5625 + 3.125 * j
+            pts = [(float(lng + 2.0 * np.cos(a)), float(lat + 2.0 * np.sin(a)))
+                   for a in ang]
+            pts.append(pts[0])
+            out.append((1 + 16 * i + j, "POLYGON((" + ", ".join(
+                f"{x!r} {y!r}" for x, y in pts) + "))"))
+    return out
+
+
+def zones_shard(schema_json, zones):
+    """A geo table's (schema, TableShard) holding zones [(id, WKT)]."""
+    from aresdb_tpu_torch.common import data_types as mdt
+    from aresdb_tpu_torch.common.schema import Table, TableSchema
+    from aresdb_tpu_torch.common.upsert_batch import (UpsertBatch,
+                                                      UpsertBatchBuilder)
+    from aresdb_tpu_torch.memstore.table_shard import TableShard
+
+    ts = TableSchema(Table.from_json(schema_json))
+    b = UpsertBatchBuilder()
+    b.add_column(0, mdt.Uint16)
+    b.add_column(1, mdt.GeoShape)
+    for r, (key, wkt) in enumerate(zones):
+        b.add_row()
+        b.set_value(r, 0, key)
+        b.set_value(r, 1, mdt.parse_geoshape(wkt))
+    shard = TableShard(ts)
+    shard.save_upsert_batch(UpsertBatch(b.to_bytes()))
+    return ts, shard
+
+
 def ingest_atrips(n_rows: int, seed: int, batch_rows: int, root: str
                   ) -> tuple:
     """The atrips fact table: n_rows trips from the seed, timed uniformly
     over [ATRIPS_BASE, ATRIPS_BASE + 3 days) and ingested in time order
     through the upsert wire format in batch-sized upserts, then archived
     to ATRIPS_CUTOFF by the port's Archiver through a DiskMetaStore and a
-    LocalDiskStore under root. Returns (store, shard, the rows as numpy
-    arrays by column, ingest seconds, archiving seconds)."""
+    LocalDiskStore under root; beside it the zones and zones128 geo
+    tables. Returns (store, shard, the rows as numpy arrays by column,
+    ingest seconds, archiving seconds)."""
     from aresdb_tpu_torch.common import data_types as mdt
     from aresdb_tpu_torch.common.schema import Table, TableSchema
     from aresdb_tpu_torch.common.upsert_batch import (UpsertBatch,
@@ -1182,6 +1278,10 @@ def ingest_atrips(n_rows: int, seed: int, batch_rows: int, root: str
             "city_id": rng.randint(0, N_CITIES, n_rows).astype(np.uint16),
             "status": rng.randint(0, 3, n_rows).astype(np.uint8),
             "fare": (rng.rand(n_rows) * 50).astype(np.float32)}
+    # drawn after the other columns, which keep their values
+    data["pickup"] = np.stack([(rng.rand(n_rows) * 50).astype(np.float32),
+                               (rng.rand(n_rows) * 50).astype(np.float32)],
+                              axis=1)
     t0 = time.perf_counter()
     for lo in range(0, n_rows, batch_rows):
         s = slice(lo, lo + batch_rows)
@@ -1191,14 +1291,18 @@ def ingest_atrips(n_rows: int, seed: int, batch_rows: int, root: str
                  None, 0),
                 (2, mdt.Uint16, data["city_id"][s], None, 0),
                 (3, mdt.SmallEnum, data["status"][s], None, 0),
-                (4, mdt.Float32, data["fare"][s], None, 0)]
+                (4, mdt.Float32, data["fare"][s], None, 0),
+                (5, mdt.GeoPoint, data["pickup"][s], None, 0)]
         shard.save_upsert_batch(UpsertBatch(build_columnar_upsert(cols, n)))
     ingest_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     Archiver(shard, meta, disk).archive(ATRIPS_CUTOFF)
     archive_s = time.perf_counter() - t0
-    return (Store({"atrips": ts}, {("atrips", 0): shard}), shard, data,
-            ingest_s, archive_s)
+    schemas, shards = {"atrips": ts}, {("atrips", 0): shard}
+    for js, zones in ((ZONES_SCHEMA_JSON, BATTERY_ZONES),
+                      (ZONES128_SCHEMA_JSON, zones128_wkt())):
+        schemas[js["name"]], shards[(js["name"], 0)] = zones_shard(js, zones)
+    return Store(schemas, shards), shard, data, ingest_s, archive_s
 
 
 def atrips_queries() -> dict:
@@ -1236,6 +1340,108 @@ def atrips_queries() -> dict:
     }
 
 
+def geo_queries() -> dict:
+    """name -> (AQL query over atrips joined to a geo table, environment)."""
+    def geo(table, measure, filters, dims=()):
+        return {"table": "atrips", "now": ATRIPS_NOW,
+                "joins": [{"table": table, "alias": "z", "conditions": [
+                    "geography_intersects(z.shape, pickup)"]}],
+                "measures": [{"sqlExpression": measure}],
+                "dimensions": [{"sqlExpression": d} for d in dims],
+                "rowFilters": list(filters)}
+
+    ids = [str(k) for k, _ in zones128_wkt()]
+    g2 = geo("zones128", "sum(fare)", [f"z.id IN ({', '.join(ids)})"],
+             ["z.id"])
+    return {
+        "G1": (geo("zones", "count(*)", ["z.id IN (1, 2)"], ["z.id"]), {}),
+        "G2": (g2, {}),
+        "G3": (geo("zones128", "count(*)",
+                   [f"z.id NOT IN ({', '.join(ids[:64])})"]), {}),
+        "G2 dense": (g2, {"ARES_GEO2": "0"}),
+    }
+
+
+def geo_oracle(shapes, lat: np.ndarray, lng: np.ndarray) -> np.ndarray:
+    """Each point's first matching shape (index into shapes, -1 for none):
+    for each shape, the points inside its bbox widened by 1e-3 (sorted by
+    lng once) put to the reference's crossing test in numpy float32, every
+    operation rounded on its own, the lowest index winning. A point
+    outside the widened box crosses the shape's closed rings an even
+    number of times."""
+    order = np.argsort(lng, kind="stable")
+    slng = lng[order]
+    out = np.full(len(lat), -1, np.int32)
+    for s in range(len(shapes) - 1, -1, -1):
+        edges = [(a, b) for ring in shapes[s] for a, b in zip(ring, ring[1:])]
+        a1 = np.array([a[0] for a, _ in edges], np.float32)
+        a2 = np.array([b[0] for _, b in edges], np.float32)
+        g1 = np.array([a[1] for a, _ in edges], np.float32)
+        g2 = np.array([b[1] for _, b in edges], np.float32)
+        denom = g2 - g1
+        slope = np.where(denom == 0, np.float32(0),
+                         (a2 - a1) / np.where(denom == 0, 1, denom)
+                         ).astype(np.float32)
+        lo = np.searchsorted(slng, min(g1.min(), g2.min()) - 1e-3)
+        hi = np.searchsorted(slng, max(g1.max(), g2.max()) + 1e-3, "right")
+        idx = order[lo:hi]
+        idx = idx[(lat[idx] > min(a1.min(), a2.min()) - 1e-3)
+                  & (lat[idx] < max(a1.max(), a2.max()) + 1e-3)]
+        p, q = lng[idx, None], lat[idx, None]
+        cond1 = (g1 > p) != (g2 > p)
+        line = (slope * (p - g1)).astype(np.float32)
+        line = (line + a1).astype(np.float32)
+        odd = (cond1 & (q < line)).sum(1) % 2 == 1
+        out[idx[odd]] = s
+    return out
+
+
+def geo_matches(data: dict) -> dict:
+    """The geo oracle's matched shapes of every atrips point, by table
+    (zones, zones128, and zones128's first 64 shapes, G3's), computed once
+    and kept in data."""
+    from aresdb_tpu_torch.common import data_types as mdt
+
+    if "geo" not in data:
+        lat, lng = data["pickup"][:, 0], data["pickup"][:, 1]
+        zones128 = [mdt.parse_geoshape(w) for _, w in zones128_wkt()]
+        data["geo"] = {
+            "zones": geo_oracle([mdt.parse_geoshape(w)
+                                 for _, w in BATTERY_ZONES], lat, lng),
+            "zones128": geo_oracle(zones128, lat, lng),
+            "zones128[:64]": geo_oracle(zones128[:64], lat, lng)}
+    return data["geo"]
+
+
+def check_geo(name: str, answer: dict, data: dict) -> None:
+    """A geo answer against the oracle: counts exactly, sums within rel
+    1e-5; every point is valid, and a shape's index is its id - 1."""
+    m = geo_matches(data)
+    if name == "G1":
+        ids, counts = np.unique(m["zones"][m["zones"] >= 0] + 1,
+                                return_counts=True)
+        want = {str(i): float(c) for i, c in zip(ids, counts)}
+        if answer != want:
+            raise AssertionError(f"G1: {answer} against the oracle's {want}")
+    elif name in ("G2", "G2 dense"):
+        hit = m["zones128"] >= 0
+        sums = np.bincount(m["zones128"][hit],
+                           weights=data["fare"][hit].astype(np.float64),
+                           minlength=128)
+        want = {str(i + 1): sums[i] for i in np.unique(m["zones128"][hit])}
+        if set(answer) != set(want):
+            raise AssertionError(f"{name}: {len(answer)} zones, the oracle "
+                                 f"{len(want)}")
+        for k, v in want.items():
+            if abs(answer[k] - v) > max(1e-3, abs(v) * 1e-5):
+                raise AssertionError(f"{name}: zone {k} {answer[k]} "
+                                     f"against {v}")
+    elif name == "G3":
+        want = float((m["zones128[:64]"] < 0).sum())
+        if answer != {"": want}:
+            raise AssertionError(f"G3: {answer} against {want}")
+
+
 def atrips_layout(shard, chunk_rows: int) -> dict:
     """The padded row counts of the batches each atrips query scans: the
     live batches, and the archive chunks of every day and of the last
@@ -1267,6 +1473,10 @@ def atrips_launches(name: str, runs: int, layout: dict) -> dict:
                 "K2": runs * times * (len(batches) - k1), "K3": 0}
 
     every = layout["live"] + layout["chunks"]
+    if name in ("G1", "G2", "G2 dense"):
+        # a geo dimension has no bounded domain: the keyed path, whose
+        # runtime-dense branch reduces every batch and chunk through K2
+        return {"K1": 0, "K2": runs * len(every), "K3": 0}
     if name in ("A1", "A3"):
         return dense(every)
     if name in ("A2", "A4"):
@@ -1277,7 +1487,7 @@ def atrips_launches(name: str, runs: int, layout: dict) -> dict:
         return dense(layout["live"] + layout["last_day"])
     if name == "C1":   # one engine run for each of its two counts
         return dense(every, times=2)
-    return {"K1": 0, "K2": 0, "K3": 0}   # A5, S1, S2
+    return {"K1": 0, "K2": 0, "K3": 0}   # A5, S1, S2, G3
 
 
 def check_atrips(name: str, answer: dict, contexts, data: dict,
@@ -1362,12 +1572,13 @@ def check_atrips(name: str, answer: dict, contexts, data: dict,
 def phase_atrips(n_rows: int, seed: int, warm: int = 5, device=None,
                  batch_rows: int = BATCH_ROWS, names=None) -> tuple:
     """The archive half: ingest and archive atrips (ingest_atrips), answer
-    every query of atrips_queries (or those in `names`) on the CPU
-    service, build the K1 row functions those answers planned (all
-    nvcc's at once), then run each on the card as phase_e2e does, with
-    its launches asserted, against the CPU answer and the numpy oracle.
-    Returns each kernel's launches and {kernel: {query: device ms per
-    launch}}."""
+    every query of atrips_queries and geo_queries (or those in `names`)
+    on the CPU service, but G2 dense (the card's only: its CPU answer is
+    G2's), build the K1 row functions those answers planned (all nvcc's
+    at once), then run each on the card as phase_e2e does, with its
+    launches asserted, against the CPU answer and the numpy oracle; on
+    the card, then the geo sweep (phase_geo_sweep). Returns each kernel's
+    launches and {kernel: {query: device ms per launch}}."""
     from aresdb_tpu_torch.query import executor as X
     from aresdb_tpu_torch.query import fused_dense as FD
     from aresdb_tpu_torch.query.service import QueryService
@@ -1386,10 +1597,13 @@ def phase_atrips(n_rows: int, seed: int, warm: int = 5, device=None,
               flush=True)
         gpu = QueryService(store, device=device)
         cpu = QueryService(store, device="cpu")
-        queries = {k: v for k, v in atrips_queries().items()
+        queries = {k: v for k, v in {**atrips_queries(),
+                                     **geo_queries()}.items()
                    if names is None or k in names}
         cpu_answers = {}
         for name, (q, env) in queries.items():
+            if name == "G2 dense":
+                continue
             with query_setting(X, env, False):
                 cpu_answers[name] = ask(cpu, name, q)[0]
         if gpu.device.type == "cuda":
@@ -1405,18 +1619,223 @@ def phase_atrips(n_rows: int, seed: int, warm: int = 5, device=None,
         runs = 1 + warm
         answers = {}
         for name, (q, env) in queries.items():
+            # G2 dense on the card only, against G2's answer there
+            want = answers["G2"] if name == "G2 dense" else cpu_answers[name]
             rec = run_query(gpu, cpu, name, q, env, False, runs, counters,
                             atrips_launches(name, runs, layout),
-                            cpu_answer=cpu_answers[name])
+                            cpu_answer=want)
             for k in totals:
                 totals[k] += rec["launches"][k]
             for k, ms in rec["in_situ"].items():
                 in_situ[k][name] = ms
             same_result(name, rec["answer"], rec["cpu_answer"])
             answers[name] = rec["answer"]
-            check_atrips(name, rec["answer"], rec["contexts"], data,
-                         answers, len(layout["chunks"]))
+            if name in GEO_QUERIES:
+                check_geo(name, rec["answer"], data)
+            else:
+                check_atrips(name, rec["answer"], rec["contexts"], data,
+                             answers, len(layout["chunks"]))
             report(name, rec, n_rows)
+        if gpu.device.type == "cuda":
+            phase_geo_sweep(data["pickup"], gpu.device, geo_matches(data))
+    return totals, in_situ
+
+
+def phase_geo_sweep(pickup: np.ndarray, device, oracle: dict,
+                    batch_rows: int = BATCH_ROWS) -> dict:
+    """geo.matched_shape (the dense sweep) and geo.matched_shape_pruned
+    (the bbox walk) on `device` over every point, batch by batch, for the
+    zones and zones128 tables: equal to each other and to the oracle's
+    matched shapes (geo_matches) point by point. On the card, each
+    route's device ms and wall ms per batch of batch_rows points. Returns
+    {table: {route: (device ms, wall ms)}}."""
+    from aresdb_tpu_torch.common import data_types as mdt
+    from aresdb_tpu_torch.query import geo as G
+
+    out = {}
+    n = len(pickup)
+    for table, zones in (("zones", BATTERY_ZONES),
+                         ("zones128", zones128_wkt())):
+        batch = G.build_shape_batch([mdt.parse_geoshape(w) for _, w in zones],
+                                    [k for k, _ in zones])
+        if not batch.prune_ok:
+            raise AssertionError(f"{table}: not eligible for the bbox walk")
+        dense = G.stage_shapes(batch, device, pruned=False)
+        pruned = G.stage_shapes(batch, device, pruned=True)
+        for lo in range(0, n, batch_rows):
+            pts = torch.from_numpy(pickup[lo:lo + batch_rows]).to(device)
+            args = (pts[:, 0], pts[:, 1],
+                    torch.ones(len(pts), dtype=torch.bool, device=device))
+            swept = G.matched_shape(*args, dense)
+            walked, overflow = G.matched_shape_pruned(*args, pruned)
+            if overflow or not torch.equal(swept, walked) or \
+                    not np.array_equal(swept.cpu().numpy(),
+                                       oracle[table][lo:lo + batch_rows]):
+                raise AssertionError(f"{table}: the routes or the oracle "
+                                     f"differ in rows {lo}..")
+        if device.type != "cuda":
+            continue
+        pts = torch.from_numpy(pickup[:batch_rows]).to(device)
+        args = (pts[:, 0], pts[:, 1],
+                torch.ones(len(pts), dtype=torch.bool, device=device))
+        out[table] = {
+            "dense": (device_ms(lambda: G.matched_shape(*args, dense), 3),
+                      wall_ms(lambda: G.matched_shape(*args, dense), 3)),
+            "pruned": (device_ms(lambda: G.matched_shape_pruned(*args,
+                                                                pruned), 10),
+                       wall_ms(lambda: G.matched_shape_pruned(*args,
+                                                              pruned), 10))}
+        print(f"geo sweep {table}: {batch.n_shapes} shapes, "
+              f"{len(batch.slope)} edges; both routes equal the oracle on "
+              f"all {n} points; per batch of {len(pts)} points: dense "
+              f"device ms={out[table]['dense'][0]:.4f} (wall "
+              f"{out[table]['dense'][1]:.4f}), bbox walk device "
+              f"ms={out[table]['pruned'][0]:.4f} (wall "
+              f"{out[table]['pruned'][1]:.4f}, one host copy)", flush=True)
+    return out
+
+
+def build_events(n_rows: int, seed: int, batch_rows: int) -> tuple:
+    """The events rows from the seed: times uniform over the two days
+    before EVENTS_NOW in time order, tags of 0-4 items from 0-19 (the
+    battery's), scores in steps of 1/8 in [0, 10). Returns (each upsert
+    of batch_rows rows as wire bytes, the rows: ts, tags, score)."""
+    from aresdb_tpu_torch.common import data_types as mdt
+    from aresdb_tpu_torch.common.upsert_batch import UpsertBatchBuilder
+
+    rng = np.random.RandomState(seed + 5)
+    ts = np.sort(EVENTS_NOW - 2 * DAY + rng.randint(0, 2 * DAY, n_rows))
+    tags = [rng.randint(0, 20, k).tolist()
+            for k in rng.randint(0, 5, n_rows)]
+    score = rng.randint(0, 80, n_rows) / 8
+    bufs = []
+    for lo in range(0, n_rows, batch_rows):
+        b = UpsertBatchBuilder()
+        for cid, t in enumerate((mdt.Uint32, mdt.Uint32, mdt.ArrayInt32,
+                                 mdt.Float32)):
+            b.add_column(cid, t)
+        for r, i in enumerate(range(lo, min(lo + batch_rows, n_rows))):
+            b.add_row()
+            b.set_value(r, 0, int(ts[i]))
+            b.set_value(r, 1, i)
+            b.set_value(r, 2, tags[i])
+            b.set_value(r, 3, float(score[i]))
+        bufs.append(b.to_bytes())
+    return bufs, {"ts": ts, "tags": tags, "score": score}
+
+
+def events_queries() -> dict:
+    def q(measure, dim, filters=()):
+        return {"table": "events", "now": EVENTS_NOW,
+                "measures": [{"sqlExpression": measure,
+                              "rowFilters": list(filters)}],
+                "dimensions": [{"sqlExpression": dim}]}
+
+    return {"E1": q("sum(score)", "length(tags)", ["contains(tags, 7)"]),
+            "E2": q("count(*)", "element_at(tags, -1)")}
+
+
+def events_oracle(data: dict, name: str) -> dict:
+    """E1's or E2's answer from the rows: the scores' sums are exact."""
+    out = {}
+    for tags, score in zip(data["tags"], data["score"].tolist()):
+        if name == "E1":
+            if 7 in tags:
+                out[str(len(tags))] = out.get(str(len(tags)), 0.0) + score
+        else:
+            key = str(tags[-1]) if tags else "NULL"
+            out[key] = out.get(key, 0.0) + 1.0
+    return out
+
+
+def close_memstore(ms) -> None:
+    """Stop a MemStore's host-memory workers and redo-log managers."""
+    ms.host_memory_manager.stop()
+    ms.redolog_master.stop_all()
+
+
+def phase_events(n_rows: int, seed: int, warm: int = 5, device=None,
+                 batch_rows: int = 1 << 16) -> tuple:
+    """The durable store: events (build_events) through a MemStore's
+    handle_ingestion (a redo-log append an upsert) in a temporary
+    directory, the first day archived, E1 and E2 on the card as phase_e2e
+    runs its queries (launches asserted: the keyed path's runtime-dense
+    K2 on every live batch and archive chunk), each equal to the CPU run
+    and the oracle exactly; then the store closed, a new MemStore
+    recovered from the directory (timed), and E1 and E2 again, equal to
+    the first answers exactly. Returns each kernel's launches and
+    {kernel: {query: device ms per launch}}."""
+    from aresdb_tpu_torch.common.schema import Table
+    from aresdb_tpu_torch.common.upsert_batch import UpsertBatch
+    from aresdb_tpu_torch.diskstore.local_diskstore import LocalDiskStore
+    from aresdb_tpu_torch.memstore.archiving import Archiver
+    from aresdb_tpu_torch.memstore.memstore import MemStore
+    from aresdb_tpu_torch.metastore.disk_metastore import DiskMetaStore
+    from aresdb_tpu_torch.query import executor as X
+    from aresdb_tpu_torch.query.service import QueryService
+
+    t0 = time.perf_counter()
+    bufs, data = build_events(n_rows, seed, batch_rows)
+    print(f"events: {n_rows} rows built as {len(bufs)} upserts in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    counters = kernel_counters()
+    totals = dict.fromkeys(counters, 0)
+    in_situ = {k: {} for k in counters}
+    runs = 1 + warm
+    first = {}
+    with tempfile.TemporaryDirectory() as root:
+        schema = dict(EVENTS_SCHEMA_JSON, config={
+            "batchSize": batch_rows, "recordRetentionInDays": 0})
+        ms = MemStore(DiskMetaStore(root), LocalDiskStore(root))
+        ms.create_table(Table.from_json(schema))
+        ms.init_shards()
+        t0 = time.perf_counter()
+        for buf in bufs:
+            ms.handle_ingestion("events", 0, UpsertBatch(buf))
+        ingest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        shard = ms.get_table_shard("events")
+        Archiver(shard, ms.metastore, ms.diskstore).archive(EVENTS_CUTOFF)
+        print(f"events: ingested through the redo log in {ingest_s:.3f} s "
+              f"({n_rows / ingest_s:.0f} rows/s), first day archived in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        for stage in ("", " recovered"):
+            if stage:
+                close_memstore(ms)
+                t0 = time.perf_counter()
+                ms = MemStore(DiskMetaStore(root), LocalDiskStore(root))
+                ms.fetch_schema()
+                ms.init_shards()
+                print(f"events: a new MemStore recovered in "
+                      f"{time.perf_counter() - t0:.3f} s", flush=True)
+                shard = ms.get_table_shard("events")
+            layout = atrips_layout(shard, X.ShardExecutor.ARCHIVE_CHUNK_ROWS)
+            batches = len(layout["live"]) + len(layout["chunks"])
+            print(f"events{stage}: live batches {len(layout['live'])}, "
+                  f"archive chunks {len(layout['chunks'])}", flush=True)
+            gpu = QueryService(ms, device=device)
+            cpu = QueryService(ms, device="cpu")
+            for name, q in events_queries().items():
+                rec = run_query(gpu, cpu, name + stage, q, {}, False, runs,
+                                counters, {"K1": 0, "K2": runs * batches,
+                                           "K3": 0})
+                for k in totals:
+                    totals[k] += rec["launches"][k]
+                for k, ms_ in rec["in_situ"].items():
+                    in_situ[k][name + stage] = ms_
+                answer = rec["answer"]
+                if answer != rec["cpu_answer"]:
+                    raise AssertionError(f"{name}{stage}: the cuda answer "
+                                         "differs from the cpu run's")
+                if answer != events_oracle(data, name):
+                    raise AssertionError(f"{name}{stage}: the answer differs "
+                                         "from the oracle's")
+                if stage and answer != first[name]:
+                    raise AssertionError(f"{name}: the recovered store "
+                                         "answers otherwise")
+                first[name] = answer
+                report(name + stage, rec, n_rows)
+        close_memstore(ms)
     return totals, in_situ
 
 
@@ -1442,6 +1861,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=16 * BATCH_ROWS)
     ap.add_argument("--atrips-rows", type=int, default=ATRIPS_ROWS)
+    ap.add_argument("--events-rows", type=int, default=EVENTS_ROWS)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1481,11 +1901,12 @@ def main(argv=None) -> int:
     k1 = phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
                   device, args.seed)
     launches, in_situ = phase_e2e(args.rows, args.seed)
-    archive_launches, archive_in_situ = phase_atrips(args.atrips_rows,
-                                                     args.seed)
-    for k in launches:
-        launches[k] += archive_launches[k]
-        in_situ[k].update(archive_in_situ[k])
+    for phase_launches, phase_in_situ in (
+            phase_atrips(args.atrips_rows, args.seed),
+            phase_events(args.events_rows, args.seed)):
+        for k in launches:
+            launches[k] += phase_launches[k]
+            in_situ[k].update(phase_in_situ[k])
 
     kernels = [
         kernel_row("fused_dense",

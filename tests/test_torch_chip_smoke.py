@@ -7,7 +7,11 @@ phase's data, the NaN and inf case puts each in a slot of its own, and
 `check_close` holds non-finite values to the indices it is given. The
 end-to-end phase runs here for the joined, listing and HLL queries at a
 small size, with the kernel wrappers counting their plain versions as
-launches: its launch, rerun and oracle checks run as on the card.
+launches: its launch, rerun and oracle checks run as on the card. So do
+the geo queries (G1-G3, G2 under ARES_GEO2=0) and the events phase with
+its MemStore recovery, at a small size; the geo oracle is held against
+the JAX package's matched_shape, and the zones128 table, the events rows
+and the new launch counts against what the smoke's docstring states.
 """
 
 from __future__ import annotations
@@ -146,25 +150,148 @@ def test_cities_table_and_join_filter():
 
 def test_phase_atrips_runs_the_archive_queries_with_their_launches(
         cpu_rehearsal, monkeypatch, capsys):
-    """A1-C1 over eight batches of FD_MIN_ROWS rows, two days of them
-    archived, with the archive chunk cut to two batches' rows so that
-    each day stages as two chunks: the launch counts assert inside the
-    phase (K1 on every dense batch and chunk, K2 on every run-length
-    chunk, none for the plans with no dimensions), as do runlenBatches,
-    prefilterRowsSkipped, every answer against the CPU service and the
-    numpy oracles."""
+    """A1-C1 and G1-G3 over eight batches of FD_MIN_ROWS rows, two days of
+    them archived, with the archive chunk cut to two batches' rows so
+    that each day stages as two chunks: the launch counts assert inside
+    the phase (K1 on every dense batch and chunk, K2 on every run-length
+    chunk and on every batch and chunk of G1 and G2, none for the plans
+    with no dimensions), as do runlenBatches, prefilterRowsSkipped, every
+    answer against the CPU service and the numpy oracles. (G2 dense, a
+    dense sweep of 4,096 edges a point, rehearses at a smaller size
+    below.)"""
     from aresdb_tpu_torch.query import executor as X
 
     batch = FD.FD_MIN_ROWS
     monkeypatch.setattr(X.ShardExecutor, "ARCHIVE_CHUNK_ROWS", 2 * batch)
+    names = list(S.atrips_queries()) + ["G1", "G2", "G3"]
     launches, in_situ = S.phase_atrips(8 * batch, 0, warm=1, device="cpu",
-                                       batch_rows=batch)
+                                       batch_rows=batch, names=names)
     out = capsys.readouterr().out
     # 3 live batches and 4 chunks; two runs of each query
     assert "live batches 3, archive chunks 4" in out
     assert launches == {"K1": 2 * (7 + 3 + 7 + 3 + 5 + 14),
-                        "K2": 2 * (4 + 4), "K3": 0}
-    for name in S.atrips_queries():
+                        "K2": 2 * (4 + 4) + 2 * 2 * 7, "K3": 0}
+    for name in names:
+        assert f"{name}: cuda result matches the cpu run" in out
+
+
+def test_phase_atrips_runs_the_geo_queries_and_the_dense_sweep(
+        cpu_rehearsal, monkeypatch, capsys):
+    """G1, G2, G3 and G2 under ARES_GEO2=0 over four small batches, two
+    archived chunks: K2 on every batch and chunk of the three group-bys,
+    none for G3, each answer against the oracle; G2 dense against G2."""
+    from aresdb_tpu_torch.query import executor as X
+
+    monkeypatch.setattr(X.ShardExecutor, "ARCHIVE_CHUNK_ROWS", 8192)
+    launches, _ = S.phase_atrips(4 * 4096, 0, warm=1, device="cpu",
+                                 batch_rows=4096, names=S.GEO_QUERIES)
+    out = capsys.readouterr().out
+    assert "live batches 2, archive chunks 2" in out
+    assert launches == {"K1": 0, "K2": 3 * 2 * 4, "K3": 0}
+    for name in S.GEO_QUERIES:
+        assert f"{name}: cuda result matches the cpu run" in out
+
+
+def test_geo_oracle_matches_the_jax_packages_sweep():
+    """The smoke's numpy oracle against the JAX package's matched_shape on
+    a few thousand points and both geo tables of the smoke (the tables'
+    shapes are far from the float32 ulps where XLA:CPU's fused
+    multiply-add could flip a verdict)."""
+    import jax.numpy as jnp
+
+    from aresdb_tpu.common import data_types as jdt
+    from aresdb_tpu.query import geo as JG
+
+    rng = np.random.RandomState(4)
+    lat = (rng.rand(5000) * 50).astype(np.float32)
+    lng = (rng.rand(5000) * 50).astype(np.float32)
+    pad = (-len(lat)) % JG.ROW_TILE
+    for zones in (S.BATTERY_ZONES, S.zones128_wkt()):
+        shapes = [jdt.parse_geoshape(w) for _, w in zones]
+        jb = JG.build_shape_batch(shapes, [k for k, _ in zones])
+        want = np.asarray(JG.matched_shape(
+            jnp.asarray(np.concatenate([lat, np.zeros(pad, np.float32)])),
+            jnp.asarray(np.concatenate([lng, np.zeros(pad, np.float32)])),
+            jnp.asarray(np.arange(len(lat) + pad) < len(lat)),
+            jnp.asarray(jb.slope), jnp.asarray(jb.lat1),
+            jnp.asarray(jb.lng1), jnp.asarray(jb.lng2),
+            jnp.asarray(jb.onehot), jnp.int32(jb.n_shapes)))[:len(lat)]
+        got = S.geo_oracle(shapes, lat, lng)
+        np.testing.assert_array_equal(got, want)
+        assert (got >= 0).sum() > 100
+
+
+def test_zones128_are_128_overlapping_16_gons():
+    from aresdb_tpu_torch.common import data_types as mdt
+    from aresdb_tpu_torch.query import geo as G
+
+    zones = S.zones128_wkt()
+    assert [k for k, _ in zones] == list(range(1, 129))
+    shapes = [mdt.parse_geoshape(w) for _, w in zones]
+    for (k, _), (ring,) in zip(zones, shapes):
+        assert len(ring) == 17 and ring[0] == ring[-1]
+        i, j = divmod(k - 1, 16)
+        lats = np.array([p[0] for p in ring])
+        lngs = np.array([p[1] for p in ring])
+        assert abs(lats.mean() - (3.125 + 6.25 * i)) < 0.2
+        assert abs(lngs[:-1].mean() - (1.5625 + 3.125 * j)) < 1e-9
+        assert np.allclose(np.hypot(lats - (3.125 + 6.25 * i),
+                                    lngs - (1.5625 + 3.125 * j)), 2.0)
+    batch = G.build_shape_batch(shapes, [k for k, _ in zones])
+    assert batch.prune_ok and batch.slab.shape == (4, 32, G.PRUNE_S)
+    assert len(batch.slope) == 4096
+    # lng neighbours overlap: some points have two candidates
+    lo, hi = batch.bbox[0, :128], batch.bbox[1, :128]
+    assert (hi[:-1] > lo[1:]).sum() >= 100
+
+
+def test_phase_geo_sweep_checks_both_routes_point_by_point():
+    rng = np.random.RandomState(8)
+    data = {"pickup": (rng.rand(6000, 2) * 50).astype(np.float32)}
+    oracle = S.geo_matches(data)
+    assert set(oracle) == {"zones", "zones128", "zones128[:64]"}
+    assert S.phase_geo_sweep(data["pickup"], torch.device("cpu"), oracle,
+                             batch_rows=2048) == {}
+    bad = dict(oracle, zones128=oracle["zones128"].copy())
+    bad["zones128"][np.flatnonzero(bad["zones128"] >= 0)[0]] = -1
+    with pytest.raises(AssertionError, match="zones128"):
+        S.phase_geo_sweep(data["pickup"], torch.device("cpu"), bad,
+                          batch_rows=2048)
+
+
+def test_events_rows_are_the_batterys():
+    bufs, data = S.build_events(3000, 0, 1024)
+    assert len(bufs) == 3 and len(data["tags"]) == 3000
+    assert np.all(np.diff(data["ts"]) >= 0)
+    assert data["ts"].min() >= S.EVENTS_NOW - 2 * S.DAY
+    assert data["ts"].max() < S.EVENTS_NOW
+    lengths = [len(t) for t in data["tags"]]
+    assert min(lengths) == 0 and max(lengths) == 4
+    assert all(0 <= x < 20 for t in data["tags"] for x in t)
+    assert np.all(data["score"] * 8 == np.round(data["score"] * 8))
+    assert data["score"].min() >= 0 and data["score"].max() < 10
+    cols = [c["type"] for c in S.EVENTS_SCHEMA_JSON["columns"]]
+    assert cols == ["Uint32", "Uint32", "ArrayInt32", "Float32"]
+    assert S.EVENTS_ROWS == 16 * S.EVENTS_SCHEMA_JSON["config"]["batchSize"]
+
+
+def test_phase_events_recovers_and_answers_alike(cpu_rehearsal, monkeypatch,
+                                                capsys):
+    """E1 and E2 through a MemStore, then again after recovery: K2 on
+    every live batch and archive chunk (the archived day cut into two
+    chunks), the answers exactly equal to the CPU run, the oracle and,
+    after recovery, the first answers."""
+    from aresdb_tpu_torch.query import executor as X
+
+    monkeypatch.setattr(X.ShardExecutor, "ARCHIVE_CHUNK_ROWS", 8192)
+    launches, _ = S.phase_events(20_000, 0, warm=1, device="cpu",
+                                 batch_rows=4096)
+    out = capsys.readouterr().out
+    assert "live batches 3, archive chunks 2" in out
+    assert "a new MemStore recovered in" in out
+    # two stages x two queries x two runs x five batches
+    assert launches == {"K1": 0, "K2": 2 * 2 * 2 * 5, "K3": 0}
+    for name in ("E1", "E2", "E1 recovered", "E2 recovered"):
         assert f"{name}: cuda result matches the cpu run" in out
 
 

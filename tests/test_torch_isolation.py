@@ -1,6 +1,8 @@
 """The PyTorch port (`aresdb_tpu_torch`) stands alone.
 
-It imports neither JAX nor the JAX package, its entry points default to
+It imports neither JAX, the JAX package nor `ml_dtypes` (which the JAX
+package's geo module loads and the GPU machine lacks), its entry points
+default to
 the GPU and refuse to fall back to the CPU silently, and its kernel
 wrappers take their plain versions only for tensors on the CPU.
 """
@@ -30,21 +32,28 @@ for name in names:
 import chip_smoke, kernel_ab
 bad = [n for n in sys.modules
        if n == "jax" or n.startswith("jax.")
-       or n == "aresdb_tpu" or n.startswith("aresdb_tpu.")]
+       or n == "aresdb_tpu" or n.startswith("aresdb_tpu.")
+       or n == "ml_dtypes" or n.startswith("ml_dtypes.")]
 assert not bad, bad
 print(len(names))
 """
 
 
 def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
+    """Every module, the geo, MemStore and redo-log modules included."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20   # every module was imported
+    for name in ("query/geo.py", "memstore/memstore.py",
+                 "memstore/host_memory.py", "redolog/manager.py",
+                 "redolog/file_redolog.py", "redolog/kafka.py"):
+        assert (PORT / name).is_file(), name
 
 
 _FORBIDDEN = (re.compile(r"\bimport jax\b|\bfrom jax\b"),
-              re.compile(r"(from|import) aresdb_tpu(\.|\s)"))
+              re.compile(r"(from|import) aresdb_tpu(\.|\s)"),
+              re.compile(r"\bimport ml_dtypes\b|\bfrom ml_dtypes\b"))
 
 
 def _port_files():
