@@ -81,6 +81,14 @@ SMALL_K_FULL_FETCH = 4096  # sort tables at/below this capacity fetch whole
                            # with their group counts (one copy)
 
 
+def _check_deadline(plan) -> None:
+    """Per-batch query-timeout check: `plan.deadline` (unix seconds,
+    stamped by QueryService._admit) has passed."""
+    dl = getattr(plan, "deadline", None)
+    if dl and time.time() > dl:
+        raise QueryError("query timed out")
+
+
 class DeviceColumnCache:
     """LRU cache of staged device column tensors.
 
@@ -510,6 +518,7 @@ class ShardExecutor:
                             continue
                         if plan.to_ts and tmin >= plan.to_ts:
                             continue
+            _check_deadline(plan)
             staged = self._stage_live_batch(schema, batch, n, used,
                                             stat_keys)
             M.root().count(M.QUERY_LIVE_BATCH_PROCESSED, 1)
@@ -528,6 +537,7 @@ class ShardExecutor:
         else:
             day_ids = version.get_batch_ids_for_range(0, 0)
         for day in day_ids:
+            _check_deadline(plan)
             ab = version.request_batch(day)
             for staged in self._stage_archive_batch(schema, ab, used,
                                                     stat_keys, plan):

@@ -8,19 +8,24 @@ columns, SQL statements (`handle_sql`) and multi-measure composite
 queries (`_run_composite`). The store is anything that offers
 `get_schemas()` and `get_table_shard(name, shard_id)`, as `ShardExecutor`
 uses it: a `MemStore` recovered from its redo log
-(`memstore/memstore.py`), or a plain table-shard holder.
+(`memstore/memstore.py`), or a plain table-shard holder. A query may
+pass an admission gate on device memory (`admission.DeviceMemoryManager`)
+and carry a deadline that the executor checks before each batch.
 
-Not ported yet: the JAX package's mesh batches (the port runs every
-batch on its one device), admission and the query deadline.
+Not ported yet: the JAX package's device pool and mesh batches (the port
+runs every batch on its one device).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 from aresdb_tpu_torch.query import composite as C
 from aresdb_tpu_torch.query import hll_wire as W
+from aresdb_tpu_torch.query.admission import (AdmissionError,
+                                              estimate_query_memory)
 from aresdb_tpu_torch.query.aql import AQLQuery
 from aresdb_tpu_torch.query.compiler import Compiler, QueryError
 from aresdb_tpu_torch.query.executor import ShardExecutor
@@ -31,26 +36,41 @@ from aresdb_tpu_torch.utils.torch_env import resolve_device
 
 
 class QueryService:
-    def __init__(self, memstore, device=None, timezone_table: str = ""):
+    def __init__(self, memstore, device=None, timezone_table: str = "",
+                 device_manager=None, admission_timeout: float = -1,
+                 query_timeout: float = 0):
         """device: where the query kernels run; `cuda` unless the caller
         passes another (`"cpu"` runs every kernel's plain version).
         timezone_table: the table that `timezone(join_key)` queries join
-        for each row's timezone (reference query.timezone_table)."""
+        for each row's timezone (reference query.timezone_table).
+        device_manager: optional DeviceMemoryManager admission gate
+        (query/device_manager.go FindDeviceForQuery). admission_timeout:
+        seconds to wait for device memory (device_choosing_timeout).
+        query_timeout: per-query execution deadline in seconds (0 = off)."""
         self.memstore = memstore
         self.timezone_table = timezone_table
         self.device = resolve_device(device)
         self.executor = ShardExecutor(memstore, self.device)
+        self.device_manager = device_manager
+        self.admission_timeout = admission_timeout
+        self.query_timeout = query_timeout
 
-    def handle_aql(self, request: Dict[str, Any]) -> Dict[str, Any]:
+    def handle_aql(self, request: Dict[str, Any], data_only: bool = False,
+                   device: int = -1,
+                   admission_timeout: Optional[float] = None
+                   ) -> Dict[str, Any]:
         """Process an AQLRequest JSON dict; returns an AQLResponse-shaped
-        dict. A true `dataonly` keeps enum dimensions as untranslated ranks
-        (reference `?dataonly=1`)."""
+        dict. data_only, or a true `dataonly` in the request, keeps enum
+        dimensions as untranslated ranks (reference `?dataonly=1`).
+        device: preferred device index (`?device=`); with one device it
+        is accepted and ignored. admission_timeout: per-request seconds
+        to wait for device memory (`?timeout=`)."""
         results: List[Dict[str, Any]] = []
         errors: List[Any] = []
         contexts: List[Any] = []
         had_error = False
         verbose = bool(request.get("verbose") or request.get("debug"))
-        data_only = bool(request.get("dataonly"))
+        data_only = data_only or bool(request.get("dataonly"))
         for qd in request.get("queries", []):
             try:
                 q = AQLQuery.from_json(qd)
@@ -59,11 +79,12 @@ class QueryService:
                     errors.append(None)
                     contexts.append(None)
                     continue
-                result, plan = self._run(q, data_only=data_only)
+                result, plan = self._run(q, data_only=data_only,
+                                         admission_timeout=admission_timeout)
                 results.append(result)
                 errors.append(None)
                 contexts.append(plan.stats)
-            except (QueryError, KeyError, ValueError) as e:
+            except (QueryError, AdmissionError, KeyError, ValueError) as e:
                 results.append({})
                 errors.append(str(e))
                 contexts.append(None)
@@ -93,9 +114,10 @@ class QueryService:
                 # binary responses need the register rows; JSON queries
                 # fetch only per-group estimator sums
                 plan.hll_registers = True
-                table, _ = self.executor.execute(plan)
+                with self._admit(plan):
+                    table, _ = self.executor.execute(plan)
                 out.write_result(W.serialize_result_table(plan, table))
-            except (QueryError, KeyError, ValueError) as e:
+            except (QueryError, AdmissionError, KeyError, ValueError) as e:
                 out.write_error(str(e))
         return out.get_bytes()
 
@@ -118,7 +140,8 @@ class QueryService:
                     results.append(result)
                     contexts.append(plan.stats)
                 errors.append(None)
-            except (QueryError, SQLParseError, KeyError, ValueError) as e:
+            except (QueryError, AdmissionError, SQLParseError, KeyError,
+                    ValueError) as e:
                 results.append({})
                 errors.append(str(e))
                 contexts.append(None)
@@ -147,15 +170,42 @@ class QueryService:
         except C.CompositeError as e:
             raise QueryError(str(e)) from e
 
-    def _run(self, q: AQLQuery, data_only: bool = False):
+    def _admit(self, plan, timeout: Optional[float] = None):
+        """Stamp the query deadline, and reserve device memory for the
+        plan's estimated footprint for the duration of execution
+        (FindDeviceForQuery + deferred release); the reservation is a
+        no-op without a device manager."""
+        if self.query_timeout > 0:
+            plan.deadline = time.time() + self.query_timeout
+        if self.device_manager is None:
+            return contextlib.nullcontext()
+        reserved = estimate_query_memory(plan, self.memstore)
+        plan.memory_required = reserved
+        if timeout is None or timeout <= 0:
+            timeout = self.admission_timeout
+        self.device_manager.reserve(reserved, timeout=timeout)
+
+        @contextlib.contextmanager
+        def _held():
+            try:
+                yield
+            finally:
+                self.device_manager.release(reserved)
+        return _held()
+
+    def _run(self, q: AQLQuery, data_only: bool = False,
+             admission_timeout: Optional[float] = None):
         compiler = Compiler(self.memstore.get_schemas(),
                             timezone_table=self.timezone_table)
         t0 = time.perf_counter()
         plan = compiler.compile(q)
         plan.data_only = data_only
         compile_s = time.perf_counter() - t0
-        table, rows = self.executor.execute(plan)
+        with self._admit(plan, timeout=admission_timeout):
+            table, rows = self.executor.execute(plan)
         plan.stats["compile"] = compile_s
+        if getattr(plan, "memory_required", None) is not None:
+            plan.stats["memoryRequired"] = plan.memory_required
         t0 = time.perf_counter()
         if plan.is_non_agg:
             result = build_non_agg_result(plan, rows)

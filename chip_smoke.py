@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (`aresdb_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py [--rows N] [--atrips-rows M] [--events-rows E]
-                          [--seed S]
+                          [--server-rows R] [--seed S]
 
 Builds the port's hand-written CUDA kernels from `aresdb_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card at the main
@@ -92,6 +92,26 @@ Then the store is closed and a new `MemStore` recovers from the same
 directory (archive metadata, then the redo log), timed, and E1 and E2 run
 again: equal to the first answers exactly, to the CPU run and to the
 oracle.
+
+The daemon (`phase_server`): `cmd.aresd.build_server` over a temporary
+root on `cuda`, its scheduler on and the port's clock frozen at the TPU
+battery's NOW, fed over HTTP as tools/drive_tpu_server.py:11-67 feeds the
+JAX package's server: R rows (default 8,388,608, four upserts of
+2,097,152 POSTed by two producer threads) of the battery's trips table
+and its 300 cities. The battery's 14 trips shapes (B1-B14: sum by hour x
+city, avg by status, HLL of id overall and by city, the join count, the
+listing, the two SQL forms, the sums with no dimensions, count by city,
+the numeric bucket, case and IN, calendar dimensions and the 200k-group
+sort path) run over HTTP, one cold and five warm runs each with K1's and
+K2's launches asserted, each against a numpy oracle (counts and HLL
+estimates exactly, sums within the battery's 1e-4) and the CPU service
+(the HLL shapes also as application/hll frames, byte for byte), timed
+beside QueryService.handle_aql; then 8 client threads x 20 requests, each
+answer equal to its serial one; the admission gate's budget (0.95 x the
+card's memory) and the deadline; the clock moved 14 hours on and the
+archiving job run through /dbg/trips/0/archiving (about half the rows),
+the 14 shapes again; then the daemon stopped, a new one recovered from
+the root (timed), and B1 and B14 equal their first answers.
 
 Kernels and what they replace:
   K1 fused_dense  (csrc/fused_dense_template.cuh, one row function emitted
@@ -969,30 +989,39 @@ def listing_oracle(data, limit: int) -> list:
     return rows
 
 
+def hll_estimates(hashed: np.ndarray, groups: np.ndarray, keys) -> dict:
+    """{key(g): hll.compute_estimate} of each group's registers, built
+    from the rows' 64-bit hashes with np.maximum.at."""
+    from aresdb_tpu_torch.query import hll as H
+
+    n_groups = int(groups.max()) + 1
+    regs = np.zeros(n_groups * H.HLL_M, np.uint8)
+    hv = H.hll_value_from_hash(hashed)
+    rho = np.minimum(hv >> 16, 254).astype(np.uint8) + 1
+    np.maximum.at(regs, groups * H.HLL_M + (hv & (H.HLL_M - 1)), rho)
+    regs = regs.reshape(n_groups, H.HLL_M)
+    return {keys(g): H.compute_estimate(regs[g])
+            for g in np.unique(groups).tolist()}
+
+
 def hll_oracle(data, name: str) -> tuple:
     """H1's or H2's answer from the ingested data with numpy: each row's
-    hash (hll.murmur3_64 of request_at, or the XOR of the UUID's lanes),
-    its HLL value, the registers by np.maximum.at and
-    hll.compute_estimate; and each group's exact distinct count. Returns
+    hash (hll.murmur3_64 of request_at, or the XOR of the UUID's lanes)
+    through hll_estimates; and each group's exact distinct count. Returns
     ({group: estimate}, {group: exact count})."""
     from aresdb_tpu_torch.query import hll as H
 
     by_city = name == "H1"
-    n_groups = N_CITIES + 1 if by_city else 1
-    regs = np.zeros(n_groups * H.HLL_M, np.uint8)
-    distinct = []
+    hashed, groups, distinct = [], [], []
     for b in data:
         if by_city:
-            hashed = H.murmur3_64(b["request_at"], 4)
+            hashed.append(H.murmur3_64(b["request_at"], 4))
             g = np.where(b["city_valid"], b["city_id"], 0).astype(np.int64)
             distinct.append((g << 32) | b["request_at"].astype(np.int64))
         else:   # every trip's key is distinct
-            hashed = b["uuid"][:, 0] ^ b["uuid"][:, 1]
-            g = np.zeros(len(hashed), np.int64)
-        hv = H.hll_value_from_hash(hashed)
-        rho = np.minimum(hv >> 16, 254).astype(np.uint8) + 1
-        np.maximum.at(regs, g * H.HLL_M + (hv & (H.HLL_M - 1)), rho)
-    regs = regs.reshape(n_groups, H.HLL_M)
+            hashed.append(b["uuid"][:, 0] ^ b["uuid"][:, 1])
+            g = np.zeros(len(b["uuid"]), np.int64)
+        groups.append(g)
     if by_city:
         uniq = np.unique(np.concatenate(distinct))
         gs, counts = np.unique(uniq >> 32, return_counts=True)
@@ -1001,7 +1030,8 @@ def hll_oracle(data, name: str) -> tuple:
         counts = np.array([sum(len(b["uuid"]) for b in data)])
     key = (lambda g: "NULL" if g == 0 else str(g)) if by_city \
         else (lambda g: "")
-    estimates = {key(g): H.compute_estimate(regs[g]) for g in gs.tolist()}
+    estimates = hll_estimates(np.concatenate(hashed), np.concatenate(groups),
+                              key)
     return estimates, {key(g): int(c) for g, c in zip(gs.tolist(), counts)}
 
 
@@ -1454,9 +1484,8 @@ def atrips_layout(shard, chunk_rows: int) -> dict:
     chunks = {day: [round_up_pow2(min(chunk_rows, b.size - lo))
                     for lo in range(0, b.size, chunk_rows)]
               for day, b in sorted(days.items())}
-    last = max(chunks)
     return {"live": live, "chunks": [n for c in chunks.values() for n in c],
-            "last_day": chunks[last]}
+            "last_day": chunks[max(chunks)] if chunks else []}
 
 
 def atrips_launches(name: str, runs: int, layout: dict) -> dict:
@@ -1839,6 +1868,529 @@ def phase_events(n_rows: int, seed: int, warm: int = 5, device=None,
     return totals, in_situ
 
 
+# the daemon's battery: tools/drive_tpu_server.py:11-213, over HTTP
+SERVER_NOW = 1_600_000_000
+SERVER_ROWS = 4 * BATCH_ROWS
+SERVER_TRIPS_JSON = {
+    "name": "trips",
+    "columns": [{"name": "request_at", "type": "Uint32"},
+                {"name": "id", "type": "Uint32"},
+                {"name": "city_id", "type": "Uint16"},
+                {"name": "status", "type": "SmallEnum"},
+                {"name": "fare", "type": "Float32"}],
+    "primaryKeyColumns": [1], "archivingSortColumns": [2],
+    "isFactTable": True,
+    "config": {"batchSize": BATCH_ROWS, "recordRetentionInDays": 0}}
+# the battery's 14 trips shapes (drive_tpu_server.py:80-209) in its
+# order: name -> (route, AQL query or SQL statement)
+SERVER_MODULUS = 200_000
+SERVER_FUSED = ("B1", "B2", "B10", "B11", "B12")   # dense plans: K1
+SERVER_HLL = ("B3", "B4")
+SERVER_SQL_NOW = f"aql_now(request_at, {SERVER_NOW})"
+SERVER_CONCURRENT = (8, 20)   # client threads, requests each
+
+
+def server_queries() -> dict:
+    def q(measure, dims=(), filters=(), **extra):
+        return {"table": "trips", "now": SERVER_NOW,
+                "measures": [{"sqlExpression": measure,
+                              "rowFilters": list(filters)}],
+                "dimensions": [d if isinstance(d, dict)
+                               else {"sqlExpression": d} for d in dims],
+                **extra}
+
+    return {
+        "B1": ("aql", q("sum(fare)", [{"sqlExpression": "request_at",
+                                       "timeBucketizer": "hour"},
+                                      "city_id"], ["status='completed'"])),
+        "B2": ("aql", q("avg(fare)", ["status"])),
+        "B3": ("aql", q("countdistincthll(id)")),
+        "B4": ("aql", q("countdistincthll(id)", ["city_id"])),
+        "B5": ("aql", q("count(*)", filters=["c.population > 200000"],
+                        joins=[{"table": "cities", "alias": "c",
+                                "conditions": ["c.id = city_id"]}])),
+        "B6": ("aql", {"table": "trips", "now": SERVER_NOW,
+                       "measures": [{"sqlExpression": "1"}],
+                       "dimensions": [{"sqlExpression": "fare"},
+                                      {"sqlExpression": "city_id"}],
+                       "rowFilters": ["status='rejected'"], "limit": 50}),
+        "B7": ("sql", "SELECT count(*) FROM trips WHERE fare > 25 AND "
+                      + SERVER_SQL_NOW),
+        "B8": ("aql", q("sum(fare)", filters=["status='completed'"])),
+        "B9": ("sql", "SELECT sum(fare) FROM trips WHERE " + SERVER_SQL_NOW),
+        "B10": ("aql", q("count(*)", ["city_id"])),
+        "B11": ("aql", q("sum(fare)", [{"sqlExpression": "fare",
+                                        "numericBucketizer": {
+                                            "bucketWidth": 5.0}}])),
+        "B12": ("aql", q("sum(case when status='completed' then fare "
+                         "else 0 end)", ["city_id"],
+                         ["status in ('completed', 'canceled')"])),
+        "B13": ("aql", q("sum(fare)", [{"sqlExpression": "request_at",
+                                        "timeBucketizer": "month"},
+                                       "city_id"])),
+        "B14": ("aql", q("sum(fare)", [f"id % {SERVER_MODULUS}"])),
+    }
+
+
+def server_rows(n_rows: int, seed: int) -> dict:
+    """The battery's trips draws (its seed 1 is `seed` + 1): times over
+    the 20 hours before SERVER_NOW, cities 0-299, 5% null fares."""
+    rng = np.random.RandomState(seed + 1)
+    n = n_rows
+    return {"request_at": (SERVER_NOW - rng.randint(0, 20 * 3600, n))
+            .astype(np.uint32),
+            "city_id": rng.randint(0, N_CITIES, n).astype(np.uint16),
+            "status": rng.randint(0, 3, n).astype(np.uint8),
+            "fare": (rng.rand(n) * 50).astype(np.float32),
+            "fare_valid": rng.rand(n) > 0.05,
+            "id": np.arange(n, dtype=np.uint32)}
+
+
+def server_upsert(data: dict, lo: int, hi: int) -> bytes:
+    """Rows [lo, hi) as the client's insert_columns sends them."""
+    from aresdb_tpu_torch.common import data_types as mdt
+    from aresdb_tpu_torch.common.upsert_batch import build_columnar_upsert
+
+    sl = slice(lo, hi)
+    return build_columnar_upsert(
+        [(0, mdt.Uint32, data["request_at"][sl], None, 0),
+         (1, mdt.Uint32, data["id"][sl], None, 0),
+         (2, mdt.Uint16, data["city_id"][sl], None, 0),
+         (3, mdt.SmallEnum, data["status"][sl], None, 0),
+         (4, mdt.Float32, data["fare"][sl], data["fare_valid"][sl], 0)],
+        hi - lo)
+
+
+def http(port: int, path: str, body=None, headers=None, method=None):
+    """The body of one request to the daemon (JSON parsed unless it is an
+    application/hll frame or another non-JSON body); raises unless 200."""
+    import urllib.request
+
+    data = body if body is None or isinstance(body, bytes) \
+        else json.dumps(body).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/{path}", data=data, method=method,
+        headers={"Content-Type": "application/json", **(headers or {})})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        out = r.read()
+        ctype = r.headers.get("Content-Type", "")
+    return json.loads(out) if ctype == "application/json" else out
+
+
+def ask_http(port: int, name: str, route: str, q, verbose: bool = False):
+    """(result, context or None) of one battery shape over HTTP."""
+    resp = http(port, f"query/{route}{'?verbose=1' if verbose else ''}",
+                {"queries": [q]})
+    if "errors" in resp:
+        raise AssertionError(f"{name} over HTTP: {resp['errors']}")
+    return resp["results"][0], (resp.get("context") or [None])[0]
+
+
+def check_server(name: str, answer, data: dict) -> None:
+    """A battery answer against numpy over the ingested rows: counts and
+    HLL estimates exactly, sums and averages within the battery's 1e-4
+    relative, the listing's rows among the rejected trips."""
+    from aresdb_tpu_torch.query import hll as H
+    from aresdb_tpu_torch.query.postprocess import format_float32
+
+    city, status = data["city_id"].astype(np.int64), data["status"]
+    valid = data["fare_valid"]
+    fare = data["fare"].astype(np.float64)
+
+    def close(got, want, what):
+        if abs(got - want) > max(1e-3, abs(want) * 1e-4):
+            raise AssertionError(f"{name}: {what} {got} against {want}")
+
+    def by_key(got: dict, want: dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{name}: {len(got)} groups against the "
+                                 f"oracle's {len(want)}")
+        for k, v in want.items():
+            close(got[k], v, k)
+
+    def sums(keys, sel, n):
+        return np.bincount(keys[sel], weights=fare[sel], minlength=n)
+
+    ok = valid & (status == 0)
+    if name == "B1":
+        hour = data["request_at"].astype(np.int64) // 3600
+        sel = status == 0
+        keys, inv = np.unique((hour * N_CITIES + city)[sel],
+                              return_inverse=True)
+        s = np.bincount(inv, weights=np.where(valid[sel], fare[sel], 0.0),
+                        minlength=len(keys))
+        want = {(time.strftime("%Y-%m-%d %H:00",
+                               time.gmtime(k // N_CITIES * 3600)),
+                 str(k % N_CITIES)): v for k, v in zip(keys.tolist(),
+                                                      s.tolist())}
+        by_key(flatten(answer), want)
+    elif name == "B2":
+        want = {}
+        for i, s in enumerate(STATUSES):
+            sel = valid & (status == i)
+            want[s] = fare[sel].mean()
+        by_key(answer, want)
+    elif name in SERVER_HLL:
+        ids = data["id"]
+        g = city if name == "B4" else np.zeros(len(ids), np.int64)
+        want = hll_estimates(H.murmur3_64(ids, 4), g,
+                             str if name == "B4" else (lambda _: ""))
+        if answer != want:
+            raise AssertionError(f"{name}: estimates differ from the numpy "
+                                 "oracle's")
+        exact = np.bincount(g)
+        worst = max(abs(answer[str(c) if name == "B4" else ""] / n - 1)
+                    for c, n in enumerate(exact) if n)
+        if worst > (0.1 if name == "B4" else 0.05):   # the battery's bounds
+            raise AssertionError(f"{name}: an estimate {worst:.3%} off")
+    elif name == "B5":
+        if answer != {"": float((city >= 200).sum())}:
+            raise AssertionError(f"B5: {answer}")
+    elif name == "B6":
+        rows = answer["matrixData"]
+        if answer["headers"] != ["fare", "city_id"] or len(rows) != 50:
+            raise AssertionError(f"B6: {answer['headers']}, {len(rows)} rows")
+        for f, c in rows:
+            hit = np.flatnonzero((status == 2) & (city == int(c)))
+            fares = {format_float32(x) if v else "NULL" for x, v in
+                     zip(data["fare"][hit].tolist(), valid[hit].tolist())}
+            if f not in fares:
+                raise AssertionError(f"B6: ({f}, {c}) is no rejected trip")
+    elif name == "B7":
+        if answer != {"": float((valid & (data["fare"] > 25)).sum())}:
+            raise AssertionError(f"B7: {answer}")
+    elif name == "B8":
+        close(answer[""], fare[ok].sum(), "sum")
+    elif name == "B9":
+        close(answer[""], fare[valid].sum(), "sum")
+    elif name == "B10":
+        counts = np.bincount(city, minlength=N_CITIES)
+        want = {str(c): float(n) for c, n in enumerate(counts) if n}
+        if answer != want:
+            raise AssertionError("B10: counts differ from the oracle's")
+    elif name == "B11":
+        bucket = np.floor(data["fare"][valid] / 5.0).astype(np.int64)
+        s = np.bincount(bucket, weights=fare[valid])
+        want = {b * 5.0: v for b, v in enumerate(s.tolist())
+                if (bucket == b).any()}
+        got = {float(k): v for k, v in answer.items() if k != "NULL"}
+        by_key(got, want)
+        if (~valid).any() and answer.get("NULL") != 0.0:
+            raise AssertionError(f"B11: NULL bucket {answer.get('NULL')}")
+    elif name == "B12":
+        s = sums(city, ok, N_CITIES)
+        present = np.unique(city[status <= 1])
+        by_key(answer, {str(c): s[c] for c in present.tolist()})
+    elif name == "B13":
+        if len(answer) != 1:
+            raise AssertionError(f"B13: months {sorted(answer)}")
+        (by_city,) = answer.values()
+        s = sums(city, valid, N_CITIES)
+        by_key(by_city, {str(c): s[c] for c in np.unique(city).tolist()})
+    elif name == "B14":
+        key = data["id"].astype(np.int64) % SERVER_MODULUS
+        s = np.bincount(key[valid], weights=fare[valid],
+                        minlength=SERVER_MODULUS)
+        present = np.unique(key)
+        if len(answer) != len(present):
+            raise AssertionError(f"B14: {len(answer)} groups against "
+                                 f"{len(present)}")
+        got = np.array([answer[str(k)] for k in present.tolist()])
+        bad = np.abs(got - s[present]) > np.maximum(1e-3,
+                                                    np.abs(s[present]) * 1e-4)
+        if bad.any():
+            raise AssertionError(f"B14: {int(bad.sum())} sums off the "
+                                 "oracle's")
+
+
+def same_server_answer(name: str, got, want) -> None:
+    """Counts, listings and HLL answers exactly; sums within RTOL/ATOL."""
+    if name in SERVER_HLL + ("B5", "B6", "B7", "B10"):
+        if got != want:
+            raise AssertionError(f"{name}: answers differ")
+    else:
+        same_result(name, got, want)
+
+
+def server_launches(name: str, runs: int, layout: dict) -> dict:
+    """Each kernel's launches over `runs` runs of a battery shape: K1 on
+    every batch and chunk of at least FD_MIN_ROWS padded rows of a dense
+    plan, and on the others the unfused kernel's K2 (B2's four slots, three
+    statuses and null, reduce with masked sums instead); K2 on every batch
+    and chunk of the calendar shape (unfused); no kernel for HLL, the
+    listing, the plans with no dimensions and the 200k groups of the sort
+    path."""
+    from aresdb_tpu_torch.query import fused_dense as FD
+
+    every = layout["live"] + layout["chunks"]
+    k1 = sum(n >= FD.FD_MIN_ROWS for n in every)
+    if name in SERVER_FUSED:
+        small = 0 if name == "B2" else len(every) - k1
+        return {"K1": runs * k1, "K2": runs * small, "K3": 0}
+    if name == "B13":
+        return {"K1": 0, "K2": runs * len(every), "K3": 0}
+    return {"K1": 0, "K2": 0, "K3": 0}
+
+
+def query_seconds(metrics) -> float:
+    """The daemon's query-latency timer so far, summed over its tags: each
+    /query/* request's service call, its hop to the query pool included."""
+    from aresdb_tpu_torch.utils import metrics as M
+
+    name = M.CATALOG[M.QUERY_LATENCY].name
+    return sum(t["sum"] for k, t in metrics.snapshot()["timers"].items()
+               if k.split("{")[0] == name)
+
+
+def shut_down(server, memstore, scheduler) -> None:
+    """Stop a daemon of build_server and close its store."""
+    server.stop()
+    scheduler.stop()
+    close_memstore(memstore)
+
+
+def phase_server(n_rows: int, seed: int, warm: int = 5, device=None,
+                 batch_rows: int = BATCH_ROWS) -> tuple:
+    """The daemon (cmd.aresd.build_server over a temporary root, its
+    scheduler on, the port's clock frozen at SERVER_NOW) fed over HTTP as
+    tools/drive_tpu_server.py feeds the JAX package's: n_rows battery
+    trips as upserts of batch_rows, POSTed by two producer threads, and
+    the 300 cities. Then the battery's 14 trips shapes: each answered once
+    by the CPU service over the same store, then one cold and `warm` warm
+    runs over HTTP (each kernel's launches set to 0 just before and read
+    just after; a K1 row function that a plan needs compiles inside its
+    cold run, as a daemon's user meets it), each answer against the numpy
+    oracle and the CPU's (the HLL shapes also as application/hll frames,
+    byte for byte), each request timed at the client and, from the
+    daemon's query-latency timer, in its service call. Then
+    8 client threads x 20 requests of the shapes, each answer equal to
+    its serial one; the admission gate's state; the deadline; the clock
+    moved to SERVER_NOW + 14 h and the archiving job run through
+    /dbg/trips/0/archiving (about half the rows archive), the shapes
+    again against the oracle; then the daemon stopped and a new one built
+    over the root, and B1 and B14 again, equal to their first answers.
+    Returns each kernel's launches over the serial runs, and {} per
+    kernel (no in-situ times)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from aresdb_tpu_torch.cmd import aresd
+    from aresdb_tpu_torch.common.config import AresServerConfig
+    from aresdb_tpu_torch.query import admission as A
+    from aresdb_tpu_torch.query import executor as X
+    from aresdb_tpu_torch.query.service import QueryService
+    from aresdb_tpu_torch.utils import clock
+
+    counters = kernel_counters()
+    totals = dict.fromkeys(counters, 0)
+    runs = 1 + warm
+    queries = server_queries()
+    data = server_rows(n_rows, seed)
+    clock.set_current_time(SERVER_NOW)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            cfg = AresServerConfig.load(None, {"root_path": root, "port": 0})
+            server, ms, sched = aresd.build_server(cfg, device=device)
+            port = server.start_background()
+            dev = server.ctx.device
+            trips = dict(SERVER_TRIPS_JSON,
+                         config={"batchSize": batch_rows,
+                                 "recordRetentionInDays": 0})
+            http(port, "schema/tables", trips)
+            http(port, "schema/tables", CITIES_SCHEMA_JSON)
+            http(port, "schema/tables/trips/columns/status/enum-cases",
+                 {"enumCases": STATUSES})
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(2) as producers:
+                stats = list(producers.map(
+                    lambda lo: http(port, "data/trips/0", server_upsert(
+                        data, lo, min(lo + batch_rows, n_rows))),
+                    range(0, n_rows, batch_rows)))
+            ingest_s = time.perf_counter() - t0
+            if sum(s["inserted"] for s in stats) != n_rows:
+                raise AssertionError(f"server: inserted {stats}")
+            from aresdb_tpu_torch.common import data_types as mdt
+            from aresdb_tpu_torch.common.upsert_batch import \
+                build_columnar_upsert
+            http(port, "data/cities/0", build_columnar_upsert(
+                [(0, mdt.Uint16, np.arange(N_CITIES, dtype=np.uint16), None,
+                  0),
+                 (1, mdt.Uint32, (np.arange(N_CITIES, dtype=np.uint32) + 1)
+                  * 1000, None, 0)], N_CITIES))
+            print(f"server: {n_rows} rows ingested over HTTP by 2 producers "
+                  f"in {ingest_s:.3f} s ({n_rows / ingest_s:.0f} rows/s, "
+                  f"the upserts' wire build included)", flush=True)
+
+            store = server.ctx.memstore
+            shard = store.get_table_shard("trips")
+            cpu = QueryService(store, device="cpu")
+            metrics = server.ctx.metrics
+
+            def battery(stage: str) -> dict:
+                cpu_answers = {name: json.loads(json.dumps(
+                    ask(cpu, name, q)[0])) for name, (_, q) in queries.items()}
+                layout = atrips_layout(shard,
+                                       X.ShardExecutor.ARCHIVE_CHUNK_ROWS)
+                answers = {}
+                for name, (route, q) in queries.items():
+                    for c in counters.values():
+                        c.launches = 0
+                    times, svc = [], []
+                    for i in range(runs):
+                        s0 = query_seconds(metrics)
+                        t0 = time.perf_counter()
+                        answer, ctx = ask_http(port, name, route, q,
+                                               verbose=i == 0)
+                        times.append(time.perf_counter() - t0)
+                        svc.append(query_seconds(metrics) - s0)
+                        if i == 0:
+                            cold = sorted(((v, k) for k, v
+                                           in (ctx or {}).items()
+                                           if isinstance(v, float)),
+                                          reverse=True)[:3]
+                    got = {k: c.launches for k, c in counters.items()}
+                    want = server_launches(name, runs, layout)
+                    if got != want:
+                        raise AssertionError(f"{name}{stage}: launches {got},"
+                                             f" expected {want}")
+                    for k in totals:
+                        totals[k] += got[k]
+                    check_server(name, answer, data)
+                    same_server_answer(name, answer, cpu_answers[name])
+                    # the HTTP layer of one request: its time at the
+                    # client less its service call's, so never negative
+                    layer = [t - v for t, v in zip(times, svc)]
+                    if min(layer) < 0:
+                        raise AssertionError(f"{name}{stage}: a service call "
+                                             "outlasted its request")
+                    http_ms, svc_ms, layer_ms = (
+                        1e3 * float(np.median(x[1:]))
+                        for x in (times, svc, layer))
+                    size = (f"{len(answer['matrixData'])} rows" if name == "B6"
+                            else f"{len(flatten(answer))} groups")
+                    print(f"server {name}{stage}: cold {1e3 * times[0]:.3f} "
+                          f"ms (service call {1e3 * svc[0]:.3f} ms), warm "
+                          f"median {http_ms:.3f} ms over HTTP, its service "
+                          f"call {svc_ms:.3f} ms, HTTP layer {layer_ms:.3f} "
+                          f"ms, {size}, "
+                          f"launches " + " ".join(
+                              f"{k}={v}" for k, v in got.items())
+                          + "; the cold run's largest stages "
+                          + ", ".join(f"{k} {1e3 * v:.3f} ms"
+                                      for v, k in cold), flush=True)
+                    answers[name] = answer
+                print(f"server{stage}: live batches {len(layout['live'])}, "
+                      f"archive chunks {len(layout['chunks'])}; every shape "
+                      "equals the numpy oracle", flush=True)
+                return answers
+
+            first = battery("")
+            for name in SERVER_HLL:
+                request = {"queries": [queries[name][1]]}
+                wire = [http(port, "query/aql", request,
+                             {"Accept": "application/hll"}),
+                        cpu.handle_aql_hll(request)]
+                if wire[0] != wire[1]:
+                    raise AssertionError(f"{name}: application/hll bytes "
+                                         "differ from the cpu run's")
+                print(f"server {name}: application/hll frame of "
+                      f"{len(wire[0])} bytes, identical to the cpu run's",
+                      flush=True)
+
+            n_threads, per_thread = SERVER_CONCURRENT
+            order = list(queries)
+            latencies, errors = [], []
+
+            def client(i):
+                for j in range(per_thread):
+                    name = order[(i + j) % len(order)]
+                    t0 = time.perf_counter()
+                    try:
+                        answer, _ = ask_http(port, name, *queries[name])
+                        same_server_answer(name, answer, first[name])
+                    except Exception as e:  # noqa: BLE001 — reported below
+                        errors.append(f"{name}: {e}")
+                    latencies.append(time.perf_counter() - t0)
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(n_threads) as clients:
+                list(clients.map(client, range(n_threads)))
+            wall = time.perf_counter() - t0
+            if errors:
+                raise AssertionError(f"concurrent: {errors[:3]}")
+            lat = 1e3 * np.array(latencies)
+            print(f"server concurrent: {n_threads} threads x {per_thread} "
+                  f"requests in {wall:.3f} s, {len(lat) / wall:.3f} "
+                  f"queries/s, p50 {np.percentile(lat, 50):.3f} ms, p99 "
+                  f"{np.percentile(lat, 99):.3f} ms; every answer equals "
+                  "its serial one", flush=True)
+
+            budget = http(port, "dbg/device")
+            total = (torch.cuda.mem_get_info(dev)[1] if dev.type == "cuda"
+                     else A.CPU_MEMORY_BYTES)
+            if budget != {"budgetBytes": int(total * 0.95), "inUseBytes": 0,
+                          "running": 0, "waiting": 0}:
+                raise AssertionError(f"admission: {budget} with {total} "
+                                     "bytes on the device")
+            name = next(iter(queries))
+            _, ctx = ask_http(port, name, *queries[name], verbose=True)
+            if not ctx or ctx.get("memoryRequired", 0) <= 0:
+                raise AssertionError(f"admission: {name}'s context {ctx}")
+            late = QueryService(store, device=dev, query_timeout=1e-9)
+            resp = late.handle_aql({"queries": [queries[name][1]]}) \
+                if queries[name][0] == "aql" else \
+                late.handle_sql({"queries": [queries[name][1]]})
+            if resp.get("errors") != ["query timed out"]:
+                raise AssertionError(f"deadline: {resp}")
+            print(f"server admission: budget {budget['budgetBytes']} bytes "
+                  f"(0.95 x {total}), {name} requires "
+                  f"{ctx['memoryRequired']} bytes; in use 0, running 0 "
+                  "after the runs; a deadline of 1e-9 s answers 'query "
+                  "timed out'", flush=True)
+
+            # the scheduler would archive on its own at the next tick once
+            # the clock jumps: pause it so that the job runs once, here
+            sched.disable()
+            clock.set_current_time(SERVER_NOW + 14 * 3600)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                job = http(port, "dbg/trips/0/archiving", {})
+                if job["result"] is not None:
+                    break
+                time.sleep(1.0)   # a scheduler job held the shard's token
+            archive_s = time.perf_counter() - t0
+            sched.enable()
+            archived = job["result"]["rowsArchived"]
+            cutoff = SERVER_NOW + 14 * 3600 - DAY
+            want = int((data["request_at"] < cutoff).sum())
+            if archived != want:
+                raise AssertionError(f"archiving: {archived} rows, the "
+                                     f"cutoff {cutoff} holds {want}")
+            print(f"server: archived {archived} rows to {cutoff} in "
+                  f"{archive_s:.3f} s", flush=True)
+            battery(" archived")
+
+            shut_down(server, ms, sched)
+            t0 = time.perf_counter()
+            server, ms, sched = aresd.build_server(cfg, device=device)
+            port = server.start_background()
+            restart_s = time.perf_counter() - t0
+            try:
+                print(f"server: a new daemon recovered the root and "
+                      f"serves in {restart_s:.3f} s", flush=True)
+                for name in ("B1", "B14"):
+                    answer, _ = ask_http(port, name, *queries[name])
+                    same_server_answer(name + " restarted", answer,
+                                       first[name])
+                    check_server(name, answer, data)
+                print("server restarted: B1 and B14 equal their first "
+                      "answers", flush=True)
+            finally:
+                shut_down(server, ms, sched)
+    finally:
+        clock.reset_clock()
+    return totals, {k: {} for k in counters}
+
+
 MEASURED = ("max_abs_err", "ms", "kernel_ms", "wall_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
 
@@ -1862,6 +2414,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=16 * BATCH_ROWS)
     ap.add_argument("--atrips-rows", type=int, default=ATRIPS_ROWS)
     ap.add_argument("--events-rows", type=int, default=EVENTS_ROWS)
+    ap.add_argument("--server-rows", type=int, default=SERVER_ROWS)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1903,7 +2456,8 @@ def main(argv=None) -> int:
     launches, in_situ = phase_e2e(args.rows, args.seed)
     for phase_launches, phase_in_situ in (
             phase_atrips(args.atrips_rows, args.seed),
-            phase_events(args.events_rows, args.seed)):
+            phase_events(args.events_rows, args.seed),
+            phase_server(args.server_rows, args.seed)):
         for k in launches:
             launches[k] += phase_launches[k]
             in_situ[k].update(phase_in_situ[k])

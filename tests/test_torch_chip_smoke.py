@@ -315,3 +315,30 @@ def test_runlen_k2_inputs_are_one_weighted_run_a_slot():
                                   torch.from_numpy(vals), S.RT_DENSE_SLOTS)
         assert S.check_close(name, out.t(), out.t(), exact_rows=(1, 2)) == 0
         np.testing.assert_array_equal(out[kept].numpy(), vals[:live])
+
+
+def test_phase_server_runs_the_battery_over_http(cpu_rehearsal, capsys):
+    """The daemon over three batches of FD_MIN_ROWS battery trips: the 14
+    shapes over HTTP against the numpy oracle and the CPU service, the
+    HLL frames, 8 concurrent clients, the admission gate and the
+    deadline, archiving through /dbg (two archive chunks, one below
+    FD_MIN_ROWS), the shapes again and a restart. The launch counts
+    assert inside the phase; over both batteries: K1 on the five dense
+    shapes' batches and large chunk, K2 on the small chunk of four of
+    them (B2's four slots take masked sums) and on every batch and chunk
+    of the calendar shape."""
+    batch = FD.FD_MIN_ROWS
+    launches, _ = S.phase_server(3 * batch, 0, warm=1, device="cpu",
+                                 batch_rows=batch)
+    out = capsys.readouterr().out
+    assert "live batches 3, archive chunks 0" in out
+    assert "live batches 3, archive chunks 2" in out
+    assert out.count("every shape equals the numpy oracle") == 2
+    assert out.count(", HTTP layer ") == 2 * 14
+    assert "B4: application/hll frame of" in out
+    assert "every answer equals its serial one" in out
+    assert "answers 'query timed out'" in out
+    assert "B1 and B14 equal their first answers" in out
+    assert launches == {"K1": 2 * 5 * 3 + 2 * 5 * 4,
+                        "K2": 2 * 3 + 2 * 4 * 1 + 2 * 5, "K3": 0}
+    assert list(S.server_queries()) == [f"B{i}" for i in range(1, 15)]

@@ -1,9 +1,10 @@
 """The PyTorch port (`aresdb_tpu_torch`) stands alone.
 
 It imports neither JAX, the JAX package nor `ml_dtypes` (which the JAX
-package's geo module loads and the GPU machine lacks), its entry points
-default to
-the GPU and refuse to fall back to the CPU silently, and its kernel
+package's geo module loads), `tornado`, `requests` or `yaml` (which the
+JAX package's server, client and configuration load): the GPU machine
+has none of them. Its entry points default to the GPU and refuse to fall
+back to the CPU silently, and its kernel
 wrappers take their plain versions only for tensors on the CPU.
 """
 
@@ -31,23 +32,24 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke, kernel_ab
 bad = [n for n in sys.modules
-       if n == "jax" or n.startswith("jax.")
-       or n == "aresdb_tpu" or n.startswith("aresdb_tpu.")
-       or n == "ml_dtypes" or n.startswith("ml_dtypes.")]
+       if n.split(".")[0] in ("jax", "aresdb_tpu", "ml_dtypes", "tornado",
+                              "requests", "yaml")]
 assert not bad, bad
 print(len(names))
 """
 
 
 def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
-    """Every module, the geo, MemStore and redo-log modules included."""
+    """Every module, the geo, MemStore, redo-log, server and daemon modules
+    included."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20   # every module was imported
     for name in ("query/geo.py", "memstore/memstore.py",
                  "memstore/host_memory.py", "redolog/manager.py",
-                 "redolog/file_redolog.py", "redolog/kafka.py"):
+                 "redolog/file_redolog.py", "redolog/kafka.py",
+                 "api/server.py", "cmd/aresd.py", "query/admission.py"):
         assert (PORT / name).is_file(), name
 
 
