@@ -19,22 +19,18 @@ the JAX package runs them one at a time on its IOLoop.
 
 from __future__ import annotations
 
-import html
 import json
-import logging
 import os
-import re
 import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from http import HTTPStatus
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional
-from urllib.parse import parse_qs, unquote, urlsplit
+from typing import Any, Dict
 
 import torch
 
+from aresdb_tpu_torch.api.httpbase import (HTTPError, Handler, Service,
+                                           compile_routes)
 from aresdb_tpu_torch.common.schema import Table
 from aresdb_tpu_torch.common.upsert_batch import UpsertBatch
 from aresdb_tpu_torch.query.admission import DeviceMemoryManager
@@ -43,94 +39,9 @@ from aresdb_tpu_torch.utils import metrics as M
 from aresdb_tpu_torch.utils.torch_env import resolve_device
 
 QUERY_WORKERS = 8
-_LOG = logging.getLogger("aresdb_tpu_torch.api")
-_CONTROL_CHARS = re.compile(r"[\x00-\x08\x0e-\x1f]")
 
 
-class HTTPError(Exception):
-    """An error answered with tornado's HTML error page."""
-
-    def __init__(self, status: int, reason: Optional[str] = None):
-        super().__init__(status, reason)
-        self.status = status
-        self.reason = reason or HTTPStatus(status).phrase
-
-
-class _Request:
-    """One parsed HTTP request: method, path, arguments, headers, body."""
-
-    def __init__(self, method: str, target: str, headers, body: bytes):
-        parts = urlsplit(target)
-        self.method = method
-        self.path = parts.path
-        self.headers = headers
-        self.body = body
-        self.query_arguments = parse_qs(parts.query, keep_blank_values=True)
-        # tornado also reads arguments from a form-encoded body
-        self.arguments = {k: list(v) for k, v in
-                          self.query_arguments.items()}
-        ctype = headers.get("Content-Type", "")
-        if ctype.startswith("application/x-www-form-urlencoded"):
-            form = parse_qs(body.decode("utf-8", "replace"),
-                            keep_blank_values=True)
-            for k, v in form.items():
-                self.arguments.setdefault(k, []).extend(v)
-
-
-class _Base:
-    serialized = False   # True: runs under ServerContext.lock
-
-    def __init__(self, ctx, request: _Request):
-        self.ctx = ctx
-        self.request = request
-        self.status = 200
-        self.reason: Optional[str] = None
-        self.headers: Dict[str, str] = {
-            "Content-Type": "text/html; charset=UTF-8"}
-        self.body = b""
-        self.finished = False
-
-    def set_status(self, status: int, reason: Optional[str] = None):
-        self.status = status
-        self.reason = reason
-
-    def set_header(self, name: str, value: str):
-        self.headers[name] = value
-
-    def finish(self, chunk=None):
-        if chunk is not None:
-            self.body += chunk.encode() if isinstance(chunk, str) \
-                else bytes(chunk)
-        self.finished = True
-
-    def get_argument(self, name: str, default):
-        """The last value of a query or form argument, stripped."""
-        return self._argument(self.request.arguments, name, default)
-
-    def get_query_argument(self, name: str, default):
-        return self._argument(self.request.query_arguments, name, default)
-
-    @staticmethod
-    def _argument(source, name, default):
-        values = source.get(name)
-        if not values:
-            return default
-        return _CONTROL_CHARS.sub(" ", values[-1]).strip()
-
-    def write_json(self, obj, status: int = 200):
-        self.set_status(status)
-        self.set_header("Content-Type", "application/json")
-        self.finish(json.dumps(obj, default=str))
-
-    def write_error_json(self, status: int, message: str):
-        self.write_json({"message": message}, status=status)
-
-    def json_body(self) -> Dict[str, Any]:
-        try:
-            return json.loads(self.request.body or b"{}")
-        except json.JSONDecodeError as e:
-            raise HTTPError(400, f"invalid json: {e}")
-
+class _Base(Handler):
     def query_body(self) -> Dict[str, Any]:
         """Request body, with the `q` query parameter taking precedence —
         the reference's GET query form (api/common/query_request.go:46,
@@ -167,6 +78,7 @@ class ServerContext:
             utilization=util, default_timeout=choose_timeout,
             device=self.device)
         self.health_off = False
+        self.datanode = None   # the DataNode that runs this server, if any
         self.query_service = QueryService(memstore, device=self.device,
                                           timezone_table=timezone_table,
                                           device_manager=self.device_manager,
@@ -795,12 +707,15 @@ class DeviceCacheDebugHandler(_Base):
 
 class BootstrapRetryHandler(_Base):
     """Re-trigger peer bootstrap for shards the node failed to acquire
-    (reference api/debug_handler.go:97 bootstrapRetry); a single-node
-    server has none."""
+    (reference api/debug_handler.go:97 bootstrapRetry)."""
 
     def post(self):
-        return self.write_error_json(
-            404, "not running in distributed datanode mode")
+        node = self.ctx.datanode
+        if node is None:
+            return self.write_error_json(
+                404, "not running in distributed datanode mode")
+        retried = node.retry_bootstrap()
+        self.write_json({"retried": retried})
 
 
 class ProfilerHandler(_Base):
@@ -1317,130 +1232,19 @@ ROUTES = (
      PeerSnapshotFileHandler),
     (r"/peer/([^/]+)/(\d+)/redolog/(\d+)", PeerRedologHandler),
 )
-_COMPILED = [(re.compile(p), h) for p, h in ROUTES]
-_METHODS = ("get", "post", "put", "delete", "head")
+_COMPILED = compile_routes(ROUTES)
 
 
-def dispatch(ctx: ServerContext, request: _Request) -> _Base:
-    """Route one request (patterns matched in full, in order, first match
-    wins) and run its handler; returns the finished handler."""
-    t0 = time.perf_counter()
-    for pattern, cls in _COMPILED:
-        m = pattern.fullmatch(request.path)
-        if m is not None:
-            break
-    else:
-        cls, m = _Base, None
-    handler = cls(ctx, request)
-    try:
-        method = request.method.lower()
-        if m is None:
-            raise HTTPError(404)
-        if method not in _METHODS or not hasattr(cls, method):
-            raise HTTPError(405)
-        args = [None if g is None else unquote(g) for g in m.groups()]
-        if cls.serialized:
-            with ctx.lock:
-                getattr(handler, method)(*args)
-        else:
-            getattr(handler, method)(*args)
-        handler.finished = True
-    except HTTPError as e:
-        handler = _error_page(ctx, request, e.status, e.reason)
-    except Exception:  # noqa: BLE001 — a handler fault answers 500
-        _LOG.exception("%s %s", request.method, request.path)
-        handler = _error_page(ctx, request, 500, None)
-    if cls is not _Base:
-        # utils/metrics.go HTTPHandlerCall/Latency (per-handler tags)
-        name = cls.__name__
-        ctx.metrics.count(M.HTTP_HANDLER_CALL, 1, tags={"handler": name})
-        ctx.metrics.record_timer(M.HTTP_HANDLER_LATENCY,
-                                 time.perf_counter() - t0,
-                                 tags={"handler": name})
-    return handler
-
-
-def _error_page(ctx, request, status: int, reason: Optional[str]) -> _Base:
-    """tornado's default error page (RequestHandler.write_error)."""
-    page = _Base(ctx, request)
-    reason = reason or HTTPStatus(status).phrase
-    page.set_status(status, reason)
-    page.finish(f"<html><title>{status}: {html.escape(reason)}</title>"
-                f"<body>{status}: {html.escape(reason)}</body></html>")
-    return page
-
-
-class _HTTPHandler(BaseHTTPRequestHandler):
-    protocol_version = "HTTP/1.1"
-    server_version = "aresdb_tpu_torch"
-    # headers and body go out as two writes; as tornado does, send each
-    # at once rather than hold the body until the headers are acked
-    disable_nagle_algorithm = True
-
-    def _serve(self):
-        n = int(self.headers.get("Content-Length") or 0)
-        body = self.rfile.read(n) if n > 0 else b""
-        request = _Request(self.command, self.path, self.headers, body)
-        handler = dispatch(self.server.ctx, request)
-        self.send_response(handler.status, handler.reason)
-        for k, v in handler.headers.items():
-            self.send_header(k, v)
-        self.send_header("Content-Length", str(len(handler.body)))
-        self.end_headers()
-        if self.command != "HEAD":
-            self.wfile.write(handler.body)
-
-    do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = do_PATCH = \
-        do_OPTIONS = _serve
-
-    def log_message(self, format, *args):  # noqa: A002 — base signature
-        pass
-
-
-class _Server(ThreadingHTTPServer):
-    daemon_threads = True
-
-    def __init__(self, port: int, ctx: ServerContext):
-        super().__init__(("", port), _HTTPHandler)
-        self.ctx = ctx
-
-
-class ApiServer:
+class ApiServer(Service):
     """Embeddable server: used by cmd/aresd and by in-process tests.
     device: where queries run; `cuda` unless the caller asks for another."""
 
     def __init__(self, memstore, scheduler=None, port: int = 0,
                  timezone_table: str = "", query_config=None, device=None):
-        self.ctx = ServerContext(memstore, scheduler, timezone_table,
-                                 query_config=query_config, device=device)
-        self.port = port
-        self._server: Optional[_Server] = None
-        self._thread: Optional[threading.Thread] = None
-
-    def _bind(self) -> _Server:
-        self._server = _Server(self.port, self.ctx)
-        self.port = self._server.server_address[1]
-        return self._server
-
-    def start_background(self) -> int:
-        """Start serving on a background thread; returns the bound port
-        (a free one where the port given is 0)."""
-        server = self._bind()
-        self._thread = threading.Thread(target=server.serve_forever,
-                                        daemon=True, name="ares-http")
-        self._thread.start()
-        return self.port
+        super().__init__(ServerContext(memstore, scheduler, timezone_table,
+                                       query_config=query_config,
+                                       device=device), _COMPILED, port)
 
     def stop(self):
-        if self._server is not None:
-            self._server.shutdown()
-            self._server.server_close()
-        if self._thread is not None:
-            self._thread.join(timeout=5)
+        self.shutdown()
         self.ctx.close()
-
-    def serve_forever(self):
-        try:
-            self._bind().serve_forever()
-        finally:
-            self._server.server_close()

@@ -3,9 +3,12 @@
 Reference: cmd/aresd/cmd/cmd.go:129-371 — metastore + diskstore + redolog +
 memstore construction, schema fetch, shard recovery, scheduler start, HTTP
 serving. Port of `aresdb_tpu/cmd/aresd.py`; queries run on `cuda` unless
-`--device cpu` is given. Distributed (datanode) mode is not ported yet.
+`--device cpu` is given. With `--controller` the daemon is a datanode of
+a cluster (run_datanode).
 
     python -m aresdb_tpu_torch.cmd.aresd --port 9374 --root-path ares-root
+    python -m aresdb_tpu_torch.cmd.aresd --port 0 --root-path dn0-root \
+        --controller localhost:9474 --namespace prod --instance dn0
 """
 
 from __future__ import annotations
@@ -48,6 +51,46 @@ def build_server(cfg, device=None):
     return server, memstore, scheduler
 
 
+def run_datanode(cfg, device=None) -> int:
+    """Distributed mode (reference: cmd/aresd cluster flow — etcd advertise
+    + topology watch replaced by the HTTP controller): the node registers
+    with the controller, polls placement for its shard set, bootstraps
+    shards from peers, and serves queries for its shards on `device`."""
+    from aresdb_tpu_torch.datanode.datanode import DataNode
+    from aresdb_tpu_torch.diskstore.local_diskstore import LocalDiskStore
+    from aresdb_tpu_torch.memstore.memstore import MemStore
+    from aresdb_tpu_torch.memstore.scheduler import Scheduler
+    from aresdb_tpu_torch.metastore.disk_metastore import DiskMetaStore
+
+    memstore = MemStore(DiskMetaStore(cfg.root_path),
+                        LocalDiskStore(cfg.root_path),
+                        total_memory_bytes=cfg.total_memory_size)
+    scheduler = Scheduler(memstore)
+    if not cfg.scheduler_off:
+        scheduler.start()
+        scheduler.enable()
+    node = DataNode(
+        memstore, scheduler,
+        controller_address=cfg.cluster.controller_address,
+        namespace=cfg.cluster.namespace,
+        instance_name=cfg.cluster.instance_name,
+        port=cfg.port,
+        heartbeat_seconds=cfg.cluster.heartbeat_interval_seconds,
+        device=device)
+    port = node.open()
+    node.serve()
+    print(f"aresd datanode {cfg.cluster.instance_name!r} serving on :{port} "
+          f"(namespace={cfg.cluster.namespace}, "
+          f"controller={cfg.cluster.controller_address}, "
+          f"device={node.server.ctx.device})", file=sys.stderr, flush=True)
+    try:
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        node.close()
+        scheduler.stop()
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="aresd", description=__doc__)
     p.add_argument("--config", help="YAML config file")
@@ -55,7 +98,7 @@ def main(argv=None) -> int:
     p.add_argument("--root-path", dest="root_path", help="data root directory")
     p.add_argument("--scheduler-off", action="store_true", default=None)
     p.add_argument("--controller", help="controller host:port "
-                   "(distributed datanode mode; not ported yet)")
+                   "(enables distributed datanode mode)")
     p.add_argument("--namespace", help="cluster namespace")
     p.add_argument("--instance", help="instance name in the placement")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -80,9 +123,7 @@ def main(argv=None) -> int:
     cfg = AresServerConfig.load(args.config, overrides)
 
     if cfg.cluster.enable and cfg.cluster.distributed:
-        print("aresd: distributed datanode mode is not ported yet; run "
-              "without --controller", file=sys.stderr)
-        return 2
+        return run_datanode(cfg, device=args.device)
 
     server, memstore, scheduler = build_server(cfg, device=args.device)
     port = server.start_background()

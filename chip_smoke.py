@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (`aresdb_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py [--rows N] [--atrips-rows M] [--events-rows E]
-                          [--server-rows R] [--seed S]
+                          [--server-rows R] [--cluster-rows C] [--seed S]
 
 Builds the port's hand-written CUDA kernels from `aresdb_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card at the main
@@ -113,6 +113,19 @@ archiving job run through /dbg/trips/0/archiving (about half the rows),
 the 14 shapes again; then the daemon stopped, a new one recovered from
 the root (timed), and B1 and B14 equal their first answers.
 
+The cluster (`phase_cluster`): the port's controller, two datanodes on
+`cuda` in this process and a broker, 4 shards at replica factor 1; C
+rows (default R, the same rows) of the battery's trips, one upsert a
+shard, POSTed to the shards' owners by two producers, and the cities to
+shard 0's owner. The 14 shapes through the broker, one cold and five
+warm runs each, against the oracle and phase_server's answers, with K1's
+and K2's launches on the datanodes asserted (B5, the join, fails on the
+node without shard 0 of cities, as in the JAX cluster); archiving on each
+owner with the clock 14 hours on; a third datanode started as a process
+of its own (`cmd.aresd --controller`) replaces one of them and
+bootstraps its shards from it (timed, with the bytes it copied); the 14
+shapes again, equal to their first answers.
+
 Kernels and what they replace:
   K1 fused_dense  (csrc/fused_dense_template.cuh, one row function emitted
                    per plan) <- aresdb_tpu/query/fused_dense.py _make_kernel
@@ -143,7 +156,9 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2169,8 +2184,10 @@ def phase_server(n_rows: int, seed: int, warm: int = 5, device=None,
     /dbg/trips/0/archiving (about half the rows archive), the shapes
     again against the oracle; then the daemon stopped and a new one built
     over the root, and B1 and B14 again, equal to their first answers.
-    Returns each kernel's launches over the serial runs, and {} per
-    kernel (no in-situ times)."""
+    Returns each kernel's launches over the serial runs, {} per kernel
+    (no in-situ times), and the first battery's answers and warm medians
+    over HTTP in ms ({"answers": ..., "warm_ms": ...}, by shape), which
+    phase_cluster holds the cluster against."""
     from concurrent.futures import ThreadPoolExecutor
 
     from aresdb_tpu_torch.cmd import aresd
@@ -2225,6 +2242,8 @@ def phase_server(n_rows: int, seed: int, warm: int = 5, device=None,
             cpu = QueryService(store, device="cpu")
             metrics = server.ctx.metrics
 
+            warm_ms = {}
+
             def battery(stage: str) -> dict:
                 cpu_answers = {name: json.loads(json.dumps(
                     ask(cpu, name, q)[0])) for name, (_, q) in queries.items()}
@@ -2267,6 +2286,8 @@ def phase_server(n_rows: int, seed: int, warm: int = 5, device=None,
                         for x in (times, svc, layer))
                     size = (f"{len(answer['matrixData'])} rows" if name == "B6"
                             else f"{len(flatten(answer))} groups")
+                    if not stage:
+                        warm_ms[name] = http_ms
                     print(f"server {name}{stage}: cold {1e3 * times[0]:.3f} "
                           f"ms (service call {1e3 * svc[0]:.3f} ms), warm "
                           f"median {http_ms:.3f} ms over HTTP, its service "
@@ -2388,6 +2409,378 @@ def phase_server(n_rows: int, seed: int, warm: int = 5, device=None,
                 shut_down(server, ms, sched)
     finally:
         clock.reset_clock()
+    return totals, {k: {} for k in counters}, {"answers": first,
+                                               "warm_ms": warm_ms}
+
+
+# the cluster of README.md:71-92 and tests/test_distributed.py:58-106: a
+# controller, datanodes dn0 and dn1 over 4 shards at replica factor 1, a
+# broker, then dn2 in dn1's place
+CLUSTER_NS = "battery"
+CLUSTER_SHARDS = 4
+CLUSTER_JOIN = "B5"
+# the listing concatenates each node's rows up to its limit: which rows
+# come back depends on the nodes, so it is held to the oracle alone
+CLUSTER_LISTING = "B6"
+# the broker forgets an unhealthy mark after this many seconds (its
+# default is 30), so that the shapes after B5's failure run on both nodes
+CLUSTER_UNHEALTHY_TTL = 1.0
+# B5 through the broker: the node without shard 0 of cities fails it
+# (ROADMAP section 3)
+CLUSTER_B5_ERROR = re.compile(r"datanode localhost:\d+ failed after 3 "
+                              r"tries: \"no shard 0 for table 'cities'\"")
+
+
+def cluster_launches(name: str, runs: int, layout: dict) -> dict:
+    """server_launches over the shards' batches and chunks; the broker
+    splits B2's avg into a sum and a count, two dense plans."""
+    want = server_launches(name, runs, layout)
+    return {k: 2 * v for k, v in want.items()} if name == "B2" else want
+
+
+def shards_layout(nodes) -> dict:
+    """atrips_layout over every shard of trips that the nodes own."""
+    from aresdb_tpu_torch.query import executor as X
+
+    out = {"live": [], "chunks": []}
+    for node in nodes:
+        for sid in sorted(node.owned_shards):
+            part = atrips_layout(node.memstore.get_table_shard("trips", sid),
+                                 X.ShardExecutor.ARCHIVE_CHUNK_ROWS)
+            out["live"] += part["live"]
+            out["chunks"] += part["chunks"]
+    return out
+
+
+def wait_for(pred, what: str, timeout: float, proc=None, log=None):
+    """Poll pred until it holds; fail on the timeout, or as soon as `proc`
+    exits, with its standard error."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"{what}: the process exited with "
+                                 f"{proc.returncode}:\n{''.join(log)}")
+        if pred():
+            return
+        time.sleep(0.1)
+    raise AssertionError(f"timed out waiting for {what}"
+                         + (f":\n{''.join(log)}" if log else ""))
+
+
+def bootstrap_metrics(port: int) -> tuple:
+    """(seconds, bytes) of a datanode's peer bootstraps, summed over its
+    tables and shards, from its /metrics: each copy's total time and its
+    rate (datanode/bootstrap.py)."""
+    from aresdb_tpu_torch.utils import metrics as M
+
+    snap = http(port, "metrics")
+    rate_name = M.CATALOG[M.RAW_VP_FETCH_BYTES_PER_SEC].name
+    time_name = M.CATALOG[M.TOTAL_RAW_VP_FETCH_TIME].name
+    seconds = nbytes = 0.0
+    for key, timer in snap["timers"].items():
+        name, _, tags = key.partition("{")
+        if name == time_name:
+            seconds += timer["sum"]
+            nbytes += timer["sum"] * snap["gauges"][f"{rate_name}{{{tags}"]
+    return seconds, nbytes
+
+
+def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
+                  device=None, batch_rows: int = BATCH_ROWS) -> tuple:
+    """Distributed mode on the card: the port's controller over a
+    temporary root; two datanodes in this process (dn0, dn1, each over a
+    root of its own, the scheduler on, the port's clock frozen at
+    SERVER_NOW); the broker over a DynamicTopology. The controller gets
+    the namespace, the battery's trips and cities and the enum cases; the
+    placement puts 4 shards at replica factor 1 over dn0 and dn1. The
+    n_rows battery trips of phase_server (the same seed, so the same rows)
+    go in as one upsert a shard, each a contiguous quarter, POSTed to its
+    owner by two producer threads; the cities go to the owner of shard 0,
+    where a joined table is read from. Then the 14 shapes through the
+    broker: one cold and `warm` warm runs each (B5 once, last: the node
+    without shard 0 of cities fails it and the broker marks the node
+    unhealthy, ROADMAP section 3, so its answer is held to that error and
+    the phase waits out the mark), each answer against the numpy oracle
+    and `single` (phase_server's serial answers, unless it is None; the
+    listing, B6, against the oracle alone), B3 and B4 also as
+    application/hll frames whose estimates equal the single daemon's (or
+    the broker's JSON answer), and each kernel's launches on the
+    datanodes asserted. Then the clock moves 14 hours and each owner
+    archives its shards through /dbg; a third datanode, dn2, starts as a
+    process of its own (cmd.aresd --controller, its scheduler off, since
+    its clock is the wall's), replaces dn1 through the controller, and
+    bootstraps dn1's shards from it (archive batches and redo logs, then
+    recovery); the shapes run again, equal to their first answers (B6 to
+    the oracle alone), with launches asserted on dn0 (dn2 counts in its
+    own process). Returns each kernel's launches over the serial runs on
+    this process's datanodes, and {} per kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from aresdb_tpu_torch.broker.server import BrokerServer
+    from aresdb_tpu_torch.broker.validator import BrokerSchemaView
+    from aresdb_tpu_torch.cluster.topology import (DynamicTopology,
+                                                   HealthTrackingTopology)
+    from aresdb_tpu_torch.common import data_types as mdt
+    from aresdb_tpu_torch.common.upsert_batch import build_columnar_upsert
+    from aresdb_tpu_torch.controller.server import ControllerServer
+    from aresdb_tpu_torch.controller.state import ControllerState
+    from aresdb_tpu_torch.datanode.datanode import DataNode
+    from aresdb_tpu_torch.diskstore.local_diskstore import LocalDiskStore
+    from aresdb_tpu_torch.memstore.memstore import MemStore
+    from aresdb_tpu_torch.memstore.scheduler import Scheduler
+    from aresdb_tpu_torch.metastore.disk_metastore import DiskMetaStore
+    from aresdb_tpu_torch.query import hll_wire as W
+    from aresdb_tpu_torch.utils import clock
+    from aresdb_tpu_torch.utils.torch_env import resolve_device
+
+    dev = resolve_device(device)
+    counters = kernel_counters()
+    totals = dict.fromkeys(counters, 0)
+    runs = 1 + warm
+    queries = server_queries()
+    order = [n for n in queries if n != CLUSTER_JOIN] + [CLUSTER_JOIN]
+    data = server_rows(n_rows, seed)
+    ns = CLUSTER_NS
+    stack = []   # what to stop, last first
+    clock.set_current_time(SERVER_NOW)
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            ctrl = ControllerServer(ControllerState(f"{root}/ctrl"))
+            cport = ctrl.start_background()
+            stack.append(ctrl.stop)
+            caddr = f"localhost:{cport}"
+            trips = dict(SERVER_TRIPS_JSON,
+                         config={"batchSize": batch_rows,
+                                 "recordRetentionInDays": 0})
+            http(cport, "namespaces", {"namespace": ns})
+            http(cport, f"schema/{ns}/tables", trips)
+            http(cport, f"schema/{ns}/tables", CITIES_SCHEMA_JSON)
+            http(cport, f"schema/{ns}/tables/trips/columns/status/"
+                        "enum-cases", {"enumCases": STATUSES})
+            nodes = {}
+            for name in ("dn0", "dn1"):
+                ms = MemStore(DiskMetaStore(f"{root}/{name}"),
+                              LocalDiskStore(f"{root}/{name}"))
+                node = DataNode(ms, Scheduler(ms), controller_address=caddr,
+                                namespace=ns, instance_name=name,
+                                heartbeat_seconds=1.0, poll_seconds=0.5,
+                                device=dev)
+                node.open()
+                stack.append(lambda n=node: (n.close(),
+                                             close_memstore(n.memstore)))
+                node.serve()
+                nodes[name] = node
+
+            def placement():
+                return http(cport, f"placement/{ns}/datanode")["shards"]
+
+            def settled(owners) -> bool:
+                return all(set(sd["instances"]) <= owners and
+                           set(sd["instances"].values()) == {"Available"}
+                           for sd in placement())
+
+            def owner_port(sid: int) -> int:
+                (name,) = [n for sd in placement() if sd["shardId"] == sid
+                           for n in sd["instances"]]
+                return nodes[name].port
+
+            http(cport, f"placement/{ns}/datanode",
+                 {"numShards": CLUSTER_SHARDS, "replicaFactor": 1,
+                  "instances": ["dn0", "dn1"]})
+            wait_for(lambda: settled({"dn0", "dn1"}), "the placement", 120)
+
+            quarter = n_rows // CLUSTER_SHARDS
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(2) as producers:
+                stats = list(producers.map(
+                    lambda sid: http(owner_port(sid), f"data/trips/{sid}",
+                                     server_upsert(data, sid * quarter,
+                                                   (sid + 1) * quarter)),
+                    range(CLUSTER_SHARDS)))
+            ingest_s = time.perf_counter() - t0
+            if sum(s["inserted"] for s in stats) != n_rows:
+                raise AssertionError(f"cluster: inserted {stats}")
+            http(owner_port(0), "data/cities/0", build_columnar_upsert(
+                [(0, mdt.Uint16, np.arange(N_CITIES, dtype=np.uint16), None,
+                  0),
+                 (1, mdt.Uint32, (np.arange(N_CITIES, dtype=np.uint32) + 1)
+                  * 1000, None, 0)], N_CITIES))
+            print(f"cluster: {n_rows} rows ingested over HTTP into "
+                  f"{CLUSTER_SHARDS} shards on 2 datanodes by 2 producers in "
+                  f"{ingest_s:.3f} s ({n_rows / ingest_s:.0f} rows/s, the "
+                  "upserts' wire build included)", flush=True)
+
+            topology = DynamicTopology(caddr, ns, poll_seconds=0.5)
+            topology.start()
+            stack.append(topology.stop)
+            schema_view = BrokerSchemaView(caddr, ns, poll_seconds=1.0)
+            schema_view.start()
+            stack.append(schema_view.stop)
+            broker = BrokerServer(HealthTrackingTopology(
+                topology, unhealthy_ttl_seconds=CLUSTER_UNHEALTHY_TTL),
+                schema_view=schema_view)
+            bport = broker.start_background()
+            stack.append(broker.stop)
+
+            def battery(stage: str, local) -> dict:
+                """The shapes through the broker; launches asserted on the
+                datanodes of this process, `local`."""
+                layout = shards_layout(local)
+                answers = {}
+                for name in order:
+                    route, q = queries[name]
+                    for c in counters.values():
+                        c.launches = 0
+                    times = []
+                    for _ in range(1 if name == CLUSTER_JOIN else runs):
+                        t0 = time.perf_counter()
+                        resp = http(bport, f"query/{route}", {"queries": [q]})
+                        times.append(time.perf_counter() - t0)
+                    got = {k: c.launches for k, c in counters.items()}
+                    want = cluster_launches(name, len(times), layout)
+                    if got != want:
+                        raise AssertionError(f"cluster {name}{stage}: "
+                                             f"launches {got}, expected "
+                                             f"{want}")
+                    for k in totals:
+                        totals[k] += got[k]
+                    if name == CLUSTER_JOIN:
+                        errors = resp.get("errors") or [""]
+                        if resp["results"] != [{}] or not \
+                                CLUSTER_B5_ERROR.fullmatch(errors[0]):
+                            raise AssertionError(f"cluster B5{stage}: {resp}")
+                        time.sleep(CLUSTER_UNHEALTHY_TTL + 0.2)
+                        print(f"cluster B5{stage}: {1e3 * times[0]:.3f} ms, "
+                              f"the reference cluster's answer: {errors[0]}",
+                              flush=True)
+                        answers[name] = resp
+                        continue
+                    if "errors" in resp:
+                        raise AssertionError(f"cluster {name}{stage}: "
+                                             f"{resp['errors']}")
+                    answer = resp["results"][0]
+                    check_server(name, answer, data)
+                    warm_ms = 1e3 * float(np.median(times[1:]))
+                    one = ""
+                    if single is not None:
+                        if name != CLUSTER_LISTING:
+                            same_server_answer(name, answer,
+                                               single["answers"][name])
+                        ms = single["warm_ms"][name]
+                        one = (f", one daemon's {ms:.3f} ms (scatter-gather "
+                               f"cost {warm_ms - ms:.3f} ms)")
+                    size = (f"{len(answer['matrixData'])} rows" if name == "B6"
+                            else f"{len(flatten(answer))} groups")
+                    print(f"cluster {name}{stage}: cold {1e3 * times[0]:.3f} "
+                          f"ms, warm median {warm_ms:.3f} ms through the "
+                          f"broker{one}, {size}, launches "
+                          + " ".join(f"{k}={v}" for k, v in got.items()),
+                          flush=True)
+                    answers[name] = answer
+                for name in SERVER_HLL:
+                    frame = http(bport, "query/aql",
+                                 {"queries": [queries[name][1]]},
+                                 {"Accept": "application/hll"})
+                    results, errors = W.parse_hll_query_results(frame)
+                    estimate = json.loads(json.dumps(
+                        W.compute_hll_result(results[0])))
+                    want, whose = (
+                        (answers[name], "JSON answer") if single is None
+                        else (single["answers"][name], "single daemon's"))
+                    if errors != [None] or estimate != want:
+                        raise AssertionError(f"cluster {name}{stage}: the "
+                                             "frame's estimates differ from "
+                                             f"the {whose}")
+                    print(f"cluster {name}{stage}: application/hll frame of "
+                          f"{len(frame)} bytes, its estimates equal the "
+                          f"{whose}", flush=True)
+                print(f"cluster{stage}: live batches {len(layout['live'])}, "
+                      f"archive chunks {len(layout['chunks'])} on this "
+                      "process's datanodes; every shape equals the numpy "
+                      "oracle and the single daemon", flush=True)
+                return answers
+
+            first = battery("", [nodes["dn0"], nodes["dn1"]])
+
+            # as phase_server: pause the schedulers while the clock jumps,
+            # so that archiving runs once, here
+            for node in nodes.values():
+                node.scheduler.disable()
+            clock.set_current_time(SERVER_NOW + 14 * 3600)
+            t0 = time.perf_counter()
+            archived = 0
+            for sid in range(CLUSTER_SHARDS):
+                for _ in range(10):
+                    job = http(owner_port(sid), f"dbg/trips/{sid}/archiving",
+                               {})
+                    if job["result"] is not None:
+                        break
+                    time.sleep(1.0)   # a scheduler job held the token
+                archived += job["result"]["rowsArchived"]
+            archive_s = time.perf_counter() - t0
+            for node in nodes.values():
+                node.scheduler.enable()
+            cutoff = SERVER_NOW + 14 * 3600 - DAY
+            want = int((data["request_at"] < cutoff).sum())
+            if archived != want:
+                raise AssertionError(f"cluster archiving: {archived} rows, "
+                                     f"the cutoff {cutoff} holds {want}")
+            print(f"cluster: archived {archived} rows to {cutoff} on "
+                  f"{CLUSTER_SHARDS} shards in {archive_s:.3f} s", flush=True)
+
+            log = []
+            t_start = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "aresdb_tpu_torch.cmd.aresd",
+                 "--controller", caddr, "--namespace", ns, "--instance",
+                 "dn2", "--device", dev.type, "--root-path", f"{root}/dn2",
+                 "--port", "0", "--scheduler-off"],
+                cwd=str(Path(__file__).resolve().parent),
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            stack.append(lambda: (proc.terminate(), proc.wait(timeout=60)))
+            reader = threading.Thread(target=lambda: log.extend(proc.stderr),
+                                      daemon=True)
+            reader.start()
+            wait_for(lambda: any(" serving on :" in line for line in log),
+                     "dn2 to serve", 600, proc, log)
+            serving_s = time.perf_counter() - t_start
+            (line,) = [x for x in log if " serving on :" in x]
+            port2 = int(line.split(" on :")[1].split()[0])
+            t0 = time.perf_counter()
+            http(cport, f"placement/{ns}/datanode/replace",
+                 {"leaving": "dn1", "joining": "dn2"})
+            wait_for(lambda: settled({"dn0", "dn2"})
+                     and not nodes["dn1"].owned_shards,
+                     "dn2 to take over dn1's shards", 900, proc, log)
+            replace_s = time.perf_counter() - t0
+            topology.refresh()
+            boot_s, boot_bytes = bootstrap_metrics(port2)
+            if boot_bytes <= 0:
+                raise AssertionError(f"cluster: dn2 copied {boot_bytes} "
+                                     "bytes")
+            print(f"cluster: dn2 (a process of its own, device "
+                  f"{dev.type}) served {serving_s:.3f} s after its start; "
+                  f"replacing dn1 took {replace_s:.3f} s to all shards "
+                  f"Available ({serving_s + replace_s:.3f} s from dn2's "
+                  f"start); its peer bootstrap copied {boot_bytes / 1e6:.3f} "
+                  f"MB in {boot_s:.3f} s ({boot_bytes / 1e6 / boot_s:.3f} "
+                  "MB/s)", flush=True)
+            again = battery(" migrated", [nodes["dn0"]])
+            for name in order:
+                if name not in (CLUSTER_JOIN, CLUSTER_LISTING):
+                    same_server_answer(name + " migrated", again[name],
+                                       first[name])
+            print("cluster migrated: every shape but the listing equals its "
+                  "first answer", flush=True)
+            if proc.poll() is not None:
+                raise AssertionError(f"dn2 exited:\n{''.join(log)}")
+        finally:
+            for stop in reversed(stack):
+                try:
+                    stop()
+                except Exception as e:  # noqa: BLE001 — stop the rest
+                    print(f"cluster: stopping: {e!r}", file=sys.stderr)
+            clock.reset_clock()
     return totals, {k: {} for k in counters}
 
 
@@ -2415,6 +2808,10 @@ def main(argv=None) -> int:
     ap.add_argument("--atrips-rows", type=int, default=ATRIPS_ROWS)
     ap.add_argument("--events-rows", type=int, default=EVENTS_ROWS)
     ap.add_argument("--server-rows", type=int, default=SERVER_ROWS)
+    ap.add_argument("--cluster-rows", type=int, default=SERVER_ROWS,
+                    help="phase_cluster's rows; held against "
+                         "phase_server's answers where equal to "
+                         "--server-rows")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2454,10 +2851,13 @@ def main(argv=None) -> int:
     k1 = phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
                   device, args.seed)
     launches, in_situ = phase_e2e(args.rows, args.seed)
-    for phase_launches, phase_in_situ in (
-            phase_atrips(args.atrips_rows, args.seed),
-            phase_events(args.events_rows, args.seed),
-            phase_server(args.server_rows, args.seed)):
+    phases = [phase_atrips(args.atrips_rows, args.seed),
+              phase_events(args.events_rows, args.seed)]
+    *server, single = phase_server(args.server_rows, args.seed)
+    phases += [server, phase_cluster(
+        args.cluster_rows, args.seed,
+        single if args.cluster_rows == args.server_rows else None)]
+    for phase_launches, phase_in_situ in phases:
         for k in launches:
             launches[k] += phase_launches[k]
             in_situ[k].update(phase_in_situ[k])

@@ -12,6 +12,7 @@ import json
 import subprocess
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -185,11 +186,94 @@ def _same(a, b):
         assert a == b
 
 
-def test_main_refuses_distributed_mode(tmp_path, capsys):
-    rc = aresd.main(["--controller", "localhost:1", "--root-path",
-                     str(tmp_path), "--device", "cpu"])
-    assert rc != 0
-    assert "not ported yet" in capsys.readouterr().err
+def _serving_port(proc, prefix: str) -> int:
+    """The port a daemon's start-up line on stderr names."""
+    line = proc.stderr.readline()
+    assert line.startswith(prefix), line
+    return int(line.split(" on :")[1].split()[0])
+
+
+def _until(fn, what: str, timeout: float = 60.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        out = fn()
+        if out:
+            return out
+        time.sleep(0.1)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+def test_main_runs_a_datanode_with_a_controller(tmp_path):
+    """The three daemons as a user starts them: `cmd.controller --port 0`,
+    `cmd.aresd --controller ... --device cpu` (main -> run_datanode) and
+    `cmd.broker --port 0`. The datanode registers with the controller,
+    takes the shards the placement gives it, answers /health and the
+    bootstrap retry, and the broker answers /health and a count over both
+    shards; the controller, as the JAX package's, has no /health."""
+    procs = []
+
+    def start(module, *args):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"aresdb_tpu_torch.cmd.{module}", *args],
+            cwd=ROOT, stderr=subprocess.PIPE, text=True)
+        procs.append(proc)
+        return proc
+
+    try:
+        cport = _serving_port(start("controller", "--port", "0",
+                                    "--root-path", str(tmp_path / "ctrl")),
+                              "ares-controller serving on :")
+        assert _call(cport, "leader", method="GET") == {"mode": "single",
+                                                        "isLeader": True}
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _call(cport, "health", method="GET")
+        assert e.value.code == 404
+        _call(cport, "namespaces", {"namespace": "ns"})
+        _call(cport, "schema/ns/tables", TRIPS)
+        _call(cport, "schema/ns/tables/aresd_trips/columns/status/"
+                     "enum-cases", {"enumCases": ["completed"]})
+        node = start("aresd", "--controller", f"localhost:{cport}",
+                     "--namespace", "ns", "--instance", "dnx", "--port", "0",
+                     "--device", "cpu", "--root-path", str(tmp_path / "dn"),
+                     "--scheduler-off")
+        nport = _serving_port(node, "aresd datanode 'dnx' serving on :")
+        _until(lambda: "dnx" in _call(cport, "membership/ns/instances",
+                                      method="GET"), "the registration")
+        _call(cport, "placement/ns/datanode",
+              {"numShards": 2, "replicaFactor": 1, "instances": ["dnx"]})
+        _until(lambda: all(set(sd["instances"].values()) == {"Available"}
+                           for sd in _call(cport, "placement/ns/datanode",
+                                           method="GET")["shards"]),
+               "the shards to turn Available")
+        for shard, ids in ((0, np.arange(0, 30)), (1, np.arange(30, 50))):
+            n = len(ids)
+            _call(nport, f"data/aresd_trips/{shard}", build_columnar_upsert(
+                [(0, mdt.Uint32, np.full(n, NOW - 60, np.uint32), None, 0),
+                 (1, mdt.Uint32, ids.astype(np.uint32), None, 0),
+                 (2, mdt.Uint16, np.zeros(n, np.uint16), None, 0),
+                 (3, mdt.SmallEnum, np.zeros(n, np.uint8), None, 0),
+                 (4, mdt.Float32, np.ones(n, np.float32), None, 0)], n))
+        with urllib.request.urlopen(f"http://127.0.0.1:{nport}/health",
+                                    timeout=30) as r:
+            assert r.read() == b"OK"
+        assert _call(nport, "dbg/bootstrap/retry") == {"retried": []}
+        bport = _serving_port(start("broker", "--port", "0", "--controller",
+                                    f"localhost:{cport}", "--namespace",
+                                    "ns"), "ares-broker serving on :")
+        with urllib.request.urlopen(f"http://127.0.0.1:{bport}/health",
+                                    timeout=30) as r:
+            assert r.read() == b"OK"
+        count = {"queries": [_q("count(*)")]}
+        assert _until(lambda: "errors" not in _call(bport, "query/aql",
+                                                    count),
+                      "the broker's topology")
+        assert _call(bport, "query/aql", count) == {"results": [{"": 50.0}]}
+        assert all(p.poll() is None for p in procs)
+    finally:
+        for proc in procs:
+            proc.terminate()
+            proc.wait(timeout=30)
+            proc.stderr.close()
 
 
 def test_the_module_starts_and_serves_health(tmp_path):

@@ -328,8 +328,10 @@ def test_phase_server_runs_the_battery_over_http(cpu_rehearsal, capsys):
     them (B2's four slots take masked sums) and on every batch and chunk
     of the calendar shape."""
     batch = FD.FD_MIN_ROWS
-    launches, _ = S.phase_server(3 * batch, 0, warm=1, device="cpu",
-                                 batch_rows=batch)
+    launches, _, single = S.phase_server(3 * batch, 0, warm=1, device="cpu",
+                                         batch_rows=batch)
+    assert sorted(single["answers"]) == sorted(single["warm_ms"]) == \
+        sorted(S.server_queries())
     out = capsys.readouterr().out
     assert "live batches 3, archive chunks 0" in out
     assert "live batches 3, archive chunks 2" in out
@@ -342,3 +344,37 @@ def test_phase_server_runs_the_battery_over_http(cpu_rehearsal, capsys):
     assert launches == {"K1": 2 * 5 * 3 + 2 * 5 * 4,
                         "K2": 2 * 3 + 2 * 4 * 1 + 2 * 5, "K3": 0}
     assert list(S.server_queries()) == [f"B{i}" for i in range(1, 15)]
+
+
+def test_phase_cluster_runs_the_battery_through_the_broker(cpu_rehearsal,
+                                                           capsys):
+    """The cluster over four batches of FD_MIN_ROWS battery trips, one a
+    shard, held against phase_server's answers over the same rows: the 14
+    shapes through the broker against the numpy oracle and the single
+    daemon (B5 the reference cluster's error), the HLL frames, archiving
+    on each owner, dn2 started as a process of its own on the CPU in dn1's
+    place, its peer bootstrap, and the shapes again. The launch counts
+    assert inside the phase: before the migration K1 on the dense shapes'
+    four batches (twice for B2, the broker's sum and count) and K2 on the
+    calendar shape's; after it, dn0's two live batches and four archive
+    chunks (each shard's archived rows span two days; below FD_MIN_ROWS,
+    so K2 on the dense shapes but B2)."""
+    batch = FD.FD_MIN_ROWS
+    _, _, single = S.phase_server(4 * batch, 0, warm=1, device="cpu",
+                                  batch_rows=batch)
+    capsys.readouterr()
+    launches, _ = S.phase_cluster(4 * batch, 0, single, warm=1,
+                                  device="cpu", batch_rows=batch)
+    out = capsys.readouterr().out
+    assert out.count("every shape equals the numpy oracle and the single "
+                     "daemon") == 2
+    assert out.count("the reference cluster's answer: datanode") == 2
+    assert out.count("its estimates equal the single daemon's") == 4
+    assert "its peer bootstrap copied" in out
+    assert "every shape but the listing equals its first answer" in out
+    assert "live batches 4, archive chunks 0 on this process's" in out
+    assert "live batches 2, archive chunks 4 on this process's" in out
+    # runs x batches x (B1, B10, B11, B12, and B2 twice); K2: B13 on every
+    # batch and chunk, the four dense shapes on the small chunks
+    assert launches == {"K1": 2 * 4 * (4 + 2) + 2 * 2 * (4 + 2),
+                        "K2": 2 * 4 + 2 * 4 * 4 + 2 * (2 + 4), "K3": 0}

@@ -41,7 +41,8 @@ print(len(names))
 
 def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
     """Every module, the geo, MemStore, redo-log, server and daemon modules
-    included."""
+    included, and the cluster's: controller, datanode, broker and the HTTP
+    client that stands in for `requests`."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -49,7 +50,11 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
     for name in ("query/geo.py", "memstore/memstore.py",
                  "memstore/host_memory.py", "redolog/manager.py",
                  "redolog/file_redolog.py", "redolog/kafka.py",
-                 "api/server.py", "cmd/aresd.py", "query/admission.py"):
+                 "api/server.py", "cmd/aresd.py", "query/admission.py",
+                 "api/httpbase.py", "controller/server.py",
+                 "broker/server.py", "datanode/datanode.py",
+                 "datanode/bootstrap.py", "utils/http_client.py",
+                 "cmd/controller.py", "cmd/broker.py"):
         assert (PORT / name).is_file(), name
 
 
