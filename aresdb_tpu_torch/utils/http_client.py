@@ -6,7 +6,8 @@ so the port's copies of them talk through this module, on the standard
 library. It keeps what those call sites see of `requests`:
 
 - `Session.request/get/post/put/delete(url, json=, data=, headers=,
-  timeout=)`;
+  timeout=)`, and the module's `request`, `get` and `post`, as
+  `requests.request/get/post` (arescli calls them on the module);
 - a `Response` for every answer, 4xx and 5xx included (callers branch on
   404, 410 and 503), with `status_code`, `content`, `text`, `headers`,
   `json()` and `raise_for_status()`;
@@ -127,3 +128,16 @@ class Session:
 
     def delete(self, url: str, **kw) -> Response:
         return self.request("DELETE", url, **kw)
+
+
+def request(method: str, url: str, **kw) -> Response:
+    """requests.request: one request on a Session of its own."""
+    return Session().request(method, url, **kw)
+
+
+def get(url: str, **kw) -> Response:
+    return request("GET", url, **kw)
+
+
+def post(url: str, **kw) -> Response:
+    return request("POST", url, **kw)

@@ -10,8 +10,9 @@ the run-length path's weighted per-run rows and, through its
 global-atomic kernel, nine channels; K3 also on one real Q5
 batch's slots and values, and on that batch with a NaN and an inf), and
 asserts which `__global__` function each K2 and K3 case ran,
-then drives the main paths end to end: N rows (default 32M,
-16 live batches of 2,097,152) of the demo trips table are ingested through
+then drives the main paths end to end: N rows (default 16M,
+8 live batches of 2,097,152; cut from 32M to keep the whole run near
+650 s beside the stream phase) of the demo trips table are ingested through
 the upsert wire format into a `TableShard`, and these queries run through
 `QueryService.handle_aql` on `cuda`, each checked against the same
 service on the CPU (the kernels' plain versions):
@@ -95,10 +96,10 @@ oracle.
 
 The daemon (`phase_server`): `cmd.aresd.build_server` over a temporary
 root on `cuda`, its scheduler on and the port's clock frozen at the TPU
-battery's NOW, fed over HTTP as tools/drive_tpu_server.py:11-67 feeds the
-JAX package's server: R rows (default 8,388,608, four upserts of
-2,097,152 POSTed by two producer threads) of the battery's trips table
-and its 300 cities. The battery's 14 trips shapes (B1-B14: sum by hour x
+battery's NOW, fed through the port's `Connector` as
+tools/drive_tpu_server.py:11-67 feeds the JAX package's server: R rows
+(default 8,388,608, four `insert_columns` upserts of 2,097,152 by two
+producer threads) of the battery's trips table and its 300 cities. The battery's 14 trips shapes (B1-B14: sum by hour x
 city, avg by status, HLL of id overall and by city, the join count, the
 listing, the two SQL forms, the sums with no dimensions, count by city,
 the numeric bucket, case and IN, calendar dimensions and the 200k-group
@@ -116,8 +117,8 @@ the root (timed), and B1 and B14 equal their first answers.
 The cluster (`phase_cluster`): the port's controller, two datanodes on
 `cuda` in this process and a broker, 4 shards at replica factor 1; C
 rows (default R, the same rows) of the battery's trips, one upsert a
-shard, POSTed to the shards' owners by two producers, and the cities to
-shard 0's owner. The 14 shapes through the broker, one cold and five
+shard, sent to the shards' owners by two producers through the
+`Connector`, and the cities to shard 0's owner. The 14 shapes through the broker, one cold and five
 warm runs each, against the oracle and phase_server's answers, with K1's
 and K2's launches on the datanodes asserted (B5, the join, fails on the
 node without shard 0 of cities, as in the JAX cluster); archiving on each
@@ -125,6 +126,27 @@ owner with the clock 14 hours on; a third datanode started as a process
 of its own (`cmd.aresd --controller`) replaces one of them and
 bootstraps its shards from it (timed, with the bytes it copied); the 14
 shapes again, equal to their first answers.
+
+The deployment fed and queried as its users do (`phase_stream`): the
+port's controller and one daemon on `cuda`; R rows of the
+battery's trips bulk-loaded through `Connector.insert_columns` (two
+producers, upserts of 2,097,152) and the cities through
+`Connector.insert`; then a JSON-lines file of 786,432 new trips, 262,144
+updates of distinct loaded trips (a new status and fare) and 16
+malformed lines, request_at as epoch milliseconds or ISO-8601 strings,
+posted as a subscriber job to the controller and streamed by `python -m
+aresdb_tpu_torch.cmd.subscriber`, a process of its own, through its
+`AresSink` (batches of 1,000) while a reader polls count(*) through
+`QueryClient` (monotone, within bounds, to exactly R + 786,432); the 14
+shapes through `QueryClient` (B3 and B4 also as `query_hll` frames), one
+cold and five warm runs each with K1's and K2's launches asserted,
+against a numpy oracle of the final rows (last write wins, the malformed
+lines dropped) and the CPU service; `arescli`'s `Shell` (show tables,
+describe, B1, B10 and B7 in JSON and table form, against QueryClient's
+answers); and `cmd.examples` tables, data and query over a dataset in its
+documented layout (ex_trips with time placeholders, the generated
+arraytest rows; B2, B8 and B7 against numpy, the array length, contains
+and element_at queries against the aligned oracles).
 
 Kernels and what they replace:
   K1 fused_dense  (csrc/fused_dense_template.cuh, one row function emitted
@@ -1962,7 +1984,8 @@ def server_rows(n_rows: int, seed: int) -> dict:
 
 
 def server_upsert(data: dict, lo: int, hi: int) -> bytes:
-    """Rows [lo, hi) as the client's insert_columns sends them."""
+    """Rows [lo, hi) as upsert-batch bytes built by hand: what
+    Connector.insert_columns sends for trips_columns(data, lo, hi)."""
     from aresdb_tpu_torch.common import data_types as mdt
     from aresdb_tpu_torch.common.upsert_batch import build_columnar_upsert
 
@@ -1974,6 +1997,23 @@ def server_upsert(data: dict, lo: int, hi: int) -> bytes:
          (3, mdt.SmallEnum, data["status"][sl], None, 0),
          (4, mdt.Float32, data["fare"][sl], data["fare_valid"][sl], 0)],
         hi - lo)
+
+
+def trips_columns(data: dict, lo: int, hi: int) -> tuple:
+    """Rows [lo, hi) of the battery's trips as Connector.insert_columns
+    takes them (tools/drive_tpu_server.py:44-50): the columns in the
+    table's order and the fare's validity. The connector sends the bytes
+    of server_upsert."""
+    sl = slice(lo, hi)
+    return ({name: data[name][sl] for name in
+             ("request_at", "id", "city_id", "status", "fare")},
+            {"fare": data["fare_valid"][sl]})
+
+
+def city_rows() -> list:
+    """The 300 cities as Connector.insert takes them
+    (tools/drive_tpu_server.py:63-64): population (id + 1) * 1000."""
+    return [(i, (i + 1) * 1000) for i in range(N_CITIES)]
 
 
 def http(port: int, path: str, body=None, headers=None, method=None):
@@ -2157,6 +2197,65 @@ def query_seconds(metrics) -> float:
                if k.split("{")[0] == name)
 
 
+def run_battery(label: str, names, send, runs: int, counters: dict,
+                totals: dict, launches_of, layout: dict, rows=None,
+                alike=None):
+    """Each shape of `names` in turn: every kernel's launches set to 0
+    just before its `runs` requests (one cold, the rest warm) and read just
+    after, held to launches_of(name, runs, layout) and added to totals.
+    send(name, i) makes the i-th request and gives its answer; each request
+    is timed at the client. The last answer is held to the numpy oracle
+    over `rows` and to alike[name], where given. Yields (name, answer,
+    seconds by request, launches) shape by shape."""
+    for name in names:
+        for c in counters.values():
+            c.launches = 0
+        times = []
+        for i in range(runs):
+            t0 = time.perf_counter()
+            answer = send(name, i)
+            times.append(time.perf_counter() - t0)
+        got = {k: c.launches for k, c in counters.items()}
+        want = launches_of(name, runs, layout)
+        if got != want:
+            raise AssertionError(f"{label} {name}: launches {got}, expected "
+                                 f"{want}")
+        for k in totals:
+            totals[k] += got[k]
+        if rows is not None:
+            check_server(name, answer, rows)
+        if alike and name in alike:
+            same_server_answer(name, answer, alike[name])
+        yield name, answer, times, got
+
+
+def load_battery(conn, data: dict, batch_rows: int, what: str) -> float:
+    """Create the battery's trips (batches of batch_rows) and cities
+    through the Connector, with the statuses' enum cases, then load the
+    trips as upserts of batch_rows by two producer threads and the cities
+    row by row, as tools/drive_tpu_server.py:17-64 loads the JAX
+    package's server. Returns the trips' load in seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n_rows = len(data["id"])
+    conn.create_table(dict(SERVER_TRIPS_JSON,
+                           config={"batchSize": batch_rows,
+                                   "recordRetentionInDays": 0}))
+    conn.create_table(CITIES_SCHEMA_JSON)
+    conn.schema.extend_enum("trips", "status", STATUSES)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as producers:
+        stats = list(producers.map(
+            lambda lo: conn.insert_columns("trips", *trips_columns(
+                data, lo, min(lo + batch_rows, n_rows))),
+            range(0, n_rows, batch_rows)))
+    seconds = time.perf_counter() - t0
+    if sum(s["inserted"] for s in stats) != n_rows:
+        raise AssertionError(f"{what}: inserted {stats}")
+    conn.insert("cities", ["id", "population"], city_rows())
+    return seconds
+
+
 def shut_down(server, memstore, scheduler) -> None:
     """Stop a daemon of build_server and close its store."""
     server.stop()
@@ -2167,10 +2266,10 @@ def shut_down(server, memstore, scheduler) -> None:
 def phase_server(n_rows: int, seed: int, warm: int = 5, device=None,
                  batch_rows: int = BATCH_ROWS) -> tuple:
     """The daemon (cmd.aresd.build_server over a temporary root, its
-    scheduler on, the port's clock frozen at SERVER_NOW) fed over HTTP as
-    tools/drive_tpu_server.py feeds the JAX package's: n_rows battery
-    trips as upserts of batch_rows, POSTed by two producer threads, and
-    the 300 cities. Then the battery's 14 trips shapes: each answered once
+    scheduler on, the port's clock frozen at SERVER_NOW) fed through the
+    port's Connector as tools/drive_tpu_server.py feeds the JAX
+    package's (load_battery): n_rows battery trips as upserts of
+    batch_rows by two producer threads, and the 300 cities. Then the battery's 14 trips shapes: each answered once
     by the CPU service over the same store, then one cold and `warm` warm
     runs over HTTP (each kernel's launches set to 0 just before and read
     just after; a K1 row function that a plan needs compiles inside its
@@ -2190,6 +2289,7 @@ def phase_server(n_rows: int, seed: int, warm: int = 5, device=None,
     phase_cluster holds the cluster against."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from aresdb_tpu_torch.client import Connector
     from aresdb_tpu_torch.cmd import aresd
     from aresdb_tpu_torch.common.config import AresServerConfig
     from aresdb_tpu_torch.query import admission as A
@@ -2209,30 +2309,8 @@ def phase_server(n_rows: int, seed: int, warm: int = 5, device=None,
             server, ms, sched = aresd.build_server(cfg, device=device)
             port = server.start_background()
             dev = server.ctx.device
-            trips = dict(SERVER_TRIPS_JSON,
-                         config={"batchSize": batch_rows,
-                                 "recordRetentionInDays": 0})
-            http(port, "schema/tables", trips)
-            http(port, "schema/tables", CITIES_SCHEMA_JSON)
-            http(port, "schema/tables/trips/columns/status/enum-cases",
-                 {"enumCases": STATUSES})
-            t0 = time.perf_counter()
-            with ThreadPoolExecutor(2) as producers:
-                stats = list(producers.map(
-                    lambda lo: http(port, "data/trips/0", server_upsert(
-                        data, lo, min(lo + batch_rows, n_rows))),
-                    range(0, n_rows, batch_rows)))
-            ingest_s = time.perf_counter() - t0
-            if sum(s["inserted"] for s in stats) != n_rows:
-                raise AssertionError(f"server: inserted {stats}")
-            from aresdb_tpu_torch.common import data_types as mdt
-            from aresdb_tpu_torch.common.upsert_batch import \
-                build_columnar_upsert
-            http(port, "data/cities/0", build_columnar_upsert(
-                [(0, mdt.Uint16, np.arange(N_CITIES, dtype=np.uint16), None,
-                  0),
-                 (1, mdt.Uint32, (np.arange(N_CITIES, dtype=np.uint32) + 1)
-                  * 1000, None, 0)], N_CITIES))
+            ingest_s = load_battery(Connector("localhost", port), data,
+                                    batch_rows, "server")
             print(f"server: {n_rows} rows ingested over HTTP by 2 producers "
                   f"in {ingest_s:.3f} s ({n_rows / ingest_s:.0f} rows/s, "
                   f"the upserts' wire build included)", flush=True)
@@ -2249,47 +2327,40 @@ def phase_server(n_rows: int, seed: int, warm: int = 5, device=None,
                     ask(cpu, name, q)[0])) for name, (_, q) in queries.items()}
                 layout = atrips_layout(shard,
                                        X.ShardExecutor.ARCHIVE_CHUNK_ROWS)
-                answers = {}
-                for name, (route, q) in queries.items():
-                    for c in counters.values():
-                        c.launches = 0
-                    times, svc = [], []
-                    for i in range(runs):
-                        s0 = query_seconds(metrics)
-                        t0 = time.perf_counter()
-                        answer, ctx = ask_http(port, name, route, q,
-                                               verbose=i == 0)
-                        times.append(time.perf_counter() - t0)
-                        svc.append(query_seconds(metrics) - s0)
-                        if i == 0:
-                            cold = sorted(((v, k) for k, v
-                                           in (ctx or {}).items()
-                                           if isinstance(v, float)),
-                                          reverse=True)[:3]
-                    got = {k: c.launches for k, c in counters.items()}
-                    want = server_launches(name, runs, layout)
-                    if got != want:
-                        raise AssertionError(f"{name}{stage}: launches {got},"
-                                             f" expected {want}")
-                    for k in totals:
-                        totals[k] += got[k]
-                    check_server(name, answer, data)
-                    same_server_answer(name, answer, cpu_answers[name])
+                answers, svc, cold = {}, {}, {}
+
+                def send(name, i):
+                    s0 = query_seconds(metrics)
+                    answer, ctx = ask_http(port, name, *queries[name],
+                                           verbose=i == 0)
+                    svc.setdefault(name, []).append(
+                        query_seconds(metrics) - s0)
+                    if i == 0:
+                        cold[name] = sorted(((v, k) for k, v
+                                             in (ctx or {}).items()
+                                             if isinstance(v, float)),
+                                            reverse=True)[:3]
+                    return answer
+
+                for name, answer, times, got in run_battery(
+                        f"server{stage}", queries, send, runs, counters,
+                        totals, server_launches, layout, data, cpu_answers):
                     # the HTTP layer of one request: its time at the
                     # client less its service call's, so never negative
-                    layer = [t - v for t, v in zip(times, svc)]
+                    served = svc[name]
+                    layer = [t - v for t, v in zip(times, served)]
                     if min(layer) < 0:
                         raise AssertionError(f"{name}{stage}: a service call "
                                              "outlasted its request")
                     http_ms, svc_ms, layer_ms = (
                         1e3 * float(np.median(x[1:]))
-                        for x in (times, svc, layer))
+                        for x in (times, served, layer))
                     size = (f"{len(answer['matrixData'])} rows" if name == "B6"
                             else f"{len(flatten(answer))} groups")
                     if not stage:
                         warm_ms[name] = http_ms
                     print(f"server {name}{stage}: cold {1e3 * times[0]:.3f} "
-                          f"ms (service call {1e3 * svc[0]:.3f} ms), warm "
+                          f"ms (service call {1e3 * served[0]:.3f} ms), warm "
                           f"median {http_ms:.3f} ms over HTTP, its service "
                           f"call {svc_ms:.3f} ms, HTTP layer {layer_ms:.3f} "
                           f"ms, {size}, "
@@ -2297,7 +2368,7 @@ def phase_server(n_rows: int, seed: int, warm: int = 5, device=None,
                               f"{k}={v}" for k, v in got.items())
                           + "; the cold run's largest stages "
                           + ", ".join(f"{k} {1e3 * v:.3f} ms"
-                                      for v, k in cold), flush=True)
+                                      for v, k in cold[name]), flush=True)
                     answers[name] = answer
                 print(f"server{stage}: live batches {len(layout['live'])}, "
                       f"archive chunks {len(layout['chunks'])}; every shape "
@@ -2494,8 +2565,8 @@ def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
     the namespace, the battery's trips and cities and the enum cases; the
     placement puts 4 shards at replica factor 1 over dn0 and dn1. The
     n_rows battery trips of phase_server (the same seed, so the same rows)
-    go in as one upsert a shard, each a contiguous quarter, POSTed to its
-    owner by two producer threads; the cities go to the owner of shard 0,
+    go in as one upsert a shard, each a contiguous quarter, sent to its
+    owner by Connector.insert_columns from two producer threads; the cities go to the owner of shard 0,
     where a joined table is read from. Then the 14 shapes through the
     broker: one cold and `warm` warm runs each (B5 once, last: the node
     without shard 0 of cities fails it and the broker marks the node
@@ -2518,10 +2589,9 @@ def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
 
     from aresdb_tpu_torch.broker.server import BrokerServer
     from aresdb_tpu_torch.broker.validator import BrokerSchemaView
+    from aresdb_tpu_torch.client import Connector
     from aresdb_tpu_torch.cluster.topology import (DynamicTopology,
                                                    HealthTrackingTopology)
-    from aresdb_tpu_torch.common import data_types as mdt
-    from aresdb_tpu_torch.common.upsert_batch import build_columnar_upsert
     from aresdb_tpu_torch.controller.server import ControllerServer
     from aresdb_tpu_torch.controller.state import ControllerState
     from aresdb_tpu_torch.datanode.datanode import DataNode
@@ -2538,7 +2608,12 @@ def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
     totals = dict.fromkeys(counters, 0)
     runs = 1 + warm
     queries = server_queries()
-    order = [n for n in queries if n != CLUSTER_JOIN] + [CLUSTER_JOIN]
+    # every shape but B5, which runs after them: the broker's unhealthy
+    # mark from its failure then expires before the HLL frames
+    order = [n for n in queries if n != CLUSTER_JOIN]
+    # the listing is held to the oracle alone
+    alike = ({n: a for n, a in single["answers"].items()
+              if n != CLUSTER_LISTING} if single is not None else None)
     data = server_rows(n_rows, seed)
     ns = CLUSTER_NS
     stack = []   # what to stop, last first
@@ -2593,18 +2668,16 @@ def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
             t0 = time.perf_counter()
             with ThreadPoolExecutor(2) as producers:
                 stats = list(producers.map(
-                    lambda sid: http(owner_port(sid), f"data/trips/{sid}",
-                                     server_upsert(data, sid * quarter,
-                                                   (sid + 1) * quarter)),
+                    lambda sid: Connector("localhost", owner_port(sid))
+                    .insert_columns("trips", *trips_columns(
+                        data, sid * quarter, (sid + 1) * quarter),
+                        shard_id=sid),
                     range(CLUSTER_SHARDS)))
             ingest_s = time.perf_counter() - t0
             if sum(s["inserted"] for s in stats) != n_rows:
                 raise AssertionError(f"cluster: inserted {stats}")
-            http(owner_port(0), "data/cities/0", build_columnar_upsert(
-                [(0, mdt.Uint16, np.arange(N_CITIES, dtype=np.uint16), None,
-                  0),
-                 (1, mdt.Uint32, (np.arange(N_CITIES, dtype=np.uint32) + 1)
-                  * 1000, None, 0)], N_CITIES))
+            Connector("localhost", owner_port(0)).insert(
+                "cities", ["id", "population"], city_rows())
             print(f"cluster: {n_rows} rows ingested over HTTP into "
                   f"{CLUSTER_SHARDS} shards on 2 datanodes by 2 producers in "
                   f"{ingest_s:.3f} s ({n_rows / ingest_s:.0f} rows/s, the "
@@ -2627,45 +2700,23 @@ def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
                 datanodes of this process, `local`."""
                 layout = shards_layout(local)
                 answers = {}
-                for name in order:
-                    route, q = queries[name]
-                    for c in counters.values():
-                        c.launches = 0
-                    times = []
-                    for _ in range(1 if name == CLUSTER_JOIN else runs):
-                        t0 = time.perf_counter()
-                        resp = http(bport, f"query/{route}", {"queries": [q]})
-                        times.append(time.perf_counter() - t0)
-                    got = {k: c.launches for k, c in counters.items()}
-                    want = cluster_launches(name, len(times), layout)
-                    if got != want:
-                        raise AssertionError(f"cluster {name}{stage}: "
-                                             f"launches {got}, expected "
-                                             f"{want}")
-                    for k in totals:
-                        totals[k] += got[k]
+
+                def send(name, i):
+                    resp = http(bport, f"query/{queries[name][0]}",
+                                {"queries": [queries[name][1]]})
                     if name == CLUSTER_JOIN:
-                        errors = resp.get("errors") or [""]
-                        if resp["results"] != [{}] or not \
-                                CLUSTER_B5_ERROR.fullmatch(errors[0]):
-                            raise AssertionError(f"cluster B5{stage}: {resp}")
-                        time.sleep(CLUSTER_UNHEALTHY_TTL + 0.2)
-                        print(f"cluster B5{stage}: {1e3 * times[0]:.3f} ms, "
-                              f"the reference cluster's answer: {errors[0]}",
-                              flush=True)
-                        answers[name] = resp
-                        continue
+                        return resp
                     if "errors" in resp:
                         raise AssertionError(f"cluster {name}{stage}: "
                                              f"{resp['errors']}")
-                    answer = resp["results"][0]
-                    check_server(name, answer, data)
+                    return resp["results"][0]
+
+                for name, answer, times, got in run_battery(
+                        f"cluster{stage}", order, send, runs, counters,
+                        totals, cluster_launches, layout, data, alike):
                     warm_ms = 1e3 * float(np.median(times[1:]))
                     one = ""
                     if single is not None:
-                        if name != CLUSTER_LISTING:
-                            same_server_answer(name, answer,
-                                               single["answers"][name])
                         ms = single["warm_ms"][name]
                         one = (f", one daemon's {ms:.3f} ms (scatter-gather "
                                f"cost {warm_ms - ms:.3f} ms)")
@@ -2677,6 +2728,17 @@ def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
                           + " ".join(f"{k}={v}" for k, v in got.items()),
                           flush=True)
                     answers[name] = answer
+                [(_, resp, times, _)] = run_battery(
+                    f"cluster{stage}", [CLUSTER_JOIN], send, 1, counters,
+                    totals, cluster_launches, layout)
+                errors = resp.get("errors") or [""]
+                if resp["results"] != [{}] or not \
+                        CLUSTER_B5_ERROR.fullmatch(errors[0]):
+                    raise AssertionError(f"cluster B5{stage}: {resp}")
+                time.sleep(CLUSTER_UNHEALTHY_TTL + 0.2)
+                print(f"cluster B5{stage}: {1e3 * times[0]:.3f} ms, the "
+                      f"reference cluster's answer: {errors[0]}", flush=True)
+                answers[CLUSTER_JOIN] = resp
                 for name in SERVER_HLL:
                     frame = http(bport, "query/aql",
                                  {"queries": [queries[name][1]]},
@@ -2767,7 +2829,7 @@ def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
                   "MB/s)", flush=True)
             again = battery(" migrated", [nodes["dn0"]])
             for name in order:
-                if name not in (CLUSTER_JOIN, CLUSTER_LISTING):
+                if name != CLUSTER_LISTING:
                     same_server_answer(name + " migrated", again[name],
                                        first[name])
             print("cluster migrated: every shape but the listing equals its "
@@ -2780,6 +2842,554 @@ def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
                     stop()
                 except Exception as e:  # noqa: BLE001 — stop the rest
                     print(f"cluster: stopping: {e!r}", file=sys.stderr)
+            clock.reset_clock()
+    return totals, {k: {} for k in counters}
+
+
+# the deployment fed as its users feed it (phase_stream): the battery's
+# daemon table bulk-loaded through the client, then a stream of trip
+# events through the subscriber, queried through QueryClient and arescli,
+# and an example dataset through cmd.examples
+STREAM_NS = "stream"
+STREAM_JOB = "trips-stream"
+STREAM_NEW = 3 * (1 << 18)       # new trips, ids from the loaded rows up
+STREAM_UPDATES = 1 << 18         # one update each of distinct loaded trips
+STREAM_MALFORMED = 16
+STREAM_BATCH = 1000              # the job's batchSize
+STREAM_DEADLINE = 600.0          # seconds for the whole stream to land
+STREAM_COLUMNS = ["request_at", "id", "city_id", "status", "fare"]
+CLI_SHAPES = (("B1", "aql"), ("B10", "aql"), ("B7", "sql"))
+# cmd/examples.py's dataset layout (its docstring): the battery's trips
+# as ex_trips, and the reference integration suite's arraytest table
+EX_TRIPS_ROWS = 3000
+EX_QUERIES = {"ex_b2.aql": "B2", "ex_b8.aql": "B8", "ex_b7.sql": "B7"}
+ARRAY_TYPES = ("Bool", "Int8", "Uint8", "Int16", "Uint16", "Int32",
+               "Uint32", "SmallEnum", "BigEnum", "UUID", "GeoPoint")
+ARRAYTEST_SCHEMA_JSON = {
+    "name": "arraytest",
+    "columns": [{"name": "request_at", "type": "Uint32"},
+                {"name": "uuid", "type": "UUID"},
+                {"name": "city_id", "type": "Uint16"},
+                {"name": "status", "type": "SmallEnum"},
+                {"name": "fare", "type": "Float32"}]
+    + [{"name": f"array_{t.lower()}", "type": f"Array{t}"}
+       for t in ARRAY_TYPES],
+    "primaryKeyColumns": [1], "isFactTable": True,
+    "config": {"batchSize": 2048, "recordRetentionInDays": 0}}
+ARRAY_WINDOW = {"column": "request_at", "from": "24 hours ago",
+                "to": "this quarter-hour"}
+ARRAY_DAY = {"sqlExpression": "request_at", "timeBucketizer": "day"}
+ARRAY_QUERIES = {
+    "array_length.aql": {"dimensions": [ARRAY_DAY, {
+        "sqlExpression": "length(array_int32)"}]},
+    "array_contains.aql": {"dimensions": [ARRAY_DAY],
+                           "rowFilters": ["contains(array_int32, 20)"]},
+    "array_element_at.aql": {"dimensions": [ARRAY_DAY],
+                             "rowFilters": ["element_at(array_int32, 0) "
+                                            "= 10"]},
+}
+
+
+def stream_events(data: dict, new_rows: int, update_rows: int,
+                  seed: int) -> tuple:
+    """(JSON lines, the rows after them) of the stream: new_rows new trips
+    with ids from len(data["id"]) up, drawn as server_rows draws (5% with
+    no fare); update_rows updates, one each of distinct loaded trips, with
+    their time and city and a new status and fare; shuffled, a new trip
+    last, so that the count reaches its end only with the last batch;
+    STREAM_MALFORMED malformed lines among them. request_at is epoch
+    milliseconds in even lines and an ISO-8601 string in odd ones, and
+    status one of the table's three names. The rows after: the loaded
+    ones updated last-write-wins, then the new ones."""
+    import datetime as _dt
+
+    rng = np.random.RandomState(seed + 2)
+    n_old = len(data["id"])
+    new = server_rows(new_rows, seed + 2)
+    new["id"] = np.arange(n_old, n_old + new_rows, dtype=np.uint32)
+    upd = np.sort(rng.permutation(n_old)[:update_rows])
+    upd_status = rng.randint(0, 3, update_rows).astype(np.uint8)
+    upd_fare = (rng.rand(update_rows) * 50).astype(np.float32)
+
+    ids = np.concatenate([upd, new["id"]])
+    times = np.concatenate([data["request_at"][upd], new["request_at"]])
+    cities = np.concatenate([data["city_id"][upd], new["city_id"]])
+    status = np.concatenate([upd_status, new["status"]])
+    fare = np.concatenate([upd_fare, new["fare"]])
+    fare_valid = np.concatenate([np.ones(update_rows, bool),
+                                 new["fare_valid"]])
+    order = rng.permutation(len(ids))
+    last = int(np.flatnonzero(order >= update_rows)[-1])
+    order[[last, -1]] = order[[-1, last]]
+    millis = rng.randint(0, 1000, len(ids))
+    lines = []
+    for k, i in enumerate(order.tolist()):
+        t = int(times[i])
+        when = (str(t * 1000 + int(millis[k])) if k % 2 == 0 else
+                '"' + _dt.datetime.fromtimestamp(
+                    t, _dt.timezone.utc).isoformat() + '"')
+        f = (f', "fare": {float(fare[i])!r}' if fare_valid[i] else "")
+        lines.append(f'{{"request_at": {when}, "id": {int(ids[i])}, '
+                     f'"city_id": {int(cities[i])}, "status": '
+                     f'"{STATUSES[status[i]]}"{f}}}')
+    for pos in sorted(rng.choice(len(lines), STREAM_MALFORMED,
+                                 replace=False).tolist(), reverse=True):
+        lines.insert(pos, '{"request_at": 1, "id": ')
+
+    final = {k: np.concatenate([data[k], new[k]])
+             for k in ("request_at", "city_id", "status", "fare",
+                       "fare_valid")}
+    final["status"][upd] = upd_status
+    final["fare"][upd] = upd_fare
+    final["fare_valid"][upd] = True
+    final["id"] = np.arange(n_old + new_rows, dtype=np.uint32)
+    return lines, final
+
+
+def stream_job(path: str, port: int) -> dict:
+    """The subscriber job of the stream (cmd/subscriber.py's config): a
+    file source, the trips columns with the time through the `timestamp`
+    transformation, the sink at the daemon."""
+    return {"name": STREAM_JOB, "table": "trips", "topic": "trips-events",
+            "config": {"source": {"type": "file", "path": path},
+                       "columns": STREAM_COLUMNS,
+                       "transformations": {"request_at": {
+                           "type": "timestamp", "source": "request_at"}},
+                       "sink": {"host": "localhost", "port": port,
+                                "numShards": 1, "pkPositions": [1]},
+                       "batchSize": STREAM_BATCH}}
+
+
+def table_rows(text: str) -> list:
+    """The rows of an arescli table (render_table), as lists of cells."""
+    return [[c.strip() for c in line.strip("|").split("|")]
+            for line in text.splitlines()[3:-1]]
+
+
+def arescli_step(port: int, answers: dict, queries: dict) -> dict:
+    """arescli's Shell against the daemon: `show tables`, `describe
+    trips`, then B1 and B10 as AQL statements and B7 as SQL, in `format
+    json` and in `format table`. The JSON output must equal `answers`
+    (QueryClient's: counts exactly, sums within RTOL/ATOL), and each
+    table row must hold an answer's dims and value. Returns each
+    statement's ms."""
+    import io
+
+    from aresdb_tpu_torch.cmd import arescli
+
+    out, err = io.StringIO(), io.StringIO()
+    shell = arescli.Shell("localhost", port, out=out, err=err)
+    ms = {}
+
+    def run(stmt, label):
+        start = len(out.getvalue())
+        t0 = time.perf_counter()
+        if not shell.dispatch(stmt):
+            raise AssertionError(f"arescli {label}: the shell exited")
+        ms[label] = 1e3 * (time.perf_counter() - t0)
+        if err.getvalue():
+            raise AssertionError(f"arescli {label}: {err.getvalue()}")
+        return out.getvalue()[start:]
+
+    tables = run("show tables", "show tables").split()
+    if not {"trips", "cities"} <= set(tables):
+        raise AssertionError(f"arescli show tables: {tables}")
+    desc = table_rows(run("describe trips", "describe trips").split(
+        "\nfactTable=")[0])
+    if [(r[1], r[2]) for r in desc] != [
+            (c["name"], c["type"]) for c in SERVER_TRIPS_JSON["columns"]]:
+        raise AssertionError(f"arescli describe trips: {desc}")
+    for fmt in ("json", "table"):
+        run(f"format {fmt}", f"format {fmt}")
+        for name, route in CLI_SHAPES:
+            q = queries[name][1]
+            stmt = json.dumps(q) if route == "aql" else q
+            text = run(stmt + ";", f"{name} {fmt}")
+            want = answers[name]
+            if fmt == "json":
+                same_server_answer(f"arescli {name}", json.loads(text), want)
+                continue
+            rows = table_rows(text)
+            flat = flatten(want)
+            if len(rows) != len(flat):
+                raise AssertionError(f"arescli {name} table: {len(rows)} "
+                                     f"rows against {len(flat)} groups")
+            for *dims, value in rows:
+                w = flat[tuple(dims)]
+                if abs(float(value) - w) > ATOL + RTOL * abs(w):
+                    raise AssertionError(f"arescli {name} table: {dims} "
+                                         f"{value} against {w}")
+    return ms
+
+
+def ex_trips_csv(path: str, seed: int) -> dict:
+    """data/ex_trips.csv of the example dataset: EX_TRIPS_ROWS battery
+    trips, request_at as a {Nd}, {Nh} or {Nm} placeholder, a twentieth of
+    the fares empty; returns the rows as server_rows gives them."""
+    rows = server_rows(EX_TRIPS_ROWS, seed + 3)
+    marks = ("{1d}", "{2h}", "{30m}")
+    with open(path, "w") as f:
+        f.write(",".join(STREAM_COLUMNS) + "\n")
+        for i in range(EX_TRIPS_ROWS):
+            fare = repr(float(rows["fare"][i])) if rows["fare_valid"][i] \
+                else ""
+            f.write(f"{marks[i % 3]},{int(rows['id'][i])},"
+                    f"{int(rows['city_id'][i])},"
+                    f"{STATUSES[rows['status'][i]]},{fare}\n")
+    return rows
+
+
+def write_examples(root: str, queries: dict, seed: int) -> dict:
+    """The example dataset in cmd/examples.py's layout under root:
+    schema/ (ex_trips, arraytest), data/ (ex_trips.csv with time
+    placeholders; arraytest.csv, a header alone, since cmd_data generates
+    that table's rows), queries/ (B2 and B8 over ex_trips as .aql, B7 as
+    .sql, and the three array queries). Returns ex_trips' rows."""
+    for sub in ("schema", "data", "queries"):
+        os.makedirs(os.path.join(root, sub))
+
+    def put(sub, name, doc):
+        with open(os.path.join(root, sub, name), "w") as f:
+            json.dump(doc, f)
+
+    put("schema", "ex_trips.json", dict(SERVER_TRIPS_JSON, name="ex_trips"))
+    put("schema", "arraytest.json", ARRAYTEST_SCHEMA_JSON)
+    rows = ex_trips_csv(os.path.join(root, "data", "ex_trips.csv"), seed)
+    with open(os.path.join(root, "data", "arraytest.csv"), "w") as f:
+        f.write(",".join(c["name"] for c in ARRAYTEST_SCHEMA_JSON["columns"])
+                + "\n")
+    for name, shape in EX_QUERIES.items():
+        q = queries[shape][1]
+        q = (q.replace("FROM trips", "FROM ex_trips") if isinstance(q, str)
+             else dict(q, table="ex_trips"))
+        put("queries", name, {"queries": [q]})
+    for name, extra in ARRAY_QUERIES.items():
+        put("queries", name, {"queries": [dict(
+            {"table": "arraytest", "timeFilter": ARRAY_WINDOW,
+             "measures": [{"sqlExpression": "count(*)"}]}, **extra)]})
+    return rows
+
+
+def examples_answers(text: str) -> dict:
+    """{query file's name: its response} from `examples query`'s output."""
+    out = {}
+    for block in text.split("=== ")[1:]:
+        name, _, body = block.partition(" ===\n")
+        out[name] = json.loads(body)
+    return out
+
+
+def arraytest_oracles(now: int) -> dict:
+    """The three array queries' answers over gen_arraytest_batches(now),
+    each row's arrays aligned with its own time (the aligned oracle of
+    tests/test_integration_goldens.py:84-150): the window from the hour
+    of 24 hours ago to the end of this quarter-hour, by day; length
+    size - 1 (NULL for no array), contains(.., 20) for sizes 3 and 4,
+    element_at(.., 0) = 10 for sizes 2 and up."""
+    from collections import Counter
+
+    from aresdb_tpu_torch.cmd.example_data import gen_arraytest_batches
+
+    frm = (now - DAY) // 3600 * 3600
+    to = now - now % 900 + 900
+    rows = [(r[0], r[2]) for b in gen_arraytest_batches(now) for r in b
+            if frm <= r[0] < to]
+
+    def day(t):
+        return time.strftime("%Y-%m-%d", time.gmtime(t))
+
+    length = Counter((day(t), "NULL" if s == 0 else str(s - 1))
+                     for t, s in rows)
+    out = {"array_length": {}}
+    for (d, n), c in length.items():
+        out["array_length"].setdefault(d, {})[n] = float(c)
+    out["array_contains"] = {d: float(c) for d, c in Counter(
+        day(t) for t, s in rows if s >= 3).items()}
+    out["array_element_at"] = {d: float(c) for d, c in Counter(
+        day(t) for t, s in rows if s >= 2).items()}
+    return out
+
+
+def arraytest_now(port: int) -> int:
+    """The `now` that `examples data` generated arraytest's rows at
+    (cmd/examples.py reads the wall clock): the first row's time less its
+    first draw, GoRand(0).int63n(DAY), plus a day."""
+    from aresdb_tpu_torch.client.query import QueryClient
+    from aresdb_tpu_torch.utils.gorand import GoRand
+
+    resp = QueryClient(f"localhost:{port}").query_aql([{
+        "table": "arraytest", "measures": [{"sqlExpression": "1"}],
+        "dimensions": [{"sqlExpression": "request_at"}],
+        "rowFilters": ["uuid = '00000000-0000-0000-0000-000000000001'"],
+        "limit": 1}])
+    ((first,),) = resp["results"][0]["matrixData"]
+    return int(first) - GoRand(0).int63n(DAY) + DAY
+
+
+def examples_step(port: int, root: str, queries: dict, seed: int,
+                  sched) -> dict:
+    """cmd.examples' tables, data and query over a dataset written under
+    root (write_examples), against the daemon at port beside its trips:
+    the tables created, 3,000 ex_trips rows and arraytest's 4,000
+    generated rows inserted, and every query document's answer held: B2,
+    B8 and B7 against a numpy oracle over ex_trips, the array queries
+    against arraytest_oracles with the port's clock at the data's `now`.
+    Returns each subcommand's seconds."""
+    import io
+
+    from aresdb_tpu_torch.cmd import examples
+    from aresdb_tpu_torch.utils import clock
+
+    rows = write_examples(root, queries, seed)
+    seconds, texts = {}, {}
+    # cmd_data times its rows by the wall clock, and the daemon skips rows
+    # later than its own clock: the port's clock follows the wall until
+    # the queries, with the scheduler paused so that nothing archives
+    sched.disable()
+    clock.reset_clock()
+    for cmd in ("tables", "data", "query"):
+        if cmd == "query":
+            clock.set_current_time(arraytest_now(port))
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            examples.main([cmd, "--dataset", root, "--host", "localhost",
+                           "--port", str(port)])
+        seconds[cmd] = time.perf_counter() - t0
+        texts[cmd] = buf.getvalue()
+    if texts["tables"].split() != ["created", "table", "arraytest",
+                                   "created", "table", "ex_trips"]:
+        raise AssertionError(f"examples tables: {texts['tables']}")
+    if "arraytest: 4000 rows" not in texts["data"]:
+        raise AssertionError(f"examples data: {texts['data']}")
+    got = examples_answers(texts["query"])
+    oracles = arraytest_oracles(clock.now())
+    for name, want in oracles.items():
+        if got[name] != {"results": [want]}:
+            raise AssertionError(f"examples {name}: {got[name]} against "
+                                 f"the aligned oracle {want}")
+    for name, shape in EX_QUERIES.items():
+        answer = got[os.path.splitext(name)[0]]
+        if "errors" in answer:
+            raise AssertionError(f"examples {name}: {answer['errors']}")
+        check_server(shape, answer["results"][0], rows)
+    return seconds
+
+
+def phase_stream(n_rows: int, seed: int, warm: int = 5, device=None,
+                 batch_rows: int = BATCH_ROWS, new_rows: int = STREAM_NEW,
+                 update_rows: int = STREAM_UPDATES,
+                 deadline: float = STREAM_DEADLINE) -> tuple:
+    """The deployment fed and queried as its users do. The port's
+    controller and one daemon (cmd.aresd.build_server on the device, over
+    a temporary root, the port's clock frozen at SERVER_NOW) in this
+    process. Through the client: the battery's trips and cities created,
+    n_rows trips loaded by Connector.insert_columns (two producers,
+    upserts of batch_rows; timed in rows/s) and the cities by
+    Connector.insert. Then a JSON-lines file of the stream
+    (stream_events: new_rows new trips, update_rows updates, malformed
+    lines) posted as a subscriber job to the controller, and `python -m
+    aresdb_tpu_torch.cmd.subscriber` started as a process of its own: it
+    syncs the job and streams the file through AresSink into the daemon,
+    while a reader thread polls count(*) through QueryClient (each answer
+    monotone and between n_rows and n_rows + new_rows); the phase waits,
+    at most `deadline` seconds, for the final count (timed in events/s).
+    Then the 14 shapes through QueryClient (AQL, SQL with query_sql, B3
+    and B4 also as query_hll frames, their bytes the CPU run's), one cold
+    and `warm` warm runs each with each kernel's launches asserted as in
+    phase_server, each answer against the numpy oracle of the final rows
+    and the CPU service over the same store; arescli (arescli_step); and
+    the example tools (examples_step). Returns each kernel's launches
+    over the shapes' runs, and {} per kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from aresdb_tpu_torch.client import Connector
+    from aresdb_tpu_torch.client.query import QueryClient
+    from aresdb_tpu_torch.cmd import aresd
+    from aresdb_tpu_torch.common.config import AresServerConfig
+    from aresdb_tpu_torch.controller.server import ControllerServer
+    from aresdb_tpu_torch.controller.state import ControllerState
+    from aresdb_tpu_torch.query import executor as X
+    from aresdb_tpu_torch.query import hll_wire as W
+    from aresdb_tpu_torch.query.service import QueryService
+    from aresdb_tpu_torch.utils import clock
+
+    counters = kernel_counters()
+    totals = dict.fromkeys(counters, 0)
+    runs = 1 + warm
+    queries = server_queries()
+    data = server_rows(n_rows, seed)
+    final_count = n_rows + new_rows
+    stack = []
+    t_phase = time.perf_counter()
+    clock.set_current_time(SERVER_NOW)
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            ctrl = ControllerServer(ControllerState(f"{root}/ctrl"))
+            cport = ctrl.start_background()
+            stack.append(ctrl.stop)
+            cfg = AresServerConfig.load(None, {"root_path": f"{root}/ares",
+                                               "port": 0})
+            server, ms, sched = aresd.build_server(cfg, device=device)
+            port = server.start_background()
+            stack.append(lambda: shut_down(server, ms, sched))
+            conn = Connector("localhost", port)
+            load_s = load_battery(conn, data, batch_rows, "stream")
+            print(f"stream: {n_rows} rows bulk-loaded through "
+                  f"Connector.insert_columns by 2 producers in {load_s:.3f} "
+                  f"s ({n_rows / load_s:.0f} rows/s)", flush=True)
+
+            t0 = time.perf_counter()
+            lines, final = stream_events(data, new_rows, update_rows, seed)
+            path = f"{root}/trips-events.jsonl"
+            with open(path, "w") as f:
+                f.write("\n".join(lines) + "\n")
+            print(f"stream: {len(lines)} JSON lines ({new_rows} new trips, "
+                  f"{update_rows} updates, {STREAM_MALFORMED} malformed; "
+                  f"{os.path.getsize(path)} bytes) written in "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            http(cport, "namespaces", {"namespace": STREAM_NS})
+            http(cport, f"config/{STREAM_NS}/jobs", stream_job(path, port))
+
+            client = QueryClient(f"localhost:{port}")
+            count_q = {"table": "trips", "now": SERVER_NOW,
+                       "measures": [{"sqlExpression": "count(*)"}]}
+            seen, polls, reader_errors = [], [], []
+            done = threading.Event()
+
+            def count() -> int:
+                t = time.perf_counter()
+                resp = client.query_aql([count_q])
+                polls.append(time.perf_counter() - t)
+                if "errors" in resp:
+                    raise AssertionError(f"stream count: {resp['errors']}")
+                return int(resp["results"][0][""])
+
+            def reader():
+                try:
+                    while not done.is_set():
+                        n = count()
+                        if not n_rows <= n <= final_count or \
+                                (seen and n < seen[-1]):
+                            raise AssertionError(f"stream: count {n} after "
+                                                 f"{seen[-3:]}")
+                        seen.append(n)
+                        if n == final_count:
+                            return
+                        done.wait(0.1)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    reader_errors.append(e)
+
+            log = []
+            t_start = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "aresdb_tpu_torch.cmd.subscriber",
+                 "--controller", f"localhost:{cport}", "--namespace",
+                 STREAM_NS, "--name", "sub1", "--sink-port", str(port)],
+                cwd=str(Path(__file__).resolve().parent),
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            stack.append(lambda: (proc.terminate(), proc.wait(timeout=60)))
+            threading.Thread(target=lambda: log.extend(proc.stderr),
+                             daemon=True).start()
+            state = ctrl.state
+            wait_for(lambda: STREAM_JOB in state.ns(STREAM_NS)
+                     .assignments.get("sub1", []),
+                     "the controller to assign the job", 60, proc, log)
+            assigned_s = time.perf_counter() - t_start
+            watcher = threading.Thread(target=reader, daemon=True)
+            watcher.start()
+            try:
+                wait_for(lambda: not watcher.is_alive(),
+                         "the stream's final count", deadline, proc, log)
+            except AssertionError as e:
+                raise AssertionError(f"{e}\n(counts reached {seen[-3:]} "
+                                     f"of {final_count})") from None
+            finally:
+                done.set()
+            stream_s = time.perf_counter() - t_start
+            if reader_errors:
+                raise AssertionError(f"stream: {reader_errors[0]} (counts "
+                                     f"reached {seen[-3:]})")
+            if seen[-1] != final_count or count() != final_count:
+                raise AssertionError(f"stream: count {seen[-1]}, expected "
+                                     f"{final_count}")
+            events = new_rows + update_rows
+            rate = events / stream_s
+            upserts = -(-len(lines) // STREAM_BATCH)
+            print(f"stream: the subscriber (a process of its own) had the "
+                  f"job {assigned_s:.3f} s after its start; {events} events "
+                  f"landed {stream_s:.3f} s after its start ({rate:.0f} "
+                  f"events/s, {upserts} upserts of up to {STREAM_BATCH} "
+                  "rows); "
+                  f"{len(seen)} reader polls through QueryClient, each "
+                  f"monotone within [{n_rows}, {final_count}], median "
+                  f"{1e3 * float(np.median(polls)):.3f} ms", flush=True)
+
+            store = server.ctx.memstore
+            shard = store.get_table_shard("trips")
+            cpu = QueryService(store, device="cpu")
+            cpu_answers = {name: json.loads(json.dumps(ask(cpu, name, q)[0]))
+                           for name, (_, q) in queries.items()}
+            layout = atrips_layout(shard, X.ShardExecutor.ARCHIVE_CHUNK_ROWS)
+            answers = {}
+
+            def send(name, i):
+                route, q = queries[name]
+                resp = (client.query_aql([q]) if route == "aql"
+                        else client.query_sql([q]))
+                if "errors" in resp:
+                    raise AssertionError(f"stream {name}: {resp['errors']}")
+                return resp["results"][0]
+
+            for name, answer, times, got in run_battery(
+                    "stream", queries, send, runs, counters, totals,
+                    server_launches, layout, final, cpu_answers):
+                answers[name] = answer
+                print(f"stream {name}: cold {1e3 * times[0]:.3f} ms, warm "
+                      f"median {1e3 * float(np.median(times[1:])):.3f} ms "
+                      "through QueryClient, launches "
+                      + " ".join(f"{k}={v}" for k, v in got.items()),
+                      flush=True)
+            for name in SERVER_HLL:
+                q = queries[name][1]
+                results, errors = client.query_hll([q])
+                estimate = json.loads(json.dumps(results[0]))
+                frame = client.session.post(
+                    f"{client.base}/query/aql", json={"queries": [q]},
+                    headers={"Accept": W.CONTENT_TYPE}).content
+                if errors != [None] or estimate != answers[name] or \
+                        frame != cpu.handle_aql_hll({"queries": [q]}):
+                    raise AssertionError(f"stream {name}: the query_hll "
+                                         "frame differs")
+                print(f"stream {name}: query_hll's estimates equal the JSON "
+                      f"answer; its frame of {len(frame)} bytes is the cpu "
+                      "run's", flush=True)
+            print(f"stream: live batches {len(layout['live'])}; every shape "
+                  "equals the numpy oracle of the final rows and the cpu "
+                  "run", flush=True)
+
+            cli_ms = arescli_step(port, answers, queries)
+            print("stream arescli: every statement's output equals "
+                  "QueryClient's answers; ms a statement: " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in cli_ms.items()), flush=True)
+            ex_s = examples_step(port, f"{root}/examples", queries, seed,
+                                 sched)
+            print("stream examples: tables, data and query against the "
+                  "daemon; B2, B8 and B7 equal the numpy oracle, the array "
+                  "length, contains and element_at queries the aligned "
+                  "oracles; seconds " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in ex_s.items()), flush=True)
+            if proc.poll() is not None:
+                raise AssertionError(f"the subscriber exited:\n"
+                                     f"{''.join(log)}")
+            print(f"stream: the phase took {time.perf_counter() - t_phase:.3f}"
+                  " s", flush=True)
+        finally:
+            for stop in reversed(stack):
+                try:
+                    stop()
+                except Exception as e:  # noqa: BLE001 — stop the rest
+                    print(f"stream: stopping: {e!r}", file=sys.stderr)
             clock.reset_clock()
     return totals, {k: {} for k in counters}
 
@@ -2804,7 +3414,7 @@ def kernel_row(name, source, replaces, launches, measured, in_situ,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=16 * BATCH_ROWS)
+    ap.add_argument("--rows", type=int, default=8 * BATCH_ROWS)
     ap.add_argument("--atrips-rows", type=int, default=ATRIPS_ROWS)
     ap.add_argument("--events-rows", type=int, default=EVENTS_ROWS)
     ap.add_argument("--server-rows", type=int, default=SERVER_ROWS)
@@ -2856,7 +3466,8 @@ def main(argv=None) -> int:
     *server, single = phase_server(args.server_rows, args.seed)
     phases += [server, phase_cluster(
         args.cluster_rows, args.seed,
-        single if args.cluster_rows == args.server_rows else None)]
+        single if args.cluster_rows == args.server_rows else None),
+        phase_stream(args.server_rows, args.seed)]
     for phase_launches, phase_in_situ in phases:
         for k in launches:
             launches[k] += phase_launches[k]

@@ -378,3 +378,127 @@ def test_phase_cluster_runs_the_battery_through_the_broker(cpu_rehearsal,
     # batch and chunk, the four dense shapes on the small chunks
     assert launches == {"K1": 2 * 4 * (4 + 2) + 2 * 2 * (4 + 2),
                         "K2": 2 * 4 + 2 * 4 * 4 + 2 * (2 + 4), "K3": 0}
+
+
+class _Posted:
+    """A Connector's session that records what it posts."""
+
+    def __init__(self):
+        self.bodies = []
+
+    def post(self, url, data=None, headers=None, **kw):
+        self.bodies.append((url, data))
+        return type("R", (), {"status_code": 200,
+                              "json": lambda self: {"inserted": 0}})()
+
+
+def _offline_connector():
+    from aresdb_tpu_torch.client import Connector
+    from aresdb_tpu_torch.common.schema import Table
+
+    conn = Connector.__new__(Connector)
+    conn.host, conn.port, conn.session = "localhost", 1, _Posted()
+    tables = {t["name"]: Table.from_json(t)
+              for t in (S.SERVER_TRIPS_JSON, S.CITIES_SCHEMA_JSON)}
+    conn.schema = type("Schema", (), {
+        "table": lambda self, name: tables[name],
+        "enum_dict": lambda self, t, c: {}})()
+    return conn
+
+
+def test_the_connector_sends_the_bytes_of_server_upsert(monkeypatch):
+    """phase_server and phase_cluster load the trips through
+    Connector.insert_columns(*trips_columns(...)): the same bytes as the
+    hand-built upsert they sent before; the cities through
+    Connector.insert: the same rows as the columnar cities upsert."""
+    from aresdb_tpu_torch.common import data_types as mdt
+    from aresdb_tpu_torch.common import upsert_batch as UB
+
+    monkeypatch.setattr(UB.time, "time", lambda: S.SERVER_NOW)
+    data = S.server_rows(5000, 0)
+    conn = _offline_connector()
+    for lo, hi, sid in ((0, 5000, 0), (1000, 3000, 2)):
+        conn.insert_columns("trips", *S.trips_columns(data, lo, hi),
+                            shard_id=sid)
+        url, body = conn.session.bodies[-1]
+        assert url == f"http://localhost:1/data/trips/{sid}"
+        assert body == S.server_upsert(data, lo, hi)
+    conn.insert("cities", ["id", "population"], S.city_rows())
+    _, body = conn.session.bodies[-1]
+    batch = UB.UpsertBatch(body)
+    want = UB.UpsertBatch(UB.build_columnar_upsert(
+        [(0, mdt.Uint16, np.arange(S.N_CITIES, dtype=np.uint16), None, 0),
+         (1, mdt.Uint32, (np.arange(S.N_CITIES, dtype=np.uint32) + 1)
+          * 1000, None, 0)], S.N_CITIES))
+    assert batch.num_rows == want.num_rows == S.N_CITIES
+    for c in range(2):
+        assert [batch.columns[c].get_value(r) for r in range(S.N_CITIES)] \
+            == [want.columns[c].get_value(r) for r in range(S.N_CITIES)]
+
+
+def test_stream_events_parse_to_the_oracles_rows():
+    """The stream's lines through the port's subscriber rules (the job's
+    columns and timestamp transformation), applied last-write-wins over
+    the loaded rows, give stream_events' oracle; its mix is the
+    documented one."""
+    from aresdb_tpu_torch.subscriber import subscriber as SUB
+
+    n_old, new, upd = 20_000, 3000, 1000
+    data = S.server_rows(n_old, 0)
+    lines, final = S.stream_events(data, new, upd, 0)
+    assert len(lines) == new + upd + S.STREAM_MALFORMED
+    job = S.stream_job("/dev/null", 1)["config"]
+    rules = SUB.JobRules(job=S.STREAM_JOB, table="trips",
+                         columns=job["columns"], sources={
+                             c: SUB.Transformation(**t) for c, t
+                             in job["transformations"].items()})
+    rows = [SUB.parse_message(rules, line.encode()) for line in lines]
+    assert sum(r is None for r in rows) == S.STREAM_MALFORMED
+    rows = [r for r in rows if r is not None]
+    assert rows[-1][1] >= n_old   # a new trip last
+    assert sum('"request_at": "' in line for line in lines) == (new + upd) // 2
+    assert {r[3] for r in rows} == set(S.STATUSES)
+    got = {k: (data[k].copy() if k != "id" else None)
+           for k in ("request_at", "city_id", "status", "fare",
+                     "fare_valid")}
+    got = {k: np.concatenate([v, np.zeros(new, v.dtype)])
+           for k, v in got.items() if v is not None}
+    updated = [r[1] for r in rows if r[1] < n_old]
+    assert len(set(updated)) == upd
+    for t, i, city, status, fare in rows:
+        got["request_at"][i] = t
+        got["city_id"][i] = city
+        got["status"][i] = S.STATUSES.index(status)
+        got["fare_valid"][i] = fare is not None
+        got["fare"][i] = fare if fare is not None else \
+            (got["fare"][i] if i < n_old else 0.0)
+    for k, v in got.items():
+        want = final[k]
+        if k == "fare":
+            v, want = v[final["fare_valid"]], want[final["fare_valid"]]
+        np.testing.assert_array_equal(v, want, err_msg=k)
+    assert np.array_equal(final["id"], np.arange(n_old + new))
+
+
+def test_phase_stream_feeds_and_queries_like_a_deployment(cpu_rehearsal,
+                                                          capsys):
+    """The stream phase over three batches of FD_MIN_ROWS bulk-loaded
+    trips, 16,384 new trips and 8,192 updates streamed by the subscriber
+    process: the count polls, the 14 shapes through QueryClient against
+    the oracle of the final rows and the CPU service, the query_hll
+    frames, arescli and the example tools. The launch counts assert
+    inside the phase: K1 on the dense shapes' three full batches, K2 on
+    the new trips' batch (below FD_MIN_ROWS) for four of them (B2 takes
+    masked sums) and on every batch of the calendar shape."""
+    batch = FD.FD_MIN_ROWS
+    launches, _ = S.phase_stream(3 * batch, 0, warm=1, device="cpu",
+                                 batch_rows=batch, new_rows=1 << 14,
+                                 update_rows=1 << 13, deadline=300)
+    out = capsys.readouterr().out
+    assert f"{3 * batch} rows bulk-loaded through Connector" in out
+    assert "24576 events landed" in out
+    assert "every shape equals the numpy oracle of the final rows" in out
+    assert out.count("query_hll's estimates equal the JSON answer") == 2
+    assert "every statement's output equals QueryClient's answers" in out
+    assert "the array length, contains and element_at queries" in out
+    assert launches == {"K1": 2 * 5 * 3, "K2": 2 * 4 * 1 + 2 * 4, "K3": 0}

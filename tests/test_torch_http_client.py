@@ -156,3 +156,24 @@ def test_a_timeout_raises_timeout(server):
     with pytest.raises(http_client.Timeout) as e:
         http_client.Session().get(server + "/slow", timeout=0.2)
     assert isinstance(e.value, http_client.RequestException)
+
+
+MODULE_CASES = [c for c in CASES if c[1] in ("get", "post")]
+
+
+@pytest.mark.parametrize("name,method,path,kw", MODULE_CASES,
+                         ids=[c[0] for c in MODULE_CASES])
+def test_the_modules_functions_answer_as_requests_does(server, name, method,
+                                                       path, kw):
+    """requests.get/post and http_client.get/post, which arescli calls on
+    the module its `_http()` returns, with `timeout=` and `json=`."""
+    assert _outcome(http_client, server, method, path, kw) == \
+        _outcome(requests, server, method, path, kw)
+
+
+def test_the_modules_request_answers_as_requests_does(server):
+    want = requests.request("PUT", server + "/echo", json={"a": 2},
+                            timeout=5)
+    got = http_client.request("PUT", server + "/echo", json={"a": 2},
+                              timeout=5)
+    assert (got.status_code, got.json()) == (want.status_code, want.json())

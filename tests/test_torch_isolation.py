@@ -41,8 +41,9 @@ print(len(names))
 
 def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
     """Every module, the geo, MemStore, redo-log, server and daemon modules
-    included, and the cluster's: controller, datanode, broker and the HTTP
-    client that stands in for `requests`."""
+    included, the cluster's: controller, datanode, broker and the HTTP
+    client that stands in for `requests`; and the client, subscriber,
+    arescli and example tools, which talk HTTP through that client."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -54,13 +55,20 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
                  "api/httpbase.py", "controller/server.py",
                  "broker/server.py", "datanode/datanode.py",
                  "datanode/bootstrap.py", "utils/http_client.py",
-                 "cmd/controller.py", "cmd/broker.py"):
+                 "cmd/controller.py", "cmd/broker.py",
+                 "client/__init__.py", "client/connector.py",
+                 "client/query.py", "subscriber/__init__.py",
+                 "subscriber/subscriber.py", "cmd/arescli.py",
+                 "cmd/subscriber.py", "cmd/examples.py",
+                 "cmd/example_data.py", "utils/gorand.py",
+                 "utils/racetool.py"):
         assert (PORT / name).is_file(), name
 
 
 _FORBIDDEN = (re.compile(r"\bimport jax\b|\bfrom jax\b"),
               re.compile(r"(from|import) aresdb_tpu(\.|\s)"),
-              re.compile(r"\bimport ml_dtypes\b|\bfrom ml_dtypes\b"))
+              re.compile(r"\bimport ml_dtypes\b|\bfrom ml_dtypes\b"),
+              re.compile(r"\bimport requests\b|\bfrom requests\b"))
 
 
 def _port_files():
