@@ -33,7 +33,8 @@ from aresdb_tpu_torch.api.httpbase import (HTTPError, Handler, Service,
                                            compile_routes)
 from aresdb_tpu_torch.common.schema import Table
 from aresdb_tpu_torch.common.upsert_batch import UpsertBatch
-from aresdb_tpu_torch.query.admission import DeviceMemoryManager
+from aresdb_tpu_torch.query.admission import (DeviceMemoryManager,
+                                              DevicePool)
 from aresdb_tpu_torch.query.service import QueryService
 from aresdb_tpu_torch.utils import metrics as M
 from aresdb_tpu_torch.utils.torch_env import resolve_device
@@ -77,12 +78,21 @@ class ServerContext:
         self.device_manager = DeviceMemoryManager(
             utilization=util, default_timeout=choose_timeout,
             device=self.device)
+        # multi-GPU hosts get query-level placement: each admitted query
+        # pins to one GPU (reference query/device_manager.go); mesh
+        # batches over every GPU stay opt-in via ARES_MESH
+        self.device_pool = None
+        if (self.device.type == "cuda" and torch.cuda.device_count() > 1
+                and os.environ.get("ARES_MESH", "") != "1"):
+            self.device_pool = DevicePool(utilization=util,
+                                          default_timeout=choose_timeout)
         self.health_off = False
         self.datanode = None   # the DataNode that runs this server, if any
         self.query_service = QueryService(memstore, device=self.device,
                                           timezone_table=timezone_table,
                                           device_manager=self.device_manager,
-                                          query_timeout=query_timeout)
+                                          query_timeout=query_timeout,
+                                          device_pool=self.device_pool)
         self.query_pool = ThreadPoolExecutor(
             max_workers=QUERY_WORKERS, thread_name_prefix="ares-query")
         # torch.profiler must start and stop on one thread
@@ -616,14 +626,19 @@ class JobTriggerHandler(_Base):
 class DevicesDebugHandler(_Base):
     def get(self):
         """The devices of the server's device type: every CUDA device, or
-        the CPU."""
+        the CPU; and the device pool's state where the server has one."""
         if self.ctx.device.type == "cuda":
             devices = [{"id": i, "platform": "gpu",
                         "kind": torch.cuda.get_device_name(i)}
                        for i in range(torch.cuda.device_count())]
         else:
             devices = [{"id": 0, "platform": "cpu", "kind": "cpu"}]
-        self.write_json({"devices": devices})
+        out = {"devices": devices}
+        if self.ctx.device_pool is not None:
+            # per-device placement + admission state (reference
+            # query/device_manager.go DeviceInfos)
+            out["pool"] = self.ctx.device_pool.stats()
+        self.write_json(out)
 
 
 class HostMemoryDebugHandler(_Base):

@@ -6,14 +6,18 @@ device memory, or times out after DeviceChoosingTimeout) and
 query/aql_processor.go:985 calculateMemoryRequirement (max per-batch input
 bytes + intermediate vectors; HLL queries use a fixed 10 GiB budget slice).
 
-Port of `aresdb_tpu/query/admission.py`: the estimate and the gate are
-host code, copied; the budget comes from the executor's torch device
-(`device_memory_budget`). One gate guards one device; the JAX package's
-multi-device `DevicePool` is not ported yet. Queries whose estimate
-exceeds the whole budget are rejected immediately, mirroring FindDevice's
-`requiredMem > MaxAvailableMemory` early exit. Peak usage is the largest
-single (batch × staged columns) working set — the executor stages one
-batch at a time — plus wholly-staged foreign (joined) tables.
+Port of `aresdb_tpu/query/admission.py`: the estimate, the one-device
+gate (`DeviceMemoryManager`) and the multi-device pool (`DevicePool`)
+are host code, copied; the budgets come from torch devices
+(`device_memory_budget`, `_per_device_budget`). The pool places each
+admitted query on ONE device, the one with the most free budget (or the
+`?device=` one where it fits), waits FIFO-ish on a Condition otherwise,
+and hands out a `DeviceLease` that makes its device the thread's current
+CUDA device. Queries whose estimate exceeds the whole budget are
+rejected immediately, mirroring FindDevice's `requiredMem >
+MaxAvailableMemory` early exit. Peak usage is the largest single (batch
+× staged columns) working set — the executor stages one batch at a time
+— plus wholly-staged foreign (joined) tables.
 """
 
 from __future__ import annotations
@@ -48,6 +52,15 @@ def _dtype_bytes(data_type: int) -> int:
     except ValueError:
         item = 4
     return item * mdt.lanes(data_type) + 1  # +1 validity byte per row
+
+
+def _per_device_budget(device: torch.device, utilization: float,
+                       fallback: int) -> int:
+    """One device's usable bytes: a CUDA device's own total memory
+    (`torch.cuda.mem_get_info`), else `fallback`."""
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[1] * utilization)
+    return fallback
 
 
 def device_memory_budget(utilization: float = 0.95, device=None) -> int:
@@ -189,3 +202,137 @@ class DeviceMemoryManager:
         with self._cond:
             return {"budgetBytes": self.budget, "inUseBytes": self.in_use,
                     "running": self.running, "waiting": self.waiting}
+
+
+class DeviceLease:
+    """One admitted query's pinned device. Context manager: entering makes
+    a CUDA device the thread's current device (`torch.cuda.device`), so
+    the kernels it launches and the tensors it makes without a device
+    land there; exiting releases the reservation."""
+
+    def __init__(self, pool: "DevicePool", index: int, nbytes: int):
+        self.pool = pool
+        self.index = index
+        self.nbytes = nbytes
+        self.device = pool.devices[index]
+        self._ctx = None
+
+    def __enter__(self):
+        if self.device.type == "cuda":
+            self._ctx = torch.cuda.device(self.device)
+            self._ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            if self._ctx is not None:
+                self._ctx.__exit__(*exc)
+        finally:
+            self.pool.release(self.index, self.nbytes)
+
+
+class DevicePool:
+    """Query-level multi-device placement: each admitted query pins to ONE
+    device; different queries run concurrently on different devices.
+
+    Reference: query/device_manager.go DeviceManager.FindDevice — pick the
+    device with the most free estimated memory that fits the query, wait on
+    a condition variable otherwise (aql_processor.go:1311 runs the whole
+    query on the chosen device). Mesh batches (parallel/sharded.py) are the
+    opposite trade (one query over ALL devices) and stay opt-in via
+    ARES_MESH; this pool is the daemon's default on multi-GPU hosts.
+    devices: torch devices, repeats allowed; None is every CUDA device.
+    """
+
+    def __init__(self, devices=None, total_bytes: Optional[int] = None,
+                 utilization: float = 0.95, default_timeout: float = 30.0):
+        if devices is None:
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        self.devices = [torch.device(d) for d in devices]
+        if total_bytes is not None:
+            fallback = int(total_bytes * utilization)
+            self.budgets = [fallback] * len(self.devices)
+        else:
+            # per-device budgets from each device's own memory
+            fallback = device_memory_budget(
+                utilization, self.devices[0] if self.devices else "cpu")
+            self.budgets = [
+                _per_device_budget(d, utilization, fallback)
+                for d in self.devices]
+        self.budget = max(self.budgets) if self.budgets else fallback
+        self.in_use = [0] * len(self.devices)
+        self.running = [0] * len(self.devices)
+        self.served = [0] * len(self.devices)
+        self.waiting = 0
+        self.default_timeout = default_timeout
+        self._cond = threading.Condition()
+
+    def acquire(self, nbytes: int,
+                timeout: Optional[float] = None,
+                preferred: Optional[int] = None) -> DeviceLease:
+        """preferred: requested device index (?device= query param) — used
+        when it fits, otherwise falls back to most-free-first, matching
+        device_manager.go:193 findDevice's preferredDevice handling."""
+        if nbytes > self.budget:
+            raise AdmissionError(
+                f"query requires ~{nbytes >> 20} MiB device memory; "
+                f"per-device budget is {self.budget >> 20} MiB")
+        if timeout is None or timeout <= 0:
+            timeout = self.default_timeout
+        start = time.perf_counter()
+        deadline = start + timeout
+        with self._cond:
+            while True:
+                # most-free-first placement (device_manager.go findDevice),
+                # free = that device's OWN budget minus its reservations
+                best = max(range(len(self.devices)),
+                           key=lambda i: (self.budgets[i] - self.in_use[i],
+                                          -self.running[i]))
+                if (preferred is not None
+                        and 0 <= preferred < len(self.devices)
+                        and self.in_use[preferred] + nbytes
+                        <= self.budgets[preferred]):
+                    best = preferred
+                if self.in_use[best] + nbytes <= self.budgets[best]:
+                    self.in_use[best] += nbytes
+                    self.running[best] += 1
+                    self.served[best] += 1
+                    break
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    M.root().count(M.QUERY_FAILED, 1)
+                    raise AdmissionError(
+                        f"timed out after {timeout:.0f}s waiting for "
+                        f"{nbytes >> 20} MiB on any of "
+                        f"{len(self.devices)} devices")
+                self.waiting += 1
+                try:
+                    self._cond.wait(remaining)
+                finally:
+                    self.waiting -= 1
+        M.root().record_timer(M.QUERY_WAIT_FOR_MEMORY,
+                              time.perf_counter() - start)
+        return DeviceLease(self, best, nbytes)
+
+    def release(self, index: int, nbytes: int) -> None:
+        with self._cond:
+            self.in_use[index] = max(0, self.in_use[index] - nbytes)
+            self.running[index] = max(0, self.running[index] - 1)
+            self._cond.notify_all()
+
+    def stats(self) -> dict:
+        with self._cond:
+            return {
+                "perDeviceBudgetBytes": self.budget,
+                "waiting": self.waiting,
+                "devices": [
+                    {"id": i if d.index is None else d.index,
+                     "platform": "gpu" if d.type == "cuda" else d.type,
+                     "budgetBytes": self.budgets[i],
+                     "inUseBytes": self.in_use[i],
+                     "running": self.running[i],
+                     "served": self.served[i]}
+                    for i, d in enumerate(self.devices)
+                ],
+            }

@@ -40,24 +40,31 @@ of `aresdb_tpu/query/executor.py`, with joins to dimension tables:
   live and archive batches; a joined table's array column stages as
   all-null, so an array op on it answers "not staged", as in the JAX
   package.
+- Under ARES_MESH=1 an aggregate or HLL batch instead spreads over the
+  executor's mesh devices (`_run_mesh_batch`, `_run_mesh_hll_batch`,
+  parallel/sharded.py): each device runs the keyed body on its rows, and
+  the partial tables merge on the first device. The merged table joins
+  the sort (or HLL) path's pending merge like any batch's; a batch whose
+  groups outgrew its capacity reruns on the single-device ladder (an HLL
+  batch on the mesh again, at the larger capacity). A mesh batch that
+  raises runs on the single-device path, and is counted.
 GroupTable merges the piles exactly on the host.
-
-Not ported yet: the JAX package's mesh batches; every batch runs on the
-executor's one device.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from aresdb_tpu_torch.common import data_types as mdt
+from aresdb_tpu_torch.parallel import sharded as S
 from aresdb_tpu_torch.query import expr as E
 from aresdb_tpu_torch.query import geo as G
 from aresdb_tpu_torch.query import hll as H
@@ -360,14 +367,22 @@ class ShardExecutor:
 
     def __init__(self, memstore, device: torch.device,
                  kernel_cache: KernelCache = GLOBAL_KERNEL_CACHE,
-                 device_cache: DeviceColumnCache = GLOBAL_DEVICE_CACHE):
+                 device_cache: DeviceColumnCache = GLOBAL_DEVICE_CACHE,
+                 mesh_devices=None, k_hints: Optional[Dict[str, int]] = None):
+        """mesh_devices: the devices of a mesh batch (ARES_MESH=1),
+        repeats allowed; by default every device of `device`'s type.
+        k_hints: a capacity-hint dict shared with other executors (a
+        device pool's), else one of its own."""
         self.memstore = memstore
         self.device = device
         self.kernel_cache = kernel_cache
         self.device_cache = device_cache
+        if mesh_devices is None:
+            mesh_devices = [device] if device.type != "cuda" else None
+        self.mesh_devices = S.make_mesh(devices=mesh_devices)
         # plan signature → observed group capacity: warm repeats of a
         # high-cardinality query start the ladder at the right K
-        self._k_hints: Dict[str, int] = {}
+        self._k_hints: Dict[str, int] = {} if k_hints is None else k_hints
         # (vp.uid, vp.version, n) → (min, max) over valid values; columns
         # are immutable at a given mutation version so stats memoize
         self._stat_memo: Dict[tuple, tuple] = {}
@@ -858,6 +873,13 @@ class ShardExecutor:
             self._run_runlen_batch(plan, columns, foreign_idx, n_valid,
                                    n_padded, runinfo)
             return
+        # mesh batches (ARES_MESH=1): the batch's rows over every mesh
+        # device, their partial group tables merged on the first; geo
+        # shapes and joined tables go whole, array stagings split by rows
+        if os.environ.get("ARES_MESH") == "1" and self._mesh_batch(
+                self._run_mesh_batch, plan, columns, foreign_idx, n_valid,
+                n_padded, live_cutoff):
+            return
         # dense slot aggregation when every dim is bounded, else the sort
         dense_plan = plan_dense(plan, batch_stats)
         if dense_plan is None:
@@ -876,6 +898,71 @@ class ShardExecutor:
         plan._exec_dense_dev[dense_sig] = (dense_plan, folded)
         plan._exec_pending.append(
             (overflow, columns, foreign_idx, n_valid, n_padded, live_cutoff))
+
+    def _mesh_batch(self, run, *args) -> bool:
+        """Run one batch on the mesh (`run` is _run_mesh_batch or
+        _run_mesh_hll_batch); False where the caller must run it on the
+        single-device path: the mesh is ineligible, or it raised. A mesh
+        failure must never fail a query, but it is a fault to look into,
+        so it is logged and counted."""
+        try:
+            if run(*args):
+                M.root().count("query.mesh_batches")
+                return True
+            M.root().count("query.mesh_ineligible_batches")
+        except Exception:  # noqa: BLE001
+            M.root().count("query.mesh_fallback_batches")
+            logging.getLogger("aresdb.executor").exception(
+                "mesh batch execution failed; falling back to "
+                "single-chip path")
+        return False
+
+    def _mesh_table(self, make_kernel, plan, columns, foreign_idx,
+                    n_valid, n_padded, k_groups: int, live_cutoff):
+        """One batch's group table from a mesh kernel (`make_kernel` is
+        sharded.make_sharded_agg_kernel or make_sharded_hll_kernel) at
+        capacity k_groups, on this executor's device; None where the
+        batch is ineligible: fewer than 2 mesh devices, or rows that do
+        not split evenly."""
+        devs = self.mesh_devices
+        if len(devs) < 2 or n_padded % len(devs) != 0:
+            return None
+        rows_per_device = n_padded // len(devs)
+        key = (make_kernel.__name__, plan_signature(plan), rows_per_device,
+               k_groups, tuple(str(d) for d in devs))
+        fn = self.kernel_cache._cache.get(key)
+        if fn is None:
+            fn = make_kernel(plan, rows_per_device, k_groups, devs)
+            self.kernel_cache._cache[key] = fn
+        out = fn(columns, foreign_idx,
+                 S.per_shard_valid(int(n_valid), len(devs), rows_per_device),
+                 live_cutoff)
+        return self._here(out)
+
+    def _run_mesh_batch(self, plan, columns, foreign_idx, n_valid, n_padded,
+                        live_cutoff=0) -> bool:
+        """One aggregate batch over the mesh devices at the default group
+        capacity; its merged table joins the sort path's pending merge,
+        and a batch whose groups outgrew it reruns on the single-device
+        sort ladder. False where ineligible (see _mesh_table)."""
+        k_groups = DEFAULT_GROUP_CAPACITY
+        out = self._mesh_table(S.make_sharded_agg_kernel, plan, columns,
+                               foreign_idx, n_valid, n_padded, k_groups,
+                               live_cutoff)
+        if out is None:
+            return False
+        plan._exec_sort_pending.append(
+            (k_groups, out, columns, foreign_idx, n_valid, n_padded,
+             live_cutoff, None))
+        return True
+
+    def _here(self, out):
+        """A mesh kernel's group table on this executor's device, where
+        the single-device tables it merges with lie."""
+        *heads, dims, dvalids = out
+        return (*(t.to(self.device) for t in heads),
+                tuple(t.to(self.device) for t in dims),
+                tuple(t.to(self.device) for t in dvalids))
 
     def _run_sort_batch(self, plan, columns, foreign_idx, n_valid, n_padded,
                         live_cutoff=0, k: int = 0):
@@ -1057,10 +1144,31 @@ class ShardExecutor:
         if not k:
             k = self._k_hints.get("hll:" + plan_signature(plan),
                                   DEFAULT_HLL_CAPACITY)
+        if os.environ.get("ARES_MESH") == "1" and self._mesh_batch(
+                self._run_mesh_hll_batch, plan, columns, foreign_idx,
+                n_valid, n_padded, k, live_cutoff):
+            return
         kernel = self.kernel_cache.hll_kernel(plan, n_padded, k, self.device)
         out = kernel(columns, n_valid, live_cutoff, foreign_idx)
         plan._exec_hll_pending.append(
             (k, out, columns, foreign_idx, n_valid, n_padded, live_cutoff))
+
+    def _run_mesh_hll_batch(self, plan, columns, foreign_idx, n_valid,
+                            n_padded, k_groups, live_cutoff=0) -> bool:
+        """One HLL batch over the mesh devices at capacity k_groups
+        (register planes merged by max on the first device); resolved with
+        the single-device batches, and an overflow reruns through
+        _run_hll_batch, on the mesh again. False where ineligible (see
+        _mesh_table)."""
+        out = self._mesh_table(S.make_sharded_hll_kernel, plan, columns,
+                               foreign_idx, n_valid, n_padded, k_groups,
+                               live_cutoff)
+        if out is None:
+            return False
+        plan._exec_hll_pending.append(
+            (k_groups, out, columns, foreign_idx, n_valid, n_padded,
+             live_cutoff))
+        return True
 
     def _resolve_hll_pending(self, plan, table: GroupTable) -> None:
         """Resolve every pending HLL batch with ONE device-side register

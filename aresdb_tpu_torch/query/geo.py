@@ -227,6 +227,17 @@ class DeviceShapes:
                              self.block_shape, self.slab, self.bbox)
                    if t is not None)
 
+    def to(self, device: torch.device) -> "DeviceShapes":
+        """The same shapes on `device` (a mesh batch's other devices)."""
+        def move(t):
+            return None if t is None else t.to(device)
+
+        return DeviceShapes(
+            slope=move(self.slope), lat1=move(self.lat1),
+            lng1=move(self.lng1), lng2=move(self.lng2),
+            block_shape=move(self.block_shape), n_shapes=self.n_shapes,
+            slab=move(self.slab), bbox=move(self.bbox))
+
 
 def stage_shapes(batch: GeoShapeBatch, device: torch.device,
                  pruned: bool) -> DeviceShapes:

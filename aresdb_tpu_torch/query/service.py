@@ -12,8 +12,13 @@ uses it: a `MemStore` recovered from its redo log
 pass an admission gate on device memory (`admission.DeviceMemoryManager`)
 and carry a deadline that the executor checks before each batch.
 
-Not ported yet: the JAX package's device pool and mesh batches (the port
-runs every batch on its one device).
+With a device pool (`admission.DevicePool`) each admitted query instead
+takes a lease on one of the pool's devices and runs there, on an
+executor of that device's own, so that N queries run on N devices at
+once; the executors share the kernel cache, the column cache and the
+capacity hints. Under ARES_MESH=1 one query's batches instead spread
+over the executor's mesh devices (`mesh_devices`;
+`ShardExecutor._run_mesh_batch`).
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ from aresdb_tpu_torch.utils.torch_env import resolve_device
 class QueryService:
     def __init__(self, memstore, device=None, timezone_table: str = "",
                  device_manager=None, admission_timeout: float = -1,
-                 query_timeout: float = 0):
+                 query_timeout: float = 0, device_pool=None,
+                 mesh_devices=None):
         """device: where the query kernels run; `cuda` unless the caller
         passes another (`"cpu"` runs every kernel's plain version).
         timezone_table: the table that `timezone(join_key)` queries join
@@ -46,12 +52,25 @@ class QueryService:
         device_manager: optional DeviceMemoryManager admission gate
         (query/device_manager.go FindDeviceForQuery). admission_timeout:
         seconds to wait for device memory (device_choosing_timeout).
-        query_timeout: per-query execution deadline in seconds (0 = off)."""
+        query_timeout: per-query execution deadline in seconds (0 = off).
+        device_pool: optional admission.DevicePool — each admitted query
+        pins to one of its devices (the reference DeviceManager's
+        placement model); takes precedence over device_manager.
+        mesh_devices: the devices of a mesh batch under ARES_MESH=1
+        (ShardExecutor's; by default every device of `device`'s type)."""
         self.memstore = memstore
         self.timezone_table = timezone_table
         self.device = resolve_device(device)
-        self.executor = ShardExecutor(memstore, self.device)
+        self.executor = ShardExecutor(memstore, self.device,
+                                      mesh_devices=mesh_devices)
         self.device_manager = device_manager
+        self.device_pool = device_pool
+        # one executor a pool entry, sharing the capacity hints
+        self.pool_executors = [] if device_pool is None else [
+            ShardExecutor(memstore, resolve_device(d),
+                          k_hints=self.executor._k_hints,
+                          mesh_devices=mesh_devices)
+            for d in device_pool.devices]
         self.admission_timeout = admission_timeout
         self.query_timeout = query_timeout
 
@@ -62,9 +81,11 @@ class QueryService:
         """Process an AQLRequest JSON dict; returns an AQLResponse-shaped
         dict. data_only, or a true `dataonly` in the request, keeps enum
         dimensions as untranslated ranks (reference `?dataonly=1`).
-        device: preferred device index (`?device=`); with one device it
-        is accepted and ignored. admission_timeout: per-request seconds
-        to wait for device memory (`?timeout=`)."""
+        device: preferred device index (`?device=`, -1 = auto) — honored
+        when that device's budget in the pool fits, else most-free-first
+        (device_manager.go:193); without a pool it is ignored.
+        admission_timeout: per-request seconds to wait for device memory
+        (`?timeout=`)."""
         results: List[Dict[str, Any]] = []
         errors: List[Any] = []
         contexts: List[Any] = []
@@ -80,6 +101,7 @@ class QueryService:
                     contexts.append(None)
                     continue
                 result, plan = self._run(q, data_only=data_only,
+                                         device=device,
                                          admission_timeout=admission_timeout)
                 results.append(result)
                 errors.append(None)
@@ -114,8 +136,7 @@ class QueryService:
                 # binary responses need the register rows; JSON queries
                 # fetch only per-group estimator sums
                 plan.hll_registers = True
-                with self._admit(plan):
-                    table, _ = self.executor.execute(plan)
+                table, _ = self._execute(plan)
                 out.write_result(W.serialize_result_table(plan, table))
             except (QueryError, AdmissionError, KeyError, ValueError) as e:
                 out.write_error(str(e))
@@ -170,19 +191,25 @@ class QueryService:
         except C.CompositeError as e:
             raise QueryError(str(e)) from e
 
-    def _admit(self, plan, timeout: Optional[float] = None):
+    def _admit(self, plan, device: int = -1,
+               timeout: Optional[float] = None):
         """Stamp the query deadline, and reserve device memory for the
         plan's estimated footprint for the duration of execution
-        (FindDeviceForQuery + deferred release); the reservation is a
-        no-op without a device manager."""
+        (FindDeviceForQuery + deferred release): a DeviceLease from the
+        pool (entered, it yields itself), else the device manager's
+        reservation (yields None); a no-op without either."""
         if self.query_timeout > 0:
             plan.deadline = time.time() + self.query_timeout
-        if self.device_manager is None:
+        if self.device_pool is None and self.device_manager is None:
             return contextlib.nullcontext()
         reserved = estimate_query_memory(plan, self.memstore)
         plan.memory_required = reserved
         if timeout is None or timeout <= 0:
             timeout = self.admission_timeout
+        if self.device_pool is not None:
+            return self.device_pool.acquire(
+                reserved, timeout=timeout,
+                preferred=device if device >= 0 else None)
         self.device_manager.reserve(reserved, timeout=timeout)
 
         @contextlib.contextmanager
@@ -193,7 +220,20 @@ class QueryService:
                 self.device_manager.release(reserved)
         return _held()
 
-    def _run(self, q: AQLQuery, data_only: bool = False,
+    def _execute(self, plan, device: int = -1,
+                 timeout: Optional[float] = None):
+        """Admit the plan and run it on the executor of its lease's device
+        (the service's own without a pool); a leased query's verbose
+        context names its pool index under "device"."""
+        with self._admit(plan, device=device, timeout=timeout) as lease:
+            executor = self.executor if lease is None \
+                else self.pool_executors[lease.index]
+            out = executor.execute(plan)
+        if lease is not None:
+            plan.stats["device"] = lease.index
+        return out
+
+    def _run(self, q: AQLQuery, data_only: bool = False, device: int = -1,
              admission_timeout: Optional[float] = None):
         compiler = Compiler(self.memstore.get_schemas(),
                             timezone_table=self.timezone_table)
@@ -201,8 +241,8 @@ class QueryService:
         plan = compiler.compile(q)
         plan.data_only = data_only
         compile_s = time.perf_counter() - t0
-        with self._admit(plan, timeout=admission_timeout):
-            table, rows = self.executor.execute(plan)
+        table, rows = self._execute(plan, device=device,
+                                    timeout=admission_timeout)
         plan.stats["compile"] = compile_s
         if getattr(plan, "memory_required", None) is not None:
             plan.stats["memoryRequired"] = plan.memory_required

@@ -37,11 +37,16 @@ fetch_to_host.calls = 0
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `cuda` unless the caller asks
-    for another. Raises when CUDA is asked for (or implied) and absent."""
+    for another. A CUDA device comes back indexed (`cuda` is the current
+    device, `cuda:0` as a rule), so that `cuda` and `cuda:0` are one key
+    of the column and kernel caches. Raises when CUDA is asked for (or
+    implied) and absent."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -74,8 +74,9 @@ the battery's two squares (ids 1, 2), and `zones128`, 128 regular 16-gons
   G3  count(*) over zones128, z.id NOT IN (1..64): the exclude mode, no
       dimensions, no kernel
   G2 dense  G2 under ARES_GEO2=0, the dense sweep of 4,096 edges, on
-      the card only: equal to G2's answer (keys exactly, sums within the
-      float tolerance: K2 adds floats with atomics)
+      the card only, one cold and one warm run: equal to G2's answer
+      (keys exactly, sums within the float tolerance: K2 adds floats
+      with atomics)
 each against a numpy crossing-test oracle (counts exactly, sums within
 rel 1e-5); and the geo sweep itself: both routes on the card against the
 oracle point by point over every atrips point, and their device ms per
@@ -131,13 +132,13 @@ The deployment fed and queried as its users do (`phase_stream`): the
 port's controller and one daemon on `cuda`; R rows of the
 battery's trips bulk-loaded through `Connector.insert_columns` (two
 producers, upserts of 2,097,152) and the cities through
-`Connector.insert`; then a JSON-lines file of 786,432 new trips, 262,144
+`Connector.insert`; then a JSON-lines file of 393,216 new trips, 131,072
 updates of distinct loaded trips (a new status and fare) and 16
 malformed lines, request_at as epoch milliseconds or ISO-8601 strings,
 posted as a subscriber job to the controller and streamed by `python -m
 aresdb_tpu_torch.cmd.subscriber`, a process of its own, through its
 `AresSink` (batches of 1,000) while a reader polls count(*) through
-`QueryClient` (monotone, within bounds, to exactly R + 786,432); the 14
+`QueryClient` (monotone, within bounds, to exactly R + 393,216); the 14
 shapes through `QueryClient` (B3 and B4 also as `query_hll` frames), one
 cold and five warm runs each with K1's and K2's launches asserted,
 against a numpy oracle of the final rows (last write wins, the malformed
@@ -147,6 +148,23 @@ answers); and `cmd.examples` tables, data and query over a dataset in its
 documented layout (ex_trips with time placeholders, the generated
 arraytest rows; B2, B8 and B7 against numpy, the array length, contains
 and element_at queries against the aligned oracles).
+
+Mesh batches and the device pool, over the stores of the first phases
+(no new ingest): Q1-Q4, J1, H1 and H2 over the trips, G1 over atrips and
+E1 over the events store run under ARES_MESH=1 with
+`QueryService(mesh_devices=[cuda:0] * 4)` (`phase_mesh`), one cold and
+two warm runs each: equal to the phase's single-device answer (keys,
+counts and HLL estimates exactly, sums within rtol 2e-4, atol 1e-3),
+every batch counted in query.mesh_batches (HLL ladder reruns too) and
+none in mesh_ineligible_batches or mesh_fallback_batches, K2's launches
+3 x those of a CPU rehearsal of the query on a mesh of 4 `cpu` entries,
+K1 and K3 none; the mesh's warm ms is printed beside the single
+device's, the cost of the per-device loop on one card, not a multi-card
+speedup. Then `phase_pool`: a QueryService with DevicePool([cuda:0,
+cuda:0]) and 8 client threads x 4 requests drawn from Q1, Q2, J1 and H1,
+every answer equal to the single-device one, both entries serving, none
+running or waiting at the end, K1's and K2's launches asserted. Each
+phase's seconds are printed.
 
 Kernels and what they replace:
   K1 fused_dense  (csrc/fused_dense_template.cuh, one row function emitted
@@ -304,6 +322,15 @@ K3_CASES = (("uniform 128", 128, 3, "dense", "dense_segment_sum_warp"),
             (K3_Q5_CASE, 128, 3, "Q5", "dense_segment_sum_warp"),
             ("Q5 batch, one NaN and one inf measure", 128, 3, "Q5 nan inf",
              "dense_segment_sum_warp"))
+# mesh batches (ARES_MESH=1) over MESH_WIDTH entries of the one card, and
+# a device pool of two entries of it, over stores the phases ingest
+MESH_WIDTH = 4
+MESH_RUNS = 3                 # one cold run, two warm
+MESH_E2E = ("Q1", "Q2", "Q3", "Q4", "J1", "H1", "H2")
+MESH_COUNTERS = ("mesh_batches", "mesh_ineligible_batches",
+                 "mesh_fallback_batches")
+POOL_QUERIES = ("Q1", "Q2", "J1", "H1")
+POOL_THREADS, POOL_REQUESTS = 8, 4
 Q3_CAPACITY = 1 << 19    # the ladder's rung for about 300k groups a batch
 H1_CAPACITY = 512        # the HLL ladder's rung for 301 groups a batch
 
@@ -1116,15 +1143,16 @@ def run_query(gpu, cpu, name: str, q, env: dict, understate: bool,
     to 0 just before and read just after; raises unless they equal
     `want`), once more under the profiler, and once on the CPU service
     unless its answer is given. Returns the answers, the contexts and
-    wall seconds of the runs, the launches, the profiled run's device
-    events and each kernel's device ms per launch in it, and the CPU
-    run's seconds."""
+    wall seconds of the runs, the launches, the mesh counters' growth
+    over the runs, the profiled run's device events and each kernel's
+    device ms per launch in it, and the CPU run's seconds."""
     from aresdb_tpu_torch.query import executor as X
 
     with query_setting(X, env, understate):
         for c in counters.values():
             c.launches = 0
         times, contexts = [], []
+        mesh0 = mesh_counts()
         for _ in range(runs):
             t0 = time.perf_counter()
             answer, ctx = ask(gpu, name, q)
@@ -1132,6 +1160,7 @@ def run_query(gpu, cpu, name: str, q, env: dict, understate: bool,
                 torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             contexts.append(ctx)
+        mesh = {k: v - mesh0[k] for k, v in mesh_counts().items()}
         got = {k: c.launches for k, c in counters.items()}
         if got != want:
             raise AssertionError(f"{name}: launches {got}, expected {want}")
@@ -1160,7 +1189,7 @@ def run_query(gpu, cpu, name: str, q, env: dict, understate: bool,
         cpu_s = time.perf_counter() - t0
     return dict(answer=answer, cpu_answer=cpu_answer, contexts=contexts,
                 times=times, launches=got, events=events, in_situ=in_situ,
-                cpu_s=cpu_s)
+                cpu_s=cpu_s, mesh=mesh)
 
 
 def report(name: str, rec: dict, n_rows: int, listing_rows: bool = False):
@@ -1205,14 +1234,206 @@ def kernel_counters() -> dict:
             "K3": P.dense_segment_sum}
 
 
+def mesh_counts() -> dict:
+    """The port's mesh counters (query.mesh_batches, ...) by short name."""
+    from aresdb_tpu_torch.utils import metrics as M
+
+    snap = M.root().snapshot().get("counters", {})
+    return {k: snap.get("query." + k, 0) for k in MESH_COUNTERS}
+
+
+@contextlib.contextmanager
+def counting_k2():
+    """K2's wrapper replaced, for a CPU rehearsal, by one that counts its
+    calls on a non-empty batch, as the card's wrapper counts its
+    launches; put back after. Yields the counter (its `calls`)."""
+    from aresdb_tpu_torch.query import pallas_ops as P
+
+    real = P.segment_sum
+
+    def counted(slots, values, n_slots, ones_channels=()):
+        if slots.shape[0]:
+            counted.calls += 1
+        return real(slots, values, n_slots, ones_channels)
+
+    counted.calls = 0
+    P.segment_sum = counted
+    try:
+        yield counted
+    finally:
+        P.segment_sum = real
+
+
+def warm_ms(rec: dict) -> float:
+    return 1e3 * float(np.median(rec["times"][1:]))
+
+
+def phase_mesh(label: str, store, queries: dict, single: dict, device,
+               n_rows: int) -> tuple:
+    """Mesh batches (ARES_MESH=1) over MESH_WIDTH entries of the one
+    device, on a store a phase has ingested: each query of `queries`
+    ({name: (query, environment)}) once on a CPU service with a mesh of
+    as many `cpu` entries, with K2's calls counted (the rehearsal), then
+    MESH_RUNS times on the card as run_query runs it, its K2 launches
+    MESH_RUNS times the rehearsal's and K1 and K3 none (the mesh's gate
+    comes before the dense path). Each answer must equal the phase's
+    single-device answer in `single` ({name: (answer, warm ms)}): keys,
+    counts and HLL estimates exactly, sums within RTOL/ATOL; the mesh
+    counters must show every batch on the mesh (HLL ladder reruns too)
+    and none ineligible or fallen back. Returns each kernel's launches
+    and {kernel: {query + " mesh": device ms per launch}}."""
+    from aresdb_tpu_torch.query import executor as X
+    from aresdb_tpu_torch.query.service import QueryService
+    from aresdb_tpu_torch.utils.torch_env import resolve_device
+
+    dev = resolve_device(device)
+    gpu = QueryService(store, device=dev, mesh_devices=[dev] * MESH_WIDTH)
+    cpu = QueryService(store, device="cpu",
+                       mesh_devices=["cpu"] * MESH_WIDTH)
+    counters = kernel_counters()
+    totals = dict.fromkeys(counters, 0)
+    in_situ = {k: {} for k in counters}
+    print(f"{label} mesh: ARES_MESH=1 over {MESH_WIDTH} entries of {dev}; "
+          "one card runs the entries' bodies in turn, so a mesh time here "
+          "is the cost of the per-device loop, not a multi-card speedup",
+          flush=True)
+    for name, (q, env) in queries.items():
+        env = dict(env, ARES_MESH="1")
+        t0 = time.perf_counter()
+        with query_setting(X, env, False), counting_k2() as rehearsal:
+            ask(cpu, name, q)
+        rehearsal_s = time.perf_counter() - t0
+        want_answer, single_ms = single[name]
+        rec = run_query(gpu, cpu, name + " mesh", q, env, False, MESH_RUNS,
+                        counters, {"K1": 0, "K2": MESH_RUNS * rehearsal.calls,
+                                   "K3": 0}, cpu_answer=want_answer)
+        measure = q["measures"][0]["sqlExpression"]
+        hll = measure.startswith("countdistincthll(")
+        if hll or measure.startswith("count("):
+            if rec["answer"] != want_answer:
+                raise AssertionError(f"{name} mesh: the answer differs from "
+                                     "the single-device one")
+        else:
+            same_result(name + " mesh", rec["answer"], want_answer)
+        batches = sum(c["batches"] + (c["ladderReruns"] if hll else 0)
+                      for c in rec["contexts"])
+        want_counts = {"mesh_batches": batches, "mesh_ineligible_batches": 0,
+                       "mesh_fallback_batches": 0}
+        if rec["mesh"] != want_counts:
+            raise AssertionError(f"{name} mesh: counters {rec['mesh']}, "
+                                 f"expected {want_counts}")
+        for k in totals:
+            totals[k] += rec["launches"][k]
+        for k, ms in rec["in_situ"].items():
+            in_situ[k][name + " mesh"] = ms
+        print(f"{name} mesh: warm {warm_ms(rec):.3f} ms over {MESH_WIDTH} "
+              f"entries of one card, against {single_ms:.3f} ms on the one "
+              "device (the per-device loop's cost, not a speedup); "
+              f"{batches} mesh batches in {MESH_RUNS} runs; K2 "
+              f"{rec['launches']['K2']} launches = {MESH_RUNS} x the CPU "
+              f"rehearsal's {rehearsal.calls} ({rehearsal_s:.1f} s on the "
+              "cpu); equal to the single-device answer", flush=True)
+        report(name + " mesh", rec, n_rows)
+    return totals, in_situ
+
+
+def phase_pool(store, queries: dict, single: dict, device, n_batches: int,
+               fused: int) -> dict:
+    """A QueryService with a DevicePool of two entries of the one device
+    over a store phase_e2e has ingested: POOL_THREADS client threads,
+    each POOL_REQUESTS requests drawn in turn from POOL_QUERIES
+    (`queries` holds them as e2e_queries does), all started together.
+    Every answer must equal the single-device one in `single`, both
+    entries must have served, none may be running or waiting at the end,
+    and the launches must be expected_launches' for the requests made (K1
+    on `fused` of the `n_batches` batches). Returns the launches."""
+    from aresdb_tpu_torch.query.admission import DevicePool
+    from aresdb_tpu_torch.query.service import QueryService
+    from aresdb_tpu_torch.utils.torch_env import resolve_device
+
+    dev = resolve_device(device)
+    pool = DevicePool([dev, dev])
+    svc = QueryService(store, device=dev, device_pool=pool)
+    counters = kernel_counters()
+    done, errors = [], []
+    barrier = threading.Barrier(POOL_THREADS)
+
+    def client(i):
+        try:
+            barrier.wait(timeout=60)
+            for j in range(POOL_REQUESTS):
+                name = POOL_QUERIES[(i + j) % len(POOL_QUERIES)]
+                t0 = time.perf_counter()
+                answer, ctx = ask(svc, name, queries[name][0])
+                done.append((name, answer, ctx["device"],
+                             time.perf_counter() - t0))
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    for c in counters.values():
+        c.launches = 0
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(POOL_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    if errors:
+        raise errors[0]
+    made = {n: sum(d[0] == n for d in done) for n in POOL_QUERIES}
+    want = dict.fromkeys(counters, 0)
+    for name, n in made.items():
+        for k, v in expected_launches(name, n, n_batches, fused).items():
+            want[k] += v
+    if got != want:
+        raise AssertionError(f"pool: launches {got}, expected {want}")
+    for name, answer, _, _ in done:
+        if name in HLL_QUERIES:
+            if answer != single[name][0]:
+                raise AssertionError(f"pool {name}: the answer differs from "
+                                     "the single-device one")
+        else:
+            same_result("pool " + name, answer, single[name][0])
+    st = pool.stats()
+    served = [d["served"] for d in st["devices"]]
+    idle = all(d["running"] == 0 and d["inUseBytes"] == 0
+               for d in st["devices"]) and st["waiting"] == 0
+    if len(done) != POOL_THREADS * POOL_REQUESTS or min(served) == 0 or \
+            sum(served) != len(done) or not idle:
+        raise AssertionError(f"pool: {len(done)} answers, stats {st}")
+    by_entry = [sum(d[2] == i for d in done) for i in range(2)]
+    secs = sorted(d[3] for d in done)
+    print(f"pool: DevicePool([{dev}, {dev}]), {POOL_THREADS} threads x "
+          f"{POOL_REQUESTS} requests of {', '.join(POOL_QUERIES)}: served "
+          f"{served} (contexts' devices {by_entry}), "
+          f"{len(done) / wall:.3f} queries/s, p50 "
+          f"{1e3 * secs[len(secs) // 2]:.3f} ms, p99 "
+          f"{1e3 * secs[int(0.99 * (len(secs) - 1))]:.3f} ms, launches "
+          + " ".join(f"{k}={v}" for k, v in got.items())
+          + "; every answer equals the single-device one; none running "
+          "or waiting after. One card: what a second card does (peer "
+          "copies, a lease on cuda:1 passing index 1 to the kernels, a "
+          "budget from that card's memory) is not verified", flush=True)
+    return got
+
+
 def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None,
-              batch_rows: int = BATCH_ROWS, names=None) -> tuple:
+              batch_rows: int = BATCH_ROWS, names=None, mesh=(),
+              pool: bool = False) -> tuple:
     """Ingest, then every query of e2e_queries (or those in `names`)
     through QueryService on the card (one cold and `warm` warm runs, each
     kernel's launch count set to 0 just before and read just after)
-    against the CPU service. Returns each kernel's launches over those
-    runs, and {kernel: {query: device ms per launch}} from one more warm
-    run under the profiler."""
+    against the CPU service; then, over the same store, the queries in
+    `mesh` as mesh batches (phase_mesh) and, where `pool`, concurrent
+    requests through a device pool (phase_pool), each against those
+    answers. Returns each kernel's launches over those runs, and
+    {kernel: {query: device ms per launch}} from one more warm run under
+    the profiler."""
     from aresdb_tpu_torch import demo
     from aresdb_tpu_torch.query import executor as X
     from aresdb_tpu_torch.query import fused_dense as FD
@@ -1233,8 +1454,10 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None,
     totals = dict.fromkeys(counters, 0)
     in_situ = {k: {} for k in counters}
     cpu_answers = {}
+    single = {}
     runs = 1 + warm
-    for name, (q, env, understate) in e2e_queries(demo, seed).items():
+    queries = e2e_queries(demo, seed)
+    for name, (q, env, understate) in queries.items():
         if names is not None and name not in names:
             continue
         rec = run_query(gpu, cpu, name, q, env, understate, runs, counters,
@@ -1271,7 +1494,20 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None,
             same_result(name + " against the dense path", answer,
                         cpu_answers["Q1"])
         cpu_answers[name] = cpu_answer
+        single[name] = (answer, warm_ms(rec))
         report(name, rec, n_rows, listing_rows=name in LISTINGS)
+    if mesh:
+        launches, mesh_in_situ = phase_mesh(
+            "trips", store, {n: queries[n][:2] for n in mesh}, single,
+            device, n_rows)
+        for k in totals:
+            totals[k] += launches[k]
+            in_situ[k].update(mesh_in_situ[k])
+    if pool:
+        launches = phase_pool(store, queries, single, device, n_batches,
+                              q1_k1)
+        for k in totals:
+            totals[k] += launches[k]
     print(f"device column cache: {X.GLOBAL_DEVICE_CACHE.stats()}",
           flush=True)
     return totals, in_situ
@@ -1636,15 +1872,17 @@ def check_atrips(name: str, answer: dict, contexts, data: dict,
 
 
 def phase_atrips(n_rows: int, seed: int, warm: int = 5, device=None,
-                 batch_rows: int = BATCH_ROWS, names=None) -> tuple:
+                 batch_rows: int = BATCH_ROWS, names=None,
+                 mesh=()) -> tuple:
     """The archive half: ingest and archive atrips (ingest_atrips), answer
     every query of atrips_queries and geo_queries (or those in `names`)
     on the CPU service, but G2 dense (the card's only: its CPU answer is
     G2's), build the K1 row functions those answers planned (all nvcc's
     at once), then run each on the card as phase_e2e does, with its
-    launches asserted, against the CPU answer and the numpy oracle; on
-    the card, then the geo sweep (phase_geo_sweep). Returns each kernel's
-    launches and {kernel: {query: device ms per launch}}."""
+    launches asserted, against the CPU answer and the numpy oracle; the
+    queries in `mesh` as mesh batches (phase_mesh); on the card, then the
+    geo sweep (phase_geo_sweep). Returns each kernel's launches and
+    {kernel: {query: device ms per launch}}."""
     from aresdb_tpu_torch.query import executor as X
     from aresdb_tpu_torch.query import fused_dense as FD
     from aresdb_tpu_torch.query.service import QueryService
@@ -1683,12 +1921,14 @@ def phase_atrips(n_rows: int, seed: int, warm: int = 5, device=None,
         totals = dict.fromkeys(counters, 0)
         in_situ = {k: {} for k in counters}
         runs = 1 + warm
-        answers = {}
+        answers, single = {}, {}
         for name, (q, env) in queries.items():
-            # G2 dense on the card only, against G2's answer there
+            # G2 dense on the card only, against G2's answer there; its
+            # 2.2 s runs take one warm run
             want = answers["G2"] if name == "G2 dense" else cpu_answers[name]
-            rec = run_query(gpu, cpu, name, q, env, False, runs, counters,
-                            atrips_launches(name, runs, layout),
+            n = min(runs, 2) if name == "G2 dense" else runs
+            rec = run_query(gpu, cpu, name, q, env, False, n, counters,
+                            atrips_launches(name, n, layout),
                             cpu_answer=want)
             for k in totals:
                 totals[k] += rec["launches"][k]
@@ -1696,12 +1936,20 @@ def phase_atrips(n_rows: int, seed: int, warm: int = 5, device=None,
                 in_situ[k][name] = ms
             same_result(name, rec["answer"], rec["cpu_answer"])
             answers[name] = rec["answer"]
+            single[name] = (rec["answer"], warm_ms(rec))
             if name in GEO_QUERIES:
                 check_geo(name, rec["answer"], data)
             else:
                 check_atrips(name, rec["answer"], rec["contexts"], data,
                              answers, len(layout["chunks"]))
             report(name, rec, n_rows)
+        if mesh:
+            launches, mesh_in_situ = phase_mesh(
+                "atrips", store, {n: queries[n] for n in mesh}, single,
+                device, n_rows)
+            for k in totals:
+                totals[k] += launches[k]
+                in_situ[k].update(mesh_in_situ[k])
         if gpu.device.type == "cuda":
             phase_geo_sweep(data["pickup"], gpu.device, geo_matches(data))
     return totals, in_situ
@@ -1821,16 +2069,17 @@ def close_memstore(ms) -> None:
 
 
 def phase_events(n_rows: int, seed: int, warm: int = 5, device=None,
-                 batch_rows: int = 1 << 16) -> tuple:
+                 batch_rows: int = 1 << 16, mesh=()) -> tuple:
     """The durable store: events (build_events) through a MemStore's
     handle_ingestion (a redo-log append an upsert) in a temporary
     directory, the first day archived, E1 and E2 on the card as phase_e2e
     runs its queries (launches asserted: the keyed path's runtime-dense
     K2 on every live batch and archive chunk), each equal to the CPU run
-    and the oracle exactly; then the store closed, a new MemStore
-    recovered from the directory (timed), and E1 and E2 again, equal to
-    the first answers exactly. Returns each kernel's launches and
-    {kernel: {query: device ms per launch}}."""
+    and the oracle exactly, and the queries in `mesh` as mesh batches
+    (phase_mesh); then the store closed, a new MemStore recovered from
+    the directory (timed), and E1 and E2 again, equal to the first
+    answers exactly. Returns each kernel's launches and {kernel: {query:
+    device ms per launch}}."""
     from aresdb_tpu_torch.common.schema import Table
     from aresdb_tpu_torch.common.upsert_batch import UpsertBatch
     from aresdb_tpu_torch.diskstore.local_diskstore import LocalDiskStore
@@ -1848,7 +2097,7 @@ def phase_events(n_rows: int, seed: int, warm: int = 5, device=None,
     totals = dict.fromkeys(counters, 0)
     in_situ = {k: {} for k in counters}
     runs = 1 + warm
-    first = {}
+    first, single = {}, {}
     with tempfile.TemporaryDirectory() as root:
         schema = dict(EVENTS_SCHEMA_JSON, config={
             "batchSize": batch_rows, "recordRetentionInDays": 0})
@@ -1900,7 +2149,15 @@ def phase_events(n_rows: int, seed: int, warm: int = 5, device=None,
                     raise AssertionError(f"{name}: the recovered store "
                                          "answers otherwise")
                 first[name] = answer
+                single[name] = (answer, warm_ms(rec))
                 report(name + stage, rec, n_rows)
+            if mesh and not stage:
+                launches, mesh_in_situ = phase_mesh(
+                    "events", ms, {n: (events_queries()[n], {})
+                                   for n in mesh}, single, device, n_rows)
+                for k in totals:
+                    totals[k] += launches[k]
+                    in_situ[k].update(mesh_in_situ[k])
         close_memstore(ms)
     return totals, in_situ
 
@@ -2852,8 +3109,9 @@ def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
 # and an example dataset through cmd.examples
 STREAM_NS = "stream"
 STREAM_JOB = "trips-stream"
-STREAM_NEW = 3 * (1 << 18)       # new trips, ids from the loaded rows up
-STREAM_UPDATES = 1 << 18         # one update each of distinct loaded trips
+# 524,288 events: the whole smoke stays near 650 s beside the mesh and pool
+STREAM_NEW = 3 * (1 << 17)       # new trips, ids from the loaded rows up
+STREAM_UPDATES = 1 << 17         # one update each of distinct loaded trips
 STREAM_MALFORMED = 16
 STREAM_BATCH = 1000              # the job's batchSize
 STREAM_DEADLINE = 600.0          # seconds for the whole stream to land
@@ -3460,14 +3718,24 @@ def main(argv=None) -> int:
     k3 = phase_k3(P, device, rng, q5_batch(args.seed))
     k1 = phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
                   device, args.seed)
-    launches, in_situ = phase_e2e(args.rows, args.seed)
-    phases = [phase_atrips(args.atrips_rows, args.seed),
-              phase_events(args.events_rows, args.seed)]
-    *server, single = phase_server(args.server_rows, args.seed)
-    phases += [server, phase_cluster(
-        args.cluster_rows, args.seed,
+    def timed(phase, *a, **kw):
+        t0 = time.perf_counter()
+        out = phase(*a, **kw)
+        print(f"{phase.__name__} took {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        return out
+
+    launches, in_situ = timed(phase_e2e, args.rows, args.seed,
+                              mesh=MESH_E2E, pool=True)
+    phases = [timed(phase_atrips, args.atrips_rows, args.seed,
+                    mesh=("G1",)),
+              timed(phase_events, args.events_rows, args.seed,
+                    mesh=("E1",))]
+    *server, single = timed(phase_server, args.server_rows, args.seed)
+    phases += [server, timed(
+        phase_cluster, args.cluster_rows, args.seed,
         single if args.cluster_rows == args.server_rows else None),
-        phase_stream(args.server_rows, args.seed)]
+        timed(phase_stream, args.server_rows, args.seed)]
     for phase_launches, phase_in_situ in phases:
         for k in launches:
             launches[k] += phase_launches[k]

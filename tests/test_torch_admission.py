@@ -3,8 +3,8 @@
 estimate_query_memory is host code of the plan and the store: on the same
 upserts (and the same archived day) it must equal the JAX package's
 byte for byte for every plan kind. The gate (DeviceMemoryManager) and the
-deadline mirror tests/test_admission.py; the JAX package's DevicePool
-has no counterpart in the port yet.
+deadline mirror tests/test_admission.py; the multi-device DevicePool
+has its own tests in test_torch_device_pool.py.
 """
 
 from __future__ import annotations

@@ -133,6 +133,91 @@ def test_phase_e2e_runs_the_new_queries_with_their_launches(cpu_rehearsal,
     assert "batches scanned 1" in out   # N1 stops after the first batch
 
 
+def test_phase_mesh_and_phase_pool_follow_the_trips_queries(cpu_rehearsal,
+                                                             capsys):
+    """phase_e2e with its mesh and pool steps over three batches of
+    FD_MIN_ROWS rows: Q1, Q2, J1, H1 and H2 as mesh batches over 4 `cpu`
+    entries, each equal to its single-device answer, its K2 calls
+    MESH_RUNS times the rehearsal's and its mesh counters checked inside
+    the phase; then 8 threads x 4 requests through a pool of two `cpu`
+    entries, both serving, with the launches of the requests made."""
+    names = ("Q1", "Q2", "J1", "H1", "H2")
+    batch = FD.FD_MIN_ROWS
+    launches, in_situ = S.phase_e2e(3 * batch, 0, warm=1, device="cpu",
+                                    batch_rows=batch, names=names,
+                                    mesh=names, pool=True)
+    out = capsys.readouterr().out
+    assert "trips mesh: ARES_MESH=1 over 4 entries of cpu" in out
+    for name in names:
+        assert f"{name} mesh: warm " in out
+        assert f"{name} mesh: cuda result matches the cpu run" in out
+    # every run of a mesh query through K2: Q1, Q2 and J1's four shards a
+    # batch fit the runtime-dense table; the HLL queries launch nothing
+    k2 = {}
+    for name in names:
+        m = re.search(rf"{name} mesh: .*K2 (\d+) launches = 3 x the CPU "
+                      rf"rehearsal's (\d+)", out)
+        k2[name] = (int(m.group(1)), int(m.group(2)))
+    for name in ("Q1", "Q2", "J1"):   # a launch a shard, and reruns
+        assert k2[name][0] == 3 * k2[name][1] >= 3 * 3 * 4, name
+    assert k2["H1"] == k2["H2"] == (0, 0)
+    pool = re.search(r"pool: DevicePool\(\[cpu, cpu\]\), 8 threads x 4 "
+                     r"requests of Q1, Q2, J1, H1: served \[(\d+), (\d+)\]",
+                     out)
+    assert pool and int(pool.group(1)) + int(pool.group(2)) == 32
+    assert min(int(pool.group(1)), int(pool.group(2))) > 0
+    # e2e: 2 runs of Q1, J1 (K1) and Q2 (K2) over 3 batches; the mesh's
+    # K2; pool: 8 requests of each of Q1, J1 (K1) and Q2 (K2)
+    assert launches == {"K1": 2 * 3 + 2 * 3 + 16 * 3,
+                        "K2": 2 * 3 + sum(g for g, _ in k2.values())
+                        + 8 * 3, "K3": 0}
+
+
+def test_phase_mesh_reruns_the_batches_that_outgrow_its_capacity(
+        cpu_rehearsal, capsys):
+    """Q3 (by minute x city, sorted) and Q4 (runtime-dense) as mesh
+    batches over three batches of FD_MIN_ROWS rows, against the CPU
+    service's single-device answers: the merged or a shard's group count
+    past the mesh's capacity of 4,096 reruns the batch on the
+    single-device ladder, and the answers stay equal."""
+    from aresdb_tpu_torch.query.service import QueryService
+
+    batch = FD.FD_MIN_ROWS
+    store, _, _ = S.ingest_trips(3 * batch, 0, batch)
+    queries = {n: S.e2e_queries(demo)[n][:2] for n in ("Q3", "Q4")}
+    svc = QueryService(store, device="cpu")
+    single = {n: (S.ask(svc, n, q)[0], 0.0) for n, (q, _) in queries.items()}
+    S.phase_mesh("trips", store, queries, single, "cpu", 3 * batch)
+    out = capsys.readouterr().out
+    reruns = re.search(r"Q3 mesh: cold .*\(ladder, overflow\) reruns by run "
+                       r"\[\((\d+), 0\)", out)
+    assert reruns and int(reruns.group(1)) >= 3
+    for name in queries:
+        assert f"{name} mesh: cuda result matches the cpu run" in out
+
+
+def test_phase_mesh_runs_g1_and_e1_in_their_phases(cpu_rehearsal,
+                                                    monkeypatch, capsys):
+    """G1 over atrips (live batches and archive chunks, the geo shapes
+    whole on every entry) and E1 over the events MemStore (array
+    stagings split by rows) as mesh batches, each equal to its phase's
+    single-device answer."""
+    from aresdb_tpu_torch.query import executor as X
+
+    monkeypatch.setattr(X.ShardExecutor, "ARCHIVE_CHUNK_ROWS", 8192)
+    S.phase_atrips(4 * 4096, 0, warm=1, device="cpu", batch_rows=4096,
+                   names=("G1",), mesh=("G1",))
+    S.phase_events(20_000, 0, warm=1, device="cpu", batch_rows=4096,
+                   mesh=("E1",))
+    out = capsys.readouterr().out
+    assert "atrips mesh: ARES_MESH=1" in out and "events mesh:" in out
+    for name in ("G1", "E1"):
+        m = re.search(rf"{name} mesh: .*?(\d+) mesh batches in 3 runs; K2 "
+                      rf"(\d+) launches", out)
+        # every batch and chunk on the mesh, K2 in each of its 4 shards
+        assert m and int(m.group(2)) == 4 * int(m.group(1)) > 0
+
+
 def test_cities_table_and_join_filter():
     store, _, data = S.ingest_trips(5000, 3, batch_rows=2048)
     assert [len(b["fare"]) for b in data] == [2048, 2048, 904]

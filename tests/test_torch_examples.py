@@ -18,6 +18,8 @@ from __future__ import annotations
 import contextlib
 import io
 import random
+import time
+import types
 
 import pytest
 
@@ -58,7 +60,15 @@ def ran(tmp_path_factory):
     root = tmp_path_factory.mktemp("dataset")
     rows = CS.write_examples(str(root / "ds"), CS.server_queries(), 0)
     out = {}
-    with D.daemons(tmp_path_factory, None) as ports:
+    # each package's `data` reads the wall clock for its rows' `now`, and
+    # the array answers move with it (the window's hour, the UTC days):
+    # one `now` for both, at or before the wall, so never a future row
+    now_of_data = int(time.time())
+    with D.daemons(tmp_path_factory, None) as ports, \
+            pytest.MonkeyPatch.context() as mp:
+        for tool in (jax_examples, port_examples):
+            mp.setattr(tool, "time",
+                       types.SimpleNamespace(time=lambda: now_of_data))
         for side, port in ports.items():
             tool = jax_examples if side == "jax" else port_examples
             texts, now = {}, None

@@ -7,7 +7,6 @@ run in interpret mode) and to the port's `QueryService(store,
 device="cpu")`. Keys must agree exactly, counts exactly, float measures
 within rtol=2e-4, atol=1e-3 (the JAX package's float-sum tolerance).
 
-What the port does not run yet must answer with a "not ported yet" error.
 The keyed (sort) path, joins, listings, HLL, archive batches, the
 run-length path, SQL and composite queries have their own service tests
 in test_torch_{sort_path,join,non_agg,hll,archive,runlen,sql}.py.
