@@ -26,6 +26,19 @@
 // coalesced across the warp, and the unrolled rows' column loads are all
 // issued before their updates, so they overlap.
 //
+// A plan's source holds its structure only. The values that move with the
+// query's `now` or with the data (number literals, the time-filter bounds
+// among them, each dense domain's base, size and stride) are the plan's
+// literal block, AresLits, which the kernel takes by value, so its reads
+// come from the constant bank with no local copy (0-byte stack frame).
+// (__constant__ memory would race between launches on two streams.) So a
+// moved window or a moved column range launches the library already
+// built. The cost: those values no longer fold into the arithmetic, which
+// on the smoke's plans takes up to 14 more registers and up to 8.5% more
+// kernel time (PERF.md). A plan whose literals overflow the block
+// (fused_dense.MAX_LITS) bakes them into its source, with ARES_NI and
+// ARES_NF 0.
+//
 // Under a host C++ compiler only the row-function harness below is built:
 // the CPU tests compare its per-row lanes with the plain PyTorch emitter.
 #pragma once
@@ -42,11 +55,33 @@ struct AresRow {
   bool mvalid;  // measure validity
 };
 
+// The generated source defines the block's counts before it includes
+// this header; they depend on the plan's structure only.
+#if !defined(ARES_NI) || !defined(ARES_NF)
+#error "define ARES_NI and ARES_NF before including fused_dense_template.cuh"
+#endif
+
+// The plan's literal block (FusedSpec.lits_i, lits_f), at least one slot
+// each.
+struct AresLits {
+  int i[ARES_NI > 0 ? ARES_NI : 1];
+  float f[ARES_NF > 0 ? ARES_NF : 1];
+};
+
 // Generated per plan by fused_dense.emit_cuda. V[j], B[j]: values and
 // validity of the plan's j-th input (FusedSpec.input_keys order: the
-// main-table columns, then the joined columns gathered into [n] lanes).
+// main-table columns, then the joined columns gathered into [n] lanes);
+// P: the plan's literal block.
 ARES_DEV void ares_row(const void* const* V, const bool* const* B,
-                       long long i, AresRow& r);
+                       long long i, const AresLits& P, AresRow& r);
+
+// Copies the host arrays of the block into it.
+ARES_HD AresLits ares_lits(const int* lits_i, const float* lits_f) {
+  AresLits lits = {};
+  for (int k = 0; k < ARES_NI; ++k) lits.i[k] = lits_i[k];
+  for (int k = 0; k < ARES_NF; ++k) lits.f[k] = lits_f[k];
+  return lits;
+}
 
 #ifdef __CUDACC__
 #include "block_hist.cuh"
@@ -55,6 +90,13 @@ struct AresCols {
   const void* v[ARES_MAX_COLS];
   const bool* b[ARES_MAX_COLS];
 };
+
+// fused_dense_kernel's parameters: AresCols (384 bytes), AresLits (at
+// most 4 * (MAX_LITS + 1) = 2,052 bytes), six 8-byte scalars and pointers
+// and HistLayout (24), with padding, within the classic 4,096-byte limit
+static_assert(sizeof(AresCols) + sizeof(AresLits) + 6 * 8 +
+                      sizeof(HistLayout) + 8 <= 4096,
+              "fused_dense_kernel's parameters exceed 4 KB");
 
 // rows a thread evaluates before it adds any of them
 #define K1_UNROLL 2
@@ -85,11 +127,15 @@ __device__ __forceinline__ int fold_row(float* hist, const HistLayout& L,
 }
 
 // __launch_bounds__: ptxas keeps every plan's row function within the 64
-// registers a thread of a 1,024-thread block may use
+// registers a thread of a 1,024-thread block may use. __grid_constant__:
+// the row function reads cols and lits through references to the
+// parameters themselves, which this qualifier allows without a copy.
 __global__ void __launch_bounds__(1024)
-    fused_dense_kernel(AresCols cols, long long n, long long n_valid,
-                       const int* tcol, long long cutoff, HistLayout L,
-                       float* __restrict__ out, int* __restrict__ ovf) {
+    fused_dense_kernel(const __grid_constant__ AresCols cols,
+                       const __grid_constant__ AresLits lits, long long n,
+                       long long n_valid, const int* tcol, long long cutoff,
+                       HistLayout L, float* __restrict__ out,
+                       int* __restrict__ ovf) {
   extern __shared__ float hist[];
   cluster_hist_zero(hist, L);
   int my_ovf = 0;
@@ -104,7 +150,7 @@ __global__ void __launch_bounds__(1024)
       for (int k = 0; k < K1_UNROLL; ++k) {
         const long long i = i0 + (long long)k * blockDim.x;
         pre[k] = row_live(i, n_valid, tcol, cutoff);
-        ares_row(cols.v, cols.b, i, r[k]);
+        ares_row(cols.v, cols.b, i, lits, r[k]);
       }
 #pragma unroll
       for (int k = 0; k < K1_UNROLL; ++k)
@@ -114,7 +160,7 @@ __global__ void __launch_bounds__(1024)
         const long long i = i0 + (long long)k * blockDim.x;
         if (i >= n) break;
         AresRow r;
-        ares_row(cols.v, cols.b, i, r);
+        ares_row(cols.v, cols.b, i, lits, r);
         my_ovf += fold_row(hist, L, row_live(i, n_valid, tcol, cutoff), r);
       }
     }
@@ -133,13 +179,16 @@ extern "C" int ares_fused_dense_cluster(int n_slots, int device) {
   return hist_policy(n_slots, 3, K1_STATIC_BYTES, optin, max_cluster);
 }
 
-// vals/valids: n_cols device pointers each; tcol: the uint32 time column
-// for the cutoff mask, or null; out: float32 [3, n_slots] and ovf: int32
-// [1], both zeroed by the caller. Launches on `stream`, allocates nothing,
+// vals/valids: n_cols device pointers each; lits_i/lits_f: the host
+// arrays of the plan's literal block (ARES_NI and ARES_NF values), copied
+// into the launch's parameters; tcol: the uint32 time column for the
+// cutoff mask, or null; out: float32 [3, n_slots] and ovf: int32 [1],
+// both zeroed by the caller. Launches on `stream`, allocates nothing,
 // returns the launch's cudaError_t (cudaErrorInvalidValue where no cluster
 // holds the table).
 extern "C" int ares_fused_dense(const void* const* vals,
                                 const void* const* valids, int n_cols,
+                                const int* lits_i, const float* lits_f,
                                 long long n, long long n_valid,
                                 const void* tcol, long long cutoff,
                                 int n_slots, void* out, void* ovf, int device,
@@ -156,23 +205,26 @@ extern "C" int ares_fused_dense(const void* const* vals,
   if (!hist_plan<HIST_SPLIT_DSMEM>(fused_dense_kernel, device, n_slots, 3,
                                    K1_STATIC_BYTES, n, K1_UNROLL, &h))
     return (int)cudaErrorInvalidValue;
-  err = hist_launch(fused_dense_kernel, h, (cudaStream_t)stream, cols, n,
-                    n_valid, (const int*)tcol, cutoff, h.L, (float*)out,
-                    (int*)ovf);
+  err = hist_launch(fused_dense_kernel, h, (cudaStream_t)stream, cols,
+                    ares_lits(lits_i, lits_f), n, n_valid, (const int*)tcol,
+                    cutoff, h.L, (float*)out, (int*)ovf);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 #else
 
-// Host harness: the per-row lanes of ares_row for rows [0, n).
+// Host harness: the per-row lanes of ares_row for rows [0, n), with the
+// literal block from lits_i and lits_f.
 extern "C" void ares_rows_host(const void* const* V, const bool* const* B,
+                               const int* lits_i, const float* lits_f,
                                long long n, unsigned char* keep,
                                unsigned char* bad, int* slot, float* mval,
                                unsigned char* mvalid) {
+  const AresLits lits = ares_lits(lits_i, lits_f);
   for (long long i = 0; i < n; ++i) {
     AresRow r;
-    ares_row(V, B, i, r);
+    ares_row(V, B, i, lits, r);
     keep[i] = r.keep;
     bad[i] = r.bad;
     slot[i] = r.slot;

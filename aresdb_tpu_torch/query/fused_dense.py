@@ -9,10 +9,18 @@ exactly.
 The Pallas body is traced per plan. Here the per-row work is EMITTED per
 plan as C (`emit_cuda`, one `ares_row` function per plan) and compiled
 into the fixed template `csrc/fused_dense_template.cuh`, built with nvcc
-and cached by the SHA-256 of its source. The same source builds with g++
-for the CPU test of the row logic. The plain PyTorch version
-(`FusedDenseKernel.reduce_plain`) is the torch emitter, then
-kernels.dense_slot_lane, then K2's plain version.
+and cached by the SHA-256 of its source. The source holds the plan's
+structure only: the values that move with the query's `now` or with the
+data (every number literal, the time-filter bounds among them, and each
+dense domain's base, size and stride) are read from a literal block
+(`P.i[k]`, `P.f[k]`) that the kernel takes by value at launch. So a
+moved window or a moved column range finds the library already built.
+The divisors (a domain's step and post-division, a bucket width, a
+literal divisor of `/`, `%` or FLOOR) come from the query text and stay
+C constants, which keeps their division a multiply and shift. The same
+source builds with g++ for the CPU test of the row logic. The plain
+PyTorch version (`FusedDenseKernel.reduce_plain`) is the torch emitter,
+then kernels.dense_slot_lane, then K2's plain version.
 
 Eligibility is the JAX package's (`plan_fused`), and so is FD_MIN_ROWS,
 so the same batches reach the same kernel. A joined column of a lane type
@@ -40,6 +48,10 @@ from aresdb_tpu_torch.utils import cuda_build
 
 FD_MAX_SLOTS = 1 << 16   # FD_MAX_KHI * FD_KLO in the JAX package
 _MAX_COLS = 24           # csrc/fused_dense_template.cuh ARES_MAX_COLS
+# entries of a plan's literal block (ints and floats together): 2 KB of
+# kernel parameters beside AresCols' 384 bytes, within the 4 KB limit
+# (the template's static_assert). A plan with more bakes its literals.
+MAX_LITS = 512
 
 _4B_DTS = (mdt.Uint32, mdt.Int32)
 _2B_DTS = (mdt.Uint16, mdt.BigEnum, mdt.Int16)
@@ -55,6 +67,9 @@ class FusedSpec:
     col_ids: List[int]   # referenced main-table columns, kernel input order
     n_slots: int
     source: str = ""     # the plan's generated kernel source (emit_cuda)
+    # the literal block that source reads, in emission order (emit_cuda)
+    lits_i: List[int] = field(default_factory=list)
+    lits_f: List[float] = field(default_factory=list)
     # referenced joined columns (table_id, column_id, data_type), kernel
     # inputs after the main columns
     fkeys: List[Tuple[int, int, int]] = field(default_factory=list)
@@ -135,7 +150,8 @@ def plan_fused(plan: CompiledQuery, dense_plan) -> Optional[FusedSpec]:
         return None
     spec = FusedSpec(col_ids=sorted(cols), n_slots=dense_plan.n_slots,
                      fkeys=sorted(fvars))
-    spec.source = emit_cuda(plan, dense_plan, spec)
+    spec.source, spec.lits_i, spec.lits_f = emit_cuda(plan, dense_plan,
+                                                      spec)
     return spec
 
 
@@ -196,16 +212,35 @@ _LOADS = {
 
 class _CEmitter:
     """Mirrors kernels._emit for the fused-eligible forms, one C statement
-    per intermediate lane, in the same types and with the same semantics."""
+    per intermediate lane, in the same types and with the same semantics.
+    With `lits`, each literal value is a read of the literal block and
+    collects into `ints` / `floats`; without, a C constant."""
 
-    def __init__(self, plan: CompiledQuery, spec: FusedSpec):
+    def __init__(self, plan: CompiledQuery, spec: FusedSpec,
+                 lits: bool = True):
         self.plan = plan
+        self.lits = lits
+        self.ints: List[int] = []
+        self.floats: List[float] = []
         # keyed on (table_id, column_id): a joined table's column ids
         # restart at 0
         self.col_index = {key: j for j, key in enumerate(spec.input_keys())}
         self.lines: List[str] = []
         self._n = 0
         self._cols: Dict[Tuple[int, int], _C] = {}
+
+    def int_lit(self, v: int) -> str:
+        baked = _c_int(v)   # raises outside int32
+        if not self.lits:
+            return baked
+        self.ints.append(int(v))
+        return f"P.i[{len(self.ints) - 1}]"
+
+    def float_lit(self, x) -> str:
+        if not self.lits:
+            return _c_float(x)
+        self.floats.append(float(np.float32(x)))
+        return f"P.f[{len(self.floats) - 1}]"
 
     def tmp(self, ctype: str, expr: str) -> str:
         name = f"t{self._n}"
@@ -237,8 +272,8 @@ class _CEmitter:
             return self.emit(node.expr)
         if isinstance(node, E.NumberLiteral):
             if node.type == E.FLOAT:
-                return _C("float", _c_float(node.val), "true")
-            return _C("int", _c_int(node.int_val), "true")
+                return _C("float", self.float_lit(node.val), "true")
+            return _C("int", self.int_lit(node.int_val), "true")
         if isinstance(node, E.BooleanLiteral):
             return _C("bool", "true" if node.val else "false", "true")
         if isinstance(node, E.NullLiteral):
@@ -254,6 +289,19 @@ class _CEmitter:
         if isinstance(node, E.Case):
             return self.case(node)
         raise QueryError(f"cannot emit expression node {node!r} in C")
+
+    def divisor(self, node: E.Expr) -> _C:
+        """The right operand of `/`, `%` or FLOOR. A literal there comes
+        from the query text (a bucketizer's width, a user's divisor) and
+        stays a C constant, so that its division compiles to a multiply
+        and shift."""
+        while isinstance(node, E.ParenExpr):
+            node = node.expr
+        if isinstance(node, E.NumberLiteral):
+            if node.type == E.FLOAT:
+                return _C("float", _c_float(node.val), "true")
+            return _C("int", _c_int(node.int_val), "true")
+        return self.emit(node)
 
     def column(self, node: E.VarRef) -> _C:
         key = (node.table_id, node.column_id)
@@ -324,7 +372,8 @@ class _CEmitter:
             return _C("bool", hits, l.b)
 
         l = self.emit(node.lhs)
-        r = self.emit(node.rhs)
+        r = self.divisor(node.rhs) if op in ("/", "%", "FLOOR") \
+            else self.emit(node.rhs)
         valid = f"({l.b} && {r.b})"
         cmp_ops = {"=": "==", "!=": "!=", "<>": "!=", "<": "<", "<=": "<=",
                    ">": ">", ">=": ">="}
@@ -410,7 +459,9 @@ class _CEmitter:
         return _C(dt, value, valid)
 
     def slot_lane(self, dims: List[_C], dense_plan) -> Tuple[str, str]:
-        """kernels.dense_slot_lane for affine domains."""
+        """kernels.dense_slot_lane for affine domains. A domain's base and
+        size and its stride move with the window and the data: literal
+        block reads. Its step and post-division stay constants."""
         slot, bad = "0", "false"
         for dv, dom, stride in zip(dims, dense_plan.domains,
                                    dense_plan.strides):
@@ -421,7 +472,7 @@ class _CEmitter:
             if isinstance(dom.step, float) or isinstance(dom.base, float):
                 vf = self.to(v, "float").v
                 idxw = self.tmp("int", f"ares_f2i(rintf(({vf} - "
-                                       f"{_c_float(dom.base)}) / "
+                                       f"{self.float_lit(dom.base)}) / "
                                        f"{_c_float(dom.step)}))")
             else:
                 if dom.post_div:
@@ -430,23 +481,46 @@ class _CEmitter:
                                                   f"{_c_float(dom.post_div)}))"),
                            v.b)
                 idxw = self.tmp("int", f"ares_floordiv(ares_sub({v.v}, "
-                                       f"{_c_int(dom.base)}), "
+                                       f"{self.int_lit(dom.base)}), "
                                        f"{max(dom.step, 1)})")
-            in_range = self.tmp("bool", f"({idxw} >= 0 && {idxw} < "
-                                        f"{dom.size})")
-            idx = self.tmp("int", f"({idxw} < 0 ? 0 : ({idxw} > {dom.size - 1}"
-                                  f" ? {dom.size - 1} : {idxw}))")
+            size = self.int_lit(dom.size)
+            in_range = self.tmp("bool", f"({idxw} >= 0 && {idxw} < {size})")
+            idx = self.tmp("int", f"({idxw} < 0 ? 0 : ({idxw} > {size} - 1"
+                                  f" ? {size} - 1 : {idxw}))")
             ok = f"({dv.b} && {in_range})"
             bad = self.tmp("bool", f"({bad} || ({dv.b} && !{in_range}))")
             slot = self.tmp("int", f"ares_add({slot}, ares_mul({ok} ? {idx} "
-                                   f"+ 1 : 0, {stride}))")
+                                   f"+ 1 : 0, {self.int_lit(stride)}))")
         return slot, bad
 
 
-def emit_cuda(plan: CompiledQuery, dense_plan, spec: FusedSpec) -> str:
-    """The plan's kernel source: the fused template plus one generated
-    `ares_row` evaluating the plan's filters, dimensions and measure."""
-    em = _CEmitter(plan, spec)
+def emit_cuda(plan: CompiledQuery, dense_plan, spec: FusedSpec
+              ) -> Tuple[str, List[int], List[float]]:
+    """(the plan's kernel source, its literal block's ints and floats):
+    the fused template plus one generated `ares_row` evaluating the
+    plan's filters, dimensions and measure. Two plans that differ only in
+    `now` or in their domains' bases and sizes give the same source. A
+    plan with more than MAX_LITS literals bakes them into the source and
+    has an empty block."""
+    body, ints, floats = _row_body(plan, dense_plan, spec, lits=True)
+    if len(ints) + len(floats) > MAX_LITS:
+        body, ints, floats = _row_body(plan, dense_plan, spec, lits=False)
+    return f"""// Generated by aresdb_tpu_torch.query.fused_dense.emit_cuda.
+#define ARES_NI {len(ints)}
+#define ARES_NF {len(floats)}
+#include "fused_dense_template.cuh"
+
+ARES_DEV void ares_row(const void* const* V, const bool* const* B,
+                       long long i, const AresLits& P, AresRow& r) {{
+{body}
+}}
+""", ints, floats
+
+
+def _row_body(plan: CompiledQuery, dense_plan, spec: FusedSpec,
+              lits: bool) -> Tuple[str, List[int], List[float]]:
+    """The row function's statements, and the literal block they read."""
+    em = _CEmitter(plan, spec, lits)
     keep = "true"
     for f in plan.filters + plan.time_filter_expr:
         t = em.truthy(em.emit(f))
@@ -454,20 +528,10 @@ def emit_cuda(plan: CompiledQuery, dense_plan, spec: FusedSpec) -> str:
     dims = [em.emit(d.expr) for d in plan.dimensions]
     m = em.to(em.emit(plan.measure.expr), "float")
     slot, bad = em.slot_lane(dims, dense_plan)
-    body = "\n".join(em.lines)
-    return f"""// Generated by aresdb_tpu_torch.query.fused_dense.emit_cuda.
-#include "fused_dense_template.cuh"
-
-ARES_DEV void ares_row(const void* const* V, const bool* const* B,
-                       long long i, AresRow& r) {{
-{body}
-  r.keep = {keep};
-  r.bad = {bad};
-  r.slot = {slot};
-  r.mval = {m.v};
-  r.mvalid = {m.b};
-}}
-"""
+    em.lines += [f"  r.keep = {keep};", f"  r.bad = {bad};",
+                 f"  r.slot = {slot};", f"  r.mval = {m.v};",
+                 f"  r.mvalid = {m.b};"]
+    return "\n".join(em.lines), em.ints, em.floats
 
 
 # ---------------------------------------------------------------------------
@@ -489,6 +553,12 @@ class FusedDenseKernel:
         self.spec = spec
         self.device = device
         self._fn = None   # the built kernel's entry point, at first launch
+        # the literal block's host arrays, copied into the kernel's
+        # parameters at each launch
+        self._lits = ((ctypes.c_int * max(len(spec.lits_i), 1))(
+                          *spec.lits_i),
+                      (ctypes.c_float * max(len(spec.lits_f), 1))(
+                          *spec.lits_f))
 
     def _device(self, columns) -> torch.device:
         cids = self.spec.col_ids
@@ -563,9 +633,10 @@ class FusedDenseKernel:
         if self._fn is None:
             self._fn = _launcher(self.spec.source)
         stream = torch.cuda.current_stream(device)
-        rc = self._fn(vals, valids, n_cols, self.n_rows, int(n_valid), tptr,
-                int(live_cutoff or 0), n_slots, out.data_ptr(),
-                ovf.data_ptr(), device.index or 0, stream.cuda_stream)
+        rc = self._fn(vals, valids, n_cols, *self._lits, self.n_rows,
+                      int(n_valid), tptr, int(live_cutoff or 0), n_slots,
+                      out.data_ptr(), ovf.data_ptr(), device.index or 0,
+                      stream.cuda_stream)
         if rc != 0:
             raise RuntimeError(
                 f"fused_dense kernel launch failed: CUDA error {rc}")
@@ -579,11 +650,13 @@ class FusedDenseKernel:
 
 
 def _launcher(source: str):
+    """The entry point of the library built from this structural source:
+    every window and column range of one plan structure shares it."""
     fn = cuda_build.load_library("fused_dense", source).ares_fused_dense
     if fn.argtypes is None:
         p, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [p, p, ctypes.c_int, ll, ll, p, ll, ctypes.c_int, p, p,
-                       ctypes.c_int, p]
+        fn.argtypes = [p, p, ctypes.c_int, p, p, ll, ll, p, ll, ctypes.c_int,
+                       p, p, ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return fn
 

@@ -7,6 +7,11 @@ text, every header under `csrc/` and the compiler command, and cached on
 disk under `aresdb_tpu_torch/build/` (listed in .gitignore) and in the
 process. The same sources also build with the host C++ compiler, which is
 how the CPU tests check the per-plan row functions of the fused kernel.
+The fused kernel's source holds a plan's structure only, so one library
+serves every window and column range of that structure.
+
+`built` and `build_seconds` count the libraries this process compiled and
+the wall seconds their builds took, for the smoke run and the tests.
 """
 
 from __future__ import annotations
@@ -34,6 +39,10 @@ GXX_FLAGS = ["-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
 
 _lock = threading.Lock()
 _loaded: Dict[tuple, ctypes.CDLL] = {}
+
+built = 0            # libraries compiled by this process, every compiler
+build_seconds = 0.0  # wall seconds of the build_all calls that compiled
+_count_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -100,20 +109,26 @@ def _finish(job) -> None:
 def build_all(items: Sequence[Tuple[str, str, str]],
               build_dir: Path = BUILD_DIR) -> float:
     """Build every (name, source text, compiler) at once, one compiler
-    process each, all started together. Returns the wall seconds."""
+    process each, all started together; a library already on disk is not
+    built again. Returns the wall seconds."""
+    global built, build_seconds
     t0 = time.perf_counter()
     jobs = [_start(n, t, c, build_dir) for n, t, c in dict.fromkeys(items)]
+    jobs = [job for job in jobs if job is not None]
     errors = []
     for job in jobs:
-        if job is None:
-            continue
         try:
             _finish(job)
         except RuntimeError as e:
             errors.append(str(e))
+    secs = time.perf_counter() - t0
+    if jobs:
+        with _count_lock:
+            built += len(jobs) - len(errors)
+            build_seconds += secs
     if errors:
         raise RuntimeError("\n".join(errors))
-    return time.perf_counter() - t0
+    return secs
 
 
 def load_library(name: str, text: str, compiler: str = "nvcc",

@@ -166,6 +166,16 @@ every answer equal to the single-device one, both entries serving, none
 running or waiting at the end, K1's and K2's launches asserted. Each
 phase's seconds are printed.
 
+The moving window (`phase_window`), inside the phases that hold its
+stores: Q1 again at DEMO_NOW + 900 s (its window ends at "this
+quarter-hour"), A6 at ATRIPS_NOW + 1 s and + 2 s (its window ends at
+"now"), and, at the end of phase_server, B1 after 65,536 trips in cities
+300-599 land in a batch of their own (its city domain doubles). K1's
+source holds the plan's structure only, so each of these runs must build
+no library (cuda_build.built), must launch K1, and must equal the CPU
+run and the numpy oracle at its own `now`; each run's ms stands beside
+its query's warm median in a `{"window": ...}` line.
+
 Kernels and what they replace:
   K1 fused_dense  (csrc/fused_dense_template.cuh, one row function emitted
                    per plan) <- aresdb_tpu/query/fused_dense.py _make_kernel
@@ -175,7 +185,10 @@ Kernels and what they replace:
                    <- aresdb_tpu/query/pallas_ops.py _make_kernel
 
 Prints the card's name and power limit, per-phase results, one
-`{"kernels": [...]}` line and, last, `{"ok": true, "device": {...}}`. A
+`{"window": ...}` line, one `{"kernels": [...]}` line (K1's also with
+each plan's registers, stack frame and spill bytes from ptxas, all 0 but
+the registers, or the run fails) and, last, `{"ok": true, "device":
+{...}}`. A
 kernel's `ms` is the device time of one wrapper call (its output memset
 included), `kernel_ms` that of the kernel's own `__global__` functions,
 and `in_situ_ms_per_launch` its device time per launch inside each query
@@ -333,6 +346,12 @@ POOL_QUERIES = ("Q1", "Q2", "J1", "H1")
 POOL_THREADS, POOL_REQUESTS = 8, 4
 Q3_CAPACITY = 1 << 19    # the ladder's rung for about 300k groups a batch
 H1_CAPACITY = 512        # the HLL ladder's rung for 301 groups a batch
+# phase_window: each query again with its `now` moved by these seconds
+# (A6's window ends at "now" and moves every second, Q1's at "this
+# quarter-hour"), and B1 after rows that raise its city range
+WINDOW_MOVES = {"Q1": (0, 900), "A6": (0, 1, 2)}
+WINDOW_RANGE_ROWS = 1 << 16   # B1's raised range: a batch K1 takes
+WINDOW = {}   # the {"window": ...} line: phase_window's runs by query
 
 
 def demo_variant(demo, measure, dims, filters=(), since="24 hours ago"):
@@ -837,18 +856,37 @@ def phase_k3(P, device, rng, q5) -> dict:
     return results
 
 
+def ptxas_k1(log: str) -> dict:
+    """fused_dense_kernel's registers, stack frame and spill bytes from
+    the `ptxas -v` log of its library."""
+    at = log.find("Function properties for _Z18fused_dense_kernel")
+    frame = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads").search(log, max(at, 0))
+    used = re.compile(r"Used (\d+) registers").search(log, max(at, 0))
+    if at < 0 or frame is None or used is None:
+        raise AssertionError(f"no fused_dense_kernel usage in:\n{log}")
+    stack, stores, loads = map(int, frame.groups())
+    return {"registers": int(used.group(1)), "stack_bytes": stack,
+            "spill_bytes": stores + loads}
+
+
 def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
              device, seed: int = 0) -> dict:
     """K1 against its plain version at n = one batch for each plan; every
     plan, the 26,650-slot one included, reduces through the cluster
     histogram. J1's joined lane is gathered through the cities table's
-    probe, as the executor's batches gather it."""
+    probe, as the executor's batches gather it. Each plan's kernel has
+    no stack frame and no spill (ptxas_k1 of its library's log)."""
     n = BATCH_ROWS
     results = {}
     for name, (query, city_max) in k1_cases(demo, seed).items():
         plan, dp, spec = k1_spec(demo, FD, plan_dense, query, city_max)
         ranks = cuda_build.load_library("fused_dense", spec.source) \
             .ares_fused_dense_cluster(spec.n_slots, device.index or 0)
+        usage = ptxas_k1(cuda_build.library_path(
+            "fused_dense", spec.source).with_suffix(".log").read_text())
+        if usage["stack_bytes"] or usage["spill_bytes"]:
+            raise AssertionError(f"K1 {name}: ptxas {usage}")
         if ranks <= 0:
             raise AssertionError(f"K1 {name}: no cluster holds its "
                                  f"{spec.n_slots} slots")
@@ -892,9 +930,10 @@ def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
         results[name] = dict(n_slots=spec.n_slots, max_abs_err=err, ms=ms,
                              kernel_ms=kernel_ms, wall_ms=call_ms,
                              plain_ms=plain_ms, library_ms=None,
-                             bound_ms=b_ms, bound_by=b_by)
+                             bound_ms=b_ms, bound_by=b_by, ptxas=usage)
         print(f"K1 fused_dense {name}: n={n} n_slots={spec.n_slots} "
-              f"cluster of {ranks} ok, "
+              f"cluster of {ranks} ok, ptxas {usage}, literal block "
+              f"{len(spec.lits_i)} ints {len(spec.lits_f)} floats, "
               f"rows kept={rows_in} overflow={int(got_ovf)} "
               f"max_abs_err={err:.3g} device ms={ms:.4f} kernel-only "
               f"ms={kernel_ms:.4f} (per call "
@@ -1268,6 +1307,90 @@ def warm_ms(rec: dict) -> float:
     return 1e3 * float(np.median(rec["times"][1:]))
 
 
+def window_run(name: str, send, check) -> dict:
+    """One run of a query whose window or column range moved: its ms, the
+    libraries it built (cuda_build.built) and K1's launches in it (set to
+    0 just before, read just after); check(answer) holds the answer to
+    the CPU run and the numpy oracle. Raises if the run built a library
+    or did not launch K1."""
+    from aresdb_tpu_torch.query import fused_dense as FD
+    from aresdb_tpu_torch.utils import cuda_build
+
+    built = cuda_build.built
+    FD.FusedDenseKernel.launches = 0
+    t0 = time.perf_counter()
+    answer = send()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    run = {"ms": ms, "builds": cuda_build.built - built,
+           "k1_launches": FD.FusedDenseKernel.launches}
+    check(answer)
+    if run["builds"] or not run["k1_launches"]:
+        raise AssertionError(f"{name}: built {run['builds']} libraries, "
+                             f"launched K1 {run['k1_launches']} times")
+    return run
+
+
+def phase_window(name: str, gpu, cpu, q: dict, warm: float, oracle) -> None:
+    """`name` on the card once at each of its WINDOW_MOVES (the query's
+    `now` moved by that many seconds; 0 is the phase's warm query): each
+    run through window_run, its answer against the CPU service's at the
+    same `now` and oracle(answer, now). Records the runs, beside the
+    phase's warm median `warm` in ms, in WINDOW[name]."""
+    runs = []
+    for move in WINDOW_MOVES[name]:
+        moved = dict(q, now=q["now"] + move)
+
+        def check(answer, moved=moved, move=move):
+            same_result(f"{name} at now + {move} s", answer,
+                        ask(cpu, name, moved)[0])
+            oracle(answer, moved)
+
+        runs.append(dict(move_s=move, **window_run(
+            f"{name} at now + {move} s", lambda: ask(gpu, name, moved)[0],
+            check)))
+    WINDOW[name] = {"warm_ms": warm, "runs": runs}
+    print(f"window {name}: " + "; ".join(
+        f"now + {r['move_s']} s {r['ms']:.3f} ms ({r['ms'] / warm:.2f} x "
+        f"the warm median {warm:.3f}), {r['builds']} builds, K1 launches "
+        f"{r['k1_launches']}" for r in runs)
+        + "; each equals the cpu run and the numpy oracle", flush=True)
+
+
+def q1_oracle(data, demo):
+    """oracle(answer, query) of Q1's form at any `now`: sum(fare) of the
+    completed trips by hour x city (NULL where the city is) over the
+    query's resolved window, from the ingested batches."""
+    col = {k: np.concatenate([b[k] for b in data])
+           for k in ("request_at", "city_id", "city_valid", "status",
+                     "status_valid", "fare", "fare_valid")}
+    t = col["request_at"].astype(np.int64)
+    city = np.where(col["city_valid"], col["city_id"], 0).astype(np.int64)
+    fare = np.where(col["fare_valid"], col["fare"], 0).astype(np.float64)
+    completed = col["status_valid"] & (col["status"] == 0)
+
+    def check(answer, q):
+        plan = demo.demo_plan(q)
+        sel = completed & (t >= plan.from_ts) & (t < plan.to_ts)
+        keys, inv = np.unique(((t // 3600) * 65536 + city)[sel],
+                              return_inverse=True)
+        sums = np.bincount(inv, weights=fare[sel], minlength=len(keys))
+        want = {(time.strftime("%Y-%m-%d %H:00",
+                               time.gmtime(k // 65536 * 3600)),
+                 "NULL" if k % 65536 == 0 else str(k % 65536)): v
+                for k, v in zip(keys.tolist(), sums.tolist())}
+        got = flatten(answer)
+        if set(got) != set(want):
+            raise AssertionError(f"Q1 at {q['now']}: {len(got)} groups, "
+                                 f"the oracle {len(want)}")
+        for k, v in want.items():
+            if abs((got[k] or 0.0) - v) > max(ATOL, abs(v) * RTOL):
+                raise AssertionError(f"Q1 at {q['now']}: {k} {got[k]} "
+                                     f"against {v}")
+    return check
+
+
 def phase_mesh(label: str, store, queries: dict, single: dict, device,
                n_rows: int) -> tuple:
     """Mesh batches (ARES_MESH=1) over MESH_WIDTH entries of the one
@@ -1496,6 +1619,9 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None,
         cpu_answers[name] = cpu_answer
         single[name] = (answer, warm_ms(rec))
         report(name, rec, n_rows, listing_rows=name in LISTINGS)
+    if "Q1" in single:
+        phase_window("Q1", gpu, cpu, queries["Q1"][0], single["Q1"][1],
+                     q1_oracle(data, demo))
     if mesh:
         launches, mesh_in_situ = phase_mesh(
             "trips", store, {n: queries[n][:2] for n in mesh}, single,
@@ -1793,12 +1919,13 @@ def atrips_launches(name: str, runs: int, layout: dict) -> dict:
 
 
 def check_atrips(name: str, answer: dict, contexts, data: dict,
-                 answers: dict, n_chunks: int) -> None:
+                 answers: dict, n_chunks: int, now: int = ATRIPS_NOW
+                 ) -> None:
     """An atrips answer against the numpy oracle over the ingested rows
     (sums within rel 1e-5, counts exactly), the run-length answers
     against their expanded twins, and the stats that show the path
     ran: runlenBatches on every run of A2 and A4, prefilterRowsSkipped
-    on A5."""
+    on A5. `now`: the query's (A6's window ends there)."""
     city, status = data["city_id"], data["status"]
     fare = data["fare"].astype(np.float64)
 
@@ -1842,8 +1969,9 @@ def check_atrips(name: str, answer: dict, contexts, data: dict,
         if min(skipped) <= 0:
             raise AssertionError(f"A5: prefilterRowsSkipped {skipped}")
     elif name == "A6":
-        since = ATRIPS_NOW - 36 * 3600
-        sel = data["request_at"] >= since
+        # "36 hours ago" resolves to the start of its hour, "now" to now
+        since = (now - 36 * 3600) // 3600 * 3600
+        sel = (data["request_at"] >= since) & (data["request_at"] < now)
         hour = (data["request_at"][sel] // 3600).astype(np.int64)
         n_groups = len(np.unique(hour * N_CITIES + city[sel]))
         got = flatten(answer)
@@ -1943,6 +2071,11 @@ def phase_atrips(n_rows: int, seed: int, warm: int = 5, device=None,
                 check_atrips(name, rec["answer"], rec["contexts"], data,
                              answers, len(layout["chunks"]))
             report(name, rec, n_rows)
+        if "A6" in single:
+            phase_window("A6", gpu, cpu, queries["A6"][0], single["A6"][1],
+                         lambda answer, q: check_atrips(
+                             "A6", answer, [], data, answers,
+                             len(layout["chunks"]), now=q["now"]))
         if mesh:
             launches, mesh_in_situ = phase_mesh(
                 "atrips", store, {n: queries[n] for n in mesh}, single,
@@ -2267,6 +2400,23 @@ def trips_columns(data: dict, lo: int, hi: int) -> tuple:
             {"fare": data["fare_valid"][sl]})
 
 
+def raised_city_rows(data: dict, n: int, seed: int) -> dict:
+    """n more battery trips past data's ids, timed in the 8 hours before
+    SERVER_NOW (above phase_server's archiving cutoff), in cities
+    N_CITIES to 2 * N_CITIES - 1: the batch they land in plans a city
+    domain twice as wide."""
+    rng = np.random.RandomState(seed + 3)
+    first = int(data["id"].max()) + 1
+    return {"request_at": (SERVER_NOW - rng.randint(1, 8 * 3600, n))
+            .astype(np.uint32),
+            "city_id": rng.randint(N_CITIES, 2 * N_CITIES, n)
+            .astype(np.uint16),
+            "status": rng.randint(0, 3, n).astype(np.uint8),
+            "fare": (rng.rand(n) * 50).astype(np.float32),
+            "fare_valid": rng.rand(n) > 0.05,
+            "id": np.arange(first, first + n, dtype=np.uint32)}
+
+
 def city_rows() -> list:
     """The 300 cities as Connector.insert takes them
     (tools/drive_tpu_server.py:63-64): population (id + 1) * 1000."""
@@ -2327,14 +2477,14 @@ def check_server(name: str, answer, data: dict) -> None:
     if name == "B1":
         hour = data["request_at"].astype(np.int64) // 3600
         sel = status == 0
-        keys, inv = np.unique((hour * N_CITIES + city)[sel],
+        keys, inv = np.unique((hour * 65536 + city)[sel],
                               return_inverse=True)
         s = np.bincount(inv, weights=np.where(valid[sel], fare[sel], 0.0),
                         minlength=len(keys))
         want = {(time.strftime("%Y-%m-%d %H:00",
-                               time.gmtime(k // N_CITIES * 3600)),
-                 str(k % N_CITIES)): v for k, v in zip(keys.tolist(),
-                                                      s.tolist())}
+                               time.gmtime(k // 65536 * 3600)),
+                 str(k % 65536)): v for k, v in zip(keys.tolist(),
+                                                    s.tolist())}
         by_key(flatten(answer), want)
     elif name == "B2":
         want = {}
@@ -2733,12 +2883,75 @@ def phase_server(n_rows: int, seed: int, warm: int = 5, device=None,
                     check_server(name, answer, data)
                 print("server restarted: B1 and B14 equal their first "
                       "answers", flush=True)
+                range_step(port, server.ctx.query_service, queries, data,
+                           seed)
             finally:
                 shut_down(server, ms, sched)
     finally:
         clock.reset_clock()
     return totals, {k: {} for k in counters}, {"answers": first,
                                                "warm_ms": warm_ms}
+
+
+def range_step(port: int, svc, queries: dict, data: dict,
+               seed: int) -> None:
+    """phase_window's column-range kind: WINDOW_RANGE_ROWS trips in cities
+    past the loaded ones (raised_city_rows) through the Connector into a
+    batch of their own, then B1 over HTTP once (window_run: no library
+    built, K1 launched, equal to the CPU service and the numpy oracle over
+    all the rows) and three times more for its warm median; the daemon's
+    service `svc` then holds K1 kernels of one source over both city
+    domains. Records WINDOW["B1 raised range"]."""
+    from aresdb_tpu_torch.client import Connector
+    from aresdb_tpu_torch.query import executor as X
+    from aresdb_tpu_torch.query import fused_dense as FD
+    from aresdb_tpu_torch.query.service import QueryService
+
+    store = svc.memstore
+
+    rows = raised_city_rows(data, WINDOW_RANGE_ROWS, seed)
+    stats = Connector("localhost", port).insert_columns(
+        "trips", *trips_columns(rows, 0, WINDOW_RANGE_ROWS))
+    if stats["inserted"] != WINDOW_RANGE_ROWS:
+        raise AssertionError(f"window: inserted {stats}")
+    grown = {k: np.concatenate([data[k], rows[k]]) for k in data}
+    cpu = QueryService(store, device="cpu")
+    route, q = queries["B1"]
+
+    def check(answer):
+        same_result("B1 over a raised city range", answer,
+                    ask(cpu, "B1", q)[0])
+        check_server("B1", answer, grown)
+
+    run = window_run("B1 over a raised city range",
+                     lambda: ask_http(port, "B1", route, q)[0], check)
+    layout = atrips_layout(store.get_table_shard("trips"),
+                           X.ShardExecutor.ARCHIVE_CHUNK_ROWS)
+    want = server_launches("B1", 1, layout)["K1"]
+    if run["k1_launches"] != want:
+        raise AssertionError(f"window B1: K1 launches {run['k1_launches']}"
+                             f", expected {want} over {layout}")
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ask_http(port, "B1", route, q)
+        warm.append(1e3 * (time.perf_counter() - t0))
+    median = float(np.median(warm))
+    run["city_max"] = int(rows["city_id"].max())
+    cities = {}   # source -> the city domain sizes of its K1 kernels
+    for fn in svc.executor.kernel_cache._cache.values():
+        if isinstance(fn, FD.FusedDenseKernel):
+            cities.setdefault(fn.spec.source, set()).add(
+                fn.dense_plan.domains[-1].size)
+    if not any(min(v) < 2 * N_CITIES <= max(v) for v in cities.values()):
+        raise AssertionError(f"window: K1's city domains {cities.values()}")
+    WINDOW["B1 raised range"] = {"warm_ms": median, "runs": [run]}
+    print(f"window B1: {WINDOW_RANGE_ROWS} rows in cities up to "
+          f"{run['city_max']} inserted; B1 over HTTP {run['ms']:.3f} ms "
+          f"({run['ms'] / median:.2f} x its warm median {median:.3f}), "
+          f"{run['builds']} builds, K1 launches {run['k1_launches']} (live "
+          f"batches {layout['live']}, archive chunks {layout['chunks']}); "
+          "equal to the cpu run and the numpy oracle", flush=True)
 
 
 # the cluster of README.md:71-92 and tests/test_distributed.py:58-106: a
@@ -3758,6 +3971,12 @@ def main(argv=None) -> int:
                    k3[K3_CASES[0][0]], in_situ["K3"],
                    traffic={"q5_traffic": k3[K3_Q5_CASE]}),
     ]
+    kernels[0]["ptxas"] = {name: r["ptxas"] for name, r in k1.items()}
+    if sorted(WINDOW) != ["A6", "B1 raised range", "Q1"]:
+        raise AssertionError(f"window: runs of {sorted(WINDOW)}")
+    print(json.dumps({"window": {**WINDOW, "nvcc": {
+        "libraries": cuda_build.built,
+        "seconds": cuda_build.build_seconds}}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Measure the slot-histogram kernels K1, K2 and K3 on one GPU.
 
-    python3 kernel_ab.py [--parent DIR] [--modes sass,ab] [--out FILE]
+    python3 kernel_ab.py [--parent DIR] [--parent-tree ROOT]
+                         [--modes sass,ab,trees] [--out FILE]
 
 - sass:  what the float atomicAdd of each built kernel compiles to
          (cuobjdump -sass): shared-memory, distributed shared-memory and
@@ -13,6 +14,19 @@
          the plain version before it is timed. DIR holds the parent's
          `aresdb_tpu_torch/csrc/` files (e.g. from `git show`); its sources
          are built beside this tree's and never imported.
+- trees: the parent commit's whole tree against this one, where the
+         kernels' interface changed: ROOT is the parent unpacked (`git
+         archive HEAD | tar -x -C ROOT`). Each tree runs in a process of
+         its own, in turns (parent, change, change, parent), with its
+         own `chip_smoke.py` and `aresdb_tpu_torch` first on sys.path:
+         its phase_k1 (K1 on the nine plans, each checked against the
+         plain version), each K1 library's ptxas usage and SASS counts
+         (instructions, LDC, constant-bank operands); and, on its first
+         turn (the build directory as the machine has it, empty on a
+         fresh copy), the window probe: Q1 (4 batches of trips) cold,
+         twice warm and a quarter-hour on, and A6 (4 batches of atrips,
+         two days archived) cold, twice warm and one and two seconds on,
+         each run's ms and the libraries it built.
 
 Times are device milliseconds per call from torch.profiler: `ms` with the
 output memset the wrapper launches, `kernel_ms` of the kernels alone. Every
@@ -28,6 +42,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -92,6 +107,9 @@ probe(const int* s, const float* v, float* out) {
 }
 """,
 }
+
+
+TREE_ROWS = 4 * N   # the window probe's trips and atrips rows
 
 
 def emit(rec: dict) -> None:
@@ -311,7 +329,7 @@ def mode_ab(parent: Path, k1, k3, rng, device) -> None:
                             parent))
         old_fn = cuda_build.load_library("parent_fused_dense", text) \
             .ares_fused_dense
-        old_fn.argtypes = [p, p, i, ll, ll, p, ll, i, p, p, i, p]
+        old_fn.argtypes = [p, p, i, p, p, ll, ll, p, ll, i, p, p, i, p]
         old_fn.restype = i
         vals_p, valids_p, n_cols, tptr = k1_pointers(kern, columns)
         n_slots = kern.spec.n_slots
@@ -319,8 +337,9 @@ def mode_ab(parent: Path, k1, k3, rng, device) -> None:
         def old():
             out = torch.zeros((3, n_slots), device=device)
             ovf = torch.zeros(1, dtype=torch.int32, device=device)
-            rc = old_fn(vals_p, valids_p, n_cols, N, n_valid, tptr, cutoff,
-                        n_slots, out.data_ptr(), ovf.data_ptr(), 0,
+            rc = old_fn(vals_p, valids_p, n_cols, *kern._lits, N, n_valid,
+                        tptr, cutoff, n_slots, out.data_ptr(),
+                        ovf.data_ptr(), 0,
                         torch.cuda.current_stream().cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"parent K1: CUDA error {rc}")
@@ -371,10 +390,127 @@ def mode_ab(parent: Path, k1, k3, rng, device) -> None:
               "cold_l2_runs": cold})
 
 
+def window_probe(device, seed: int, rows: int = TREE_ROWS,
+                 batch_rows: int = N) -> dict:
+    """Q1 over `rows` trips cold, twice warm and a quarter-hour on, and A6
+    over `rows` atrips (two days archived) cold, twice warm and one and
+    two seconds on, through the tree's QueryService on `device`: each
+    run's ms, groups and the libraries it built."""
+    import tempfile
+
+    from aresdb_tpu_torch import demo
+    from aresdb_tpu_torch.query.service import QueryService
+    from aresdb_tpu_torch.utils import cuda_build
+
+    built = []
+    start = cuda_build._start
+
+    def counting_start(name, text, compiler, build_dir):
+        job = start(name, text, compiler, build_dir)
+        if job is not None:
+            built.append(name)
+        return job
+
+    def runs(svc, name, q, moves):
+        out = []
+        for move in moves:
+            n0 = len(built)
+            t0 = time.perf_counter()
+            answer, _ = S.ask(svc, name, dict(q, now=q["now"] + move))
+            if svc.device.type == "cuda":
+                torch.cuda.synchronize()
+            out.append({"move_s": move, "groups": len(S.flatten(answer)),
+                        "ms": 1e3 * (time.perf_counter() - t0),
+                        "builds": len(built) - n0})
+        return out
+
+    cuda_build._start = counting_start
+    try:
+        store, _, _ = S.ingest_trips(rows, seed, batch_rows)
+        rec = {"Q1": runs(QueryService(store, device=device), "Q1",
+                          demo.DEMO_QUERY, (0, 0, 0, 900))}
+        with tempfile.TemporaryDirectory() as root:
+            store = S.ingest_atrips(rows, seed, batch_rows, root)[0]
+            rec["A6"] = runs(QueryService(store, device=device), "A6",
+                             S.atrips_queries()["A6"][0], (0, 0, 0, 1, 2))
+    finally:
+        cuda_build._start = start
+    return rec
+
+
+def tree_child(tag: str, window: bool, seed: int) -> None:
+    """One turn of mode trees, in a process whose sys.path starts with
+    the tree's root: prints one JSON line of its results."""
+    from aresdb_tpu_torch import demo
+    from aresdb_tpu_torch.query import fused_dense as FD
+    from aresdb_tpu_torch.query.dense import plan_dense
+    from aresdb_tpu_torch.query.executor import columns_from_numpy
+    from aresdb_tpu_torch.utils import cuda_build
+
+    device = torch.device("cuda")
+    rec = {"tree": tag, "root": str(Path(S.__file__).parent)}
+    if window:
+        rec.update(window_probe(device, seed))
+    sources = []
+    for query, city_max in S.k1_cases(demo, seed).values():
+        spec = S.k1_spec(demo, FD, plan_dense, query, city_max)[2]
+        sources.append(("fused_dense", spec.source, "nvcc"))
+    rec["k1_build_s"] = cuda_build.build_all(sources)
+    rec["k1_ptxas"] = {
+        k: ptxas_usage(cuda_build.library_path(*src).with_suffix(".log")
+                       .read_text()) for k, src in
+        zip(S.k1_cases(demo, seed), sources)}
+    cuobjdump = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
+    rec["k1_sass"] = {}
+    for k, src in zip(S.k1_cases(demo, seed), sources):
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(cuda_build.library_path(*src))],
+            capture_output=True, text=True).stdout
+        body = sass[sass.find("fused_dense_kernel"):]
+        rec["k1_sass"][k] = {
+            "instructions": len(re.findall(r"/\*[0-9a-f]{4}\*/", body)),
+            "LDC": len(re.findall(r"\bLDC\b", body)),
+            "c[0x0] operands": len(re.findall(r"c\[0x0\]", body))}
+    k1 = S.phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
+                    device, seed)
+    rec["k1"] = {k: {m: r[m] for m in ("ms", "kernel_ms", "max_abs_err")}
+                 for k, r in k1.items()}
+    print("TREE " + json.dumps(rec), flush=True)
+
+
+def mode_trees(parent: Path, seed: int) -> None:
+    """The parent tree and this one in turns, each turn a process
+    (tree_child); emits each turn's results."""
+    here = Path(__file__).resolve().parent
+    seen = set()
+    for tag, root in (("parent", parent.resolve()), ("change", here),
+                      ("change", here), ("parent", parent.resolve())):
+        # this file, loaded by its path: the tree's root, first on
+        # sys.path, gives chip_smoke and aresdb_tpu_torch
+        code = ("import importlib.util, sys; sys.path.insert(0, sys.argv[1]);"
+                " s = importlib.util.spec_from_file_location('kernel_ab_turn',"
+                " sys.argv[2]); m = importlib.util.module_from_spec(s); "
+                "s.loader.exec_module(m); m.tree_child(sys.argv[3], "
+                "sys.argv[4] == '1', int(sys.argv[5]))")
+        proc = subprocess.run(
+            [sys.executable, "-c", code, str(root), str(Path(__file__)
+                                                         .resolve()), tag,
+             "0" if tag in seen else "1", str(seed)],
+            cwd=str(root), capture_output=True, text=True, timeout=900)
+        seen.add(tag)
+        lines = [l for l in proc.stdout.splitlines() if l.startswith("TREE ")]
+        if proc.returncode != 0 or len(lines) != 1:
+            raise RuntimeError(f"{tag} turn failed ({proc.returncode}):\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        emit({"mode": "trees", **json.loads(lines[0][5:])})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path,
                     help="directory with the parent commit's csrc/ files")
+    ap.add_argument("--parent-tree", type=Path,
+                    help="the parent commit's whole tree, for mode trees")
     ap.add_argument("--modes", default="sass,ab")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path,
@@ -386,6 +522,8 @@ def main(argv=None) -> int:
     modes = args.modes.split(",")
     if "ab" in modes and args.parent is None:
         ap.error("mode ab needs --parent")
+    if "trees" in modes and args.parent_tree is None:
+        ap.error("mode trees needs --parent-tree")
     global OUT
     OUT = args.out
     if OUT is not None:
@@ -396,6 +534,10 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip()
     emit({"card": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    if "trees" in modes:
+        mode_trees(args.parent_tree, args.seed)
+        if modes == ["trees"]:
+            return 0
     from aresdb_tpu_torch.query import pallas_ops as P
     from aresdb_tpu_torch.utils import cuda_build
 

@@ -171,6 +171,10 @@ def test_phase_mesh_and_phase_pool_follow_the_trips_queries(cpu_rehearsal,
     assert launches == {"K1": 2 * 3 + 2 * 3 + 16 * 3,
                         "K2": 2 * 3 + sum(g for g, _ in k2.values())
                         + 8 * 3, "K3": 0}
+    # phase_window: Q1 at now and a quarter-hour on, K1 on its 3 batches
+    assert "window Q1: now + 0 s" in out
+    assert [(r["move_s"], r["builds"], r["k1_launches"])
+            for r in S.WINDOW["Q1"]["runs"]] == [(0, 0, 3), (900, 0, 3)]
 
 
 def test_phase_mesh_reruns_the_batches_that_outgrow_its_capacity(
@@ -258,6 +262,12 @@ def test_phase_atrips_runs_the_archive_queries_with_their_launches(
                         "K2": 2 * (4 + 4) + 2 * 2 * 7, "K3": 0}
     for name in names:
         assert f"{name}: cuda result matches the cpu run" in out
+    # phase_window: A6 at now, now + 1 and now + 2, K1 on its 5 batches
+    # and chunks each time, against the cpu run and the oracle
+    assert "window A6: now + 0 s" in out
+    assert [(r["move_s"], r["builds"], r["k1_launches"])
+            for r in S.WINDOW["A6"]["runs"]] == [(0, 0, 5), (1, 0, 5),
+                                                 (2, 0, 5)]
 
 
 def test_phase_atrips_runs_the_geo_queries_and_the_dense_sweep(
@@ -426,6 +436,14 @@ def test_phase_server_runs_the_battery_over_http(cpu_rehearsal, capsys):
     assert "every answer equals its serial one" in out
     assert "answers 'query timed out'" in out
     assert "B1 and B14 equal their first answers" in out
+    # phase_window's range kind: B1 after rows in cities 300-599, against
+    # the cpu run and the oracle over every row
+    # (a batch of their own; K1 on it, on the recovered live batch and on
+    # the large archive chunk)
+    run, = S.WINDOW["B1 raised range"]["runs"]
+    assert (run["builds"], run["k1_launches"]) == (0, 3)
+    assert run["city_max"] >= 512
+    assert "window B1: 65536 rows in cities up to" in out
     assert launches == {"K1": 2 * 5 * 3 + 2 * 5 * 4,
                         "K2": 2 * 3 + 2 * 4 * 1 + 2 * 5, "K3": 0}
     assert list(S.server_queries()) == [f"B{i}" for i in range(1, 15)]

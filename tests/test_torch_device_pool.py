@@ -138,7 +138,10 @@ def test_query_service_places_concurrent_queries_on_distinct_devices(
     """4 concurrent queries through each package's QueryService with a
     pool of 4 devices: every lease is served, each query's context names
     its device, every answer equals the JAX package's and the
-    single-device one."""
+    single-device one. Each of the port's queries waits, inside its
+    lease, until all 4 have one, so the leases overlap: a short query
+    could otherwise hand its lease back before the next thread takes
+    one, and most-free-first placement would then reuse entry 0."""
     monkeypatch.setenv("ARES_FUSED", "interp")
     ms, jms = _stores(tmp_path, archived=False)
     try:
@@ -153,6 +156,15 @@ def test_query_service_places_concurrent_queries_on_distinct_devices(
         n_threads = 4
         seen = {"port": [], "jax": []}
         errs = []
+        held = threading.Barrier(n_threads, timeout=30)
+
+        def holding(execute):
+            def run(*args, **kwargs):
+                out = execute(*args, **kwargs)
+                held.wait()
+                return out
+            return run
+
         for side, service in (("port", svc), ("jax", jsvc)):
             barrier = threading.Barrier(n_threads)
 
@@ -166,12 +178,16 @@ def test_query_service_places_concurrent_queries_on_distinct_devices(
                 except Exception as e:  # noqa: BLE001
                     errs.append(e)
 
-            threads = [threading.Thread(target=run_one)
-                       for _ in range(n_threads)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=120)
+            with pytest.MonkeyPatch.context() as mp:
+                if side == "port":
+                    for e in svc.pool_executors:
+                        mp.setattr(e, "execute", holding(e.execute))
+                threads = [threading.Thread(target=run_one)
+                           for _ in range(n_threads)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=120)
         assert not errs, errs
         assert len(seen["port"]) == len(seen["jax"]) == n_threads
         for resp, jresp in zip(seen["port"], seen["jax"]):

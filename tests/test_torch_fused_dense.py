@@ -17,6 +17,12 @@ input lane, gathered through the join's probe before the kernel runs; it
 is held against the JAX package's fused kernel, and its row function
 against the torch emitter, the same way.
 
+The emitted source holds a plan's structure only: a moved window (the
+query's `now`) or a moved column range gives the same source, and so one
+library, with another literal block. The g++-built row function is run
+with each window's block against the torch emitter at that window, and
+both packages' services answer at two windows alike.
+
 Tolerances are the JAX package's: counts, row totals and overflow exact,
 float sums within rtol=2e-4, atol=1e-3.
 """
@@ -89,8 +95,14 @@ CASES = {
 }
 
 
-def _setup(name):
+# a second window for each case: 5 h 15 min later, so the time filter
+# drops the oldest rows and the hour domain's base moves
+SHIFT = 5 * 3600 + 900
+
+
+def _setup(name, shift=0):
     query, seed, n_valid, cutoff, n_cities, city_stat = CASES[name]
+    query = dict(query, now=query["now"] + shift)
     jplan = JD.demo_plan(query)
     tplan = TD.demo_plan(query)
     cols_np, _ = JD.demo_columns(jplan, N_ROWS, seed=seed, n_cities=n_cities)
@@ -148,37 +160,62 @@ def gxx_build_dir(tmp_path_factory):
     return tmp_path_factory.mktemp("fused_rows")
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_emitted_row_function_matches_torch_emitter(name, gxx_build_dir):
-    _, _, _, tplan, tdp, tspec, cols_np, _, _ = _setup(name)
-    cols = columns_from_numpy(cols_np, N_ROWS, CPU)
-    lib = cuda_build.load_library("fused_rows", tspec.source, "g++",
-                                  gxx_build_dir)
+def _host_rows(spec, lanes, build_dir) -> dict:
+    """The g++-built row function of spec's source over the lanes, with
+    spec's literal block: its per-row lanes by name."""
+    lib = cuda_build.load_library("fused_rows", spec.source, "g++",
+                                  build_dir)
     fn = lib.ares_rows_host
     p = ctypes.c_void_p
-    fn.argtypes = [p, p, ctypes.c_longlong, p, p, p, p, p]
+    fn.argtypes = [p, p, p, p, ctypes.c_longlong, p, p, p, p, p]
     fn.restype = None
-    lanes = [cols[(0, cid)] for cid in tspec.col_ids]
     vals = (p * len(lanes))(*[v.data_ptr() for v, _ in lanes])
     valids = (p * len(lanes))(*[b.data_ptr() for _, b in lanes])
-    keep = np.zeros(N_ROWS, np.uint8)
-    bad = np.zeros(N_ROWS, np.uint8)
-    slot = np.zeros(N_ROWS, np.int32)
-    mval = np.zeros(N_ROWS, np.float32)
-    mvalid = np.zeros(N_ROWS, np.uint8)
-    fn(vals, valids, N_ROWS, keep.ctypes.data, bad.ctypes.data,
-       slot.ctypes.data, mval.ctypes.data, mvalid.ctypes.data)
+    lits_i = np.array(spec.lits_i or [0], np.int32)
+    lits_f = np.array(spec.lits_f or [0], np.float32)
+    out = {"keep": np.zeros(N_ROWS, np.uint8),
+           "bad": np.zeros(N_ROWS, np.uint8),
+           "slot": np.zeros(N_ROWS, np.int32),
+           "mval": np.zeros(N_ROWS, np.float32),
+           "mvalid": np.zeros(N_ROWS, np.uint8)}
+    fn(vals, valids, lits_i.ctypes.data, lits_f.ctypes.data, N_ROWS,
+       *[a.ctypes.data for a in out.values()])
+    return out
 
-    ctx = K._EvalCtx(cols, N_ROWS, CPU)
+
+def _assert_rows_match_torch_emitter(got, tplan, tdp, cols, foreign=()):
+    ctx = K._EvalCtx(cols, N_ROWS, CPU, foreign)
     mask, dim_vals = K._eval_common(tplan, ctx, N_ROWS, None)
     want_slot, want_bad = K.dense_slot_lane(dim_vals, tdp, N_ROWS, CPU)
     mlane = K._measure_lane(tplan, ctx)
-    np.testing.assert_array_equal(keep.astype(bool), mask.numpy())
-    np.testing.assert_array_equal(bad.astype(bool), want_bad.numpy())
-    np.testing.assert_array_equal(slot, want_slot.numpy())
-    np.testing.assert_array_equal(mvalid.astype(bool), mlane.valid.numpy())
-    np.testing.assert_array_equal(mval, mlane.value.numpy())
-    assert keep.any() and not keep.all() or name == "count_no_filters"
+    np.testing.assert_array_equal(got["keep"].astype(bool), mask.numpy())
+    np.testing.assert_array_equal(got["bad"].astype(bool), want_bad.numpy())
+    np.testing.assert_array_equal(got["slot"], want_slot.numpy())
+    np.testing.assert_array_equal(got["mvalid"].astype(bool),
+                                  mlane.valid.numpy())
+    np.testing.assert_array_equal(got["mval"], mlane.value.numpy())
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_emitted_row_function_matches_torch_emitter(name, gxx_build_dir):
+    """At the case's window and at one SHIFT later: one source, so one
+    library, read with each window's literal block."""
+    rows = []
+    for shift in (0, SHIFT):
+        _, _, _, tplan, tdp, tspec, cols_np, _, _ = _setup(name, shift)
+        cols = columns_from_numpy(cols_np, N_ROWS, CPU)
+        lanes = [cols[(0, cid)] for cid in tspec.col_ids]
+        got = _host_rows(tspec, lanes, gxx_build_dir)
+        _assert_rows_match_torch_emitter(got, tplan, tdp, cols)
+        keep = got["keep"]
+        assert keep.any() and not keep.all() or name == "count_no_filters"
+        rows.append((tspec, got))
+    (spec0, got0), (spec1, got1) = rows
+    assert spec1.source == spec0.source
+    assert spec1.lits_i != spec0.lits_i
+    # the later window drops the oldest rows and moves the hour slots
+    assert not np.array_equal(got1["keep"], got0["keep"]) or \
+        not np.array_equal(got1["slot"], got0["slot"])
 
 
 def test_plan_fused_keeps_the_jax_eligibility_rules():
@@ -290,28 +327,157 @@ def test_emitted_row_function_reads_the_joined_lane(gxx_build_dir):
     lanes = kern._lanes(cols, foreign)
     assert len(lanes) == len(tspec.col_ids) + 1
     assert "V[4]" in tspec.source and "V[5]" not in tspec.source
-    lib = cuda_build.load_library("fused_rows", tspec.source, "g++",
-                                  gxx_build_dir)
-    fn = lib.ares_rows_host
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, ctypes.c_longlong, p, p, p, p, p]
-    fn.restype = None
-    vals = (p * len(lanes))(*[v.data_ptr() for v, _ in lanes])
-    valids = (p * len(lanes))(*[b.data_ptr() for _, b in lanes])
-    keep = np.zeros(N_ROWS, np.uint8)
-    bad = np.zeros(N_ROWS, np.uint8)
-    slot = np.zeros(N_ROWS, np.int32)
-    mval = np.zeros(N_ROWS, np.float32)
-    mvalid = np.zeros(N_ROWS, np.uint8)
-    fn(vals, valids, N_ROWS, keep.ctypes.data, bad.ctypes.data,
-       slot.ctypes.data, mval.ctypes.data, mvalid.ctypes.data)
-    ctx = K._EvalCtx(cols, N_ROWS, CPU, foreign)
-    mask, dim_vals = K._eval_common(tplan, ctx, N_ROWS, None)
-    want_slot, want_bad = K.dense_slot_lane(dim_vals, tdp, N_ROWS, CPU)
-    mlane = K._measure_lane(tplan, ctx)
-    np.testing.assert_array_equal(keep.astype(bool), mask.numpy())
-    np.testing.assert_array_equal(bad.astype(bool), want_bad.numpy())
-    np.testing.assert_array_equal(slot, want_slot.numpy())
-    np.testing.assert_array_equal(mvalid.astype(bool), mlane.valid.numpy())
-    np.testing.assert_array_equal(mval, mlane.value.numpy())
-    assert keep.any() and not keep.all()
+    got = _host_rows(tspec, lanes, gxx_build_dir)
+    _assert_rows_match_torch_emitter(got, tplan, tdp, cols, foreign)
+    assert got["keep"].any() and not got["keep"].all()
+
+
+# ---------------------------------------------------------------------------
+# the source holds the plan's structure; its literal block holds the values
+# ---------------------------------------------------------------------------
+
+# chip_smoke's A6 over the demo trips: sum(fare) by hour x city_id over
+# the 36 hours up to `now`, whose upper bound moves every second
+A6_QUERY = _q(measures=[{"sqlExpression": "sum(fare)"}],
+              timeFilter={"column": "request_at", "from": "36 hours ago",
+                          "to": "now"})
+
+
+def _port_spec(query, city_max=300, now=None):
+    if now is not None:
+        query = dict(query, now=now)
+    plan = TD.demo_plan(query)
+    stats = {(0, plan.main_schema.column_id("city_id")): (1, city_max),
+             (0, plan.main_schema.column_id("fare")): (0.0, 50.0)}
+    dp = plan_dense(plan, stats)
+    spec = FD.plan_fused(plan, dp)
+    assert spec is not None
+    return spec
+
+
+# name -> (spec, spec): one plan structure, another window or range
+SAME_STRUCTURE = {
+    "A6 at now and now + 1": (A6_QUERY, {"now": JD.DEMO_NOW},
+                              {"now": JD.DEMO_NOW + 1}),
+    "headline across a quarter-hour": (JD.DEMO_QUERY, {"now": JD.DEMO_NOW},
+                                       {"now": JD.DEMO_NOW + 900}),
+    "headline as its city range grows": (JD.DEMO_QUERY, {"city_max": 300},
+                                         {"city_max": 600}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SAME_STRUCTURE))
+def test_a_moved_window_or_range_emits_the_same_source(name):
+    query, before, after = SAME_STRUCTURE[name]
+    a, b = _port_spec(query, **before), _port_spec(query, **after)
+    assert b.source == a.source
+    assert (b.lits_i, b.lits_f) != (a.lits_i, a.lits_f)
+    assert "#define ARES_NI" in a.source
+    # no window bound, domain base, size or stride is a C constant
+    for v in set(a.lits_i + b.lits_i) - {0, 1}:
+        assert f"({v})" not in a.source and f" {v})" not in a.source
+
+
+# name -> the query whose structure differs from the headline's
+OTHER_STRUCTURE = {
+    "count measure": _q(measures=[{"sqlExpression": "count(*)"}]),
+    "day-of-week dimension": _q(dimensions=_dims("day of week")),
+    "one more filter": _q(measures=[{
+        "sqlExpression": "sum(fare)",
+        "rowFilters": ["status='completed'", "city_id != 7"]}]),
+    "the 36-hour window": A6_QUERY,
+    "a numeric bucket": _q(dimensions=[{
+        "sqlExpression": "fare", "numericBucketizer": {"bucketWidth": 5.0}}]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OTHER_STRUCTURE))
+def test_another_plan_structure_emits_another_source(name):
+    assert _port_spec(OTHER_STRUCTURE[name]).source != \
+        _port_spec(JD.DEMO_QUERY).source
+
+
+def test_two_windows_build_one_library(tmp_path):
+    """The second window's source is the first's: load_library finds the
+    library in the process, and build_all finds it on disk."""
+    a = _port_spec(JD.DEMO_QUERY, now=JD.DEMO_NOW)
+    b = _port_spec(JD.DEMO_QUERY, now=JD.DEMO_NOW + 900)
+    built = cuda_build.built
+    lib_a = cuda_build.load_library("fused_rows", a.source, "g++", tmp_path)
+    assert cuda_build.built == built + 1
+    assert cuda_build.build_seconds > 0
+    lib_b = cuda_build.load_library("fused_rows", b.source, "g++", tmp_path)
+    assert lib_b is lib_a
+    cuda_build.build_all([("fused_rows", b.source, "g++")], tmp_path)
+    assert cuda_build.built == built + 1
+    assert len(list(tmp_path.glob("*.so"))) == 1
+
+
+def test_a_plan_over_the_literal_capacity_bakes_them_and_matches(
+        gxx_build_dir):
+    ids = ", ".join(str(c) for c in range(1, FD.MAX_LITS + 2))
+    q = _q(measures=[{"sqlExpression": "sum(fare)",
+                      "rowFilters": [f"city_id in ({ids})",
+                                     "status='completed'"]}])
+    tplan = TD.demo_plan(q)
+    cols_np, _ = JD.demo_columns(JD.demo_plan(q), N_ROWS, seed=3,
+                                 n_cities=2 * FD.MAX_LITS)
+    stats = {(0, tplan.main_schema.column_id("city_id")):
+             (1, 2 * FD.MAX_LITS)}
+    tdp = plan_dense(tplan, stats)
+    tspec = FD.plan_fused(tplan, tdp)
+    assert tspec is not None
+    assert tspec.lits_i == [] and tspec.lits_f == []
+    assert "#define ARES_NI 0\n#define ARES_NF 0\n" in tspec.source
+    assert "P.i[" not in tspec.source and f"({FD.MAX_LITS + 1})" in \
+        tspec.source
+    cols = columns_from_numpy(cols_np, N_ROWS, CPU)
+    got = _host_rows(tspec, [cols[(0, cid)] for cid in tspec.col_ids],
+                     gxx_build_dir)
+    _assert_rows_match_torch_emitter(got, tplan, tdp, cols)
+    # about half the cities pass the IN-list
+    assert 0.3 < got["keep"].mean() / 0.98 ** 2 / (1 / 3) < 0.7
+
+
+@pytest.fixture(scope="module")
+def windowed_services():
+    """Both packages' services over two live batches of FD_MIN_ROWS demo
+    trips, so that the port routes dense plans through K1 (its plain
+    version on the CPU) and the JAX package through its interpreted
+    Pallas K1."""
+    from tests.test_torch_service import TRIPS, _random_batches, _services
+
+    mp = pytest.MonkeyPatch()
+    mp.setenv("ARES_FUSED", "interp")
+    n = 2 * FD.FD_MIN_ROWS
+    trips = dict(TRIPS, config={"batchSize": FD.FD_MIN_ROWS,
+                                "recordRetentionInDays": 0})
+    yield _services([trips], _random_batches(n, 4, n))
+    mp.undo()
+
+
+# (query, its later `now`): each later window drops some of the oldest
+# rows (the rows lie in the 20 hours before DEMO_NOW)
+WINDOWS = {"headline": (JD.DEMO_QUERY, JD.DEMO_NOW + SHIFT),
+           "A6": (A6_QUERY, JD.DEMO_NOW + 17 * 3600)}
+
+
+@pytest.mark.parametrize("name", sorted(WINDOWS))
+def test_both_packages_answer_alike_at_two_windows(name, windowed_services,
+                                                   monkeypatch):
+    from tests.test_torch_service import _assert_same
+
+    query, later = WINDOWS[name]
+    sources = []
+    real = FD.FusedDenseKernel.reduce
+
+    def spy(self, *args):
+        sources.append(self.spec.source)
+        return real(self, *args)
+
+    monkeypatch.setattr(FD.FusedDenseKernel, "reduce", spy)
+    answers = [_assert_same(dict(query, now=now), *windowed_services)
+               for now in (JD.DEMO_NOW, later)]
+    assert answers[0] != answers[1]
+    # both windows ran K1 on each batch, from one structural source
+    assert len(sources) == 4 and len(set(sources)) == 1
