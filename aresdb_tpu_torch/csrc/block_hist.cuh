@@ -110,10 +110,6 @@ ARES_HD int hist_policy(int n_slots, int C, long long static_bytes,
 
 #ifdef __CUDACC__
 #include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-#include <mutex>
-#include <utility>
 
 namespace cg = cooperative_groups;
 
@@ -229,6 +225,22 @@ __device__ __forceinline__ int block_sum_int(int v) {
   return total;
 }
 
+#endif  // __CUDACC__
+
+// The host helpers below: nvcc's build of a whole kernel library compiles
+// them; a device-only build (K1's per-plan cubin, ARES_DEVICE_ONLY) does
+// not parse them; a host-only build (K1's launcher, under the host
+// compiler) asks for them with ARES_HIST_HOST.
+#if defined(__CUDACC__) && !defined(ARES_DEVICE_ONLY)
+#define ARES_HIST_HOST
+#endif
+
+#ifdef ARES_HIST_HOST
+#include <cuda_runtime.h>
+
+#include <mutex>
+#include <utility>
+
 // Grid size for a grid-stride loop over n rows: every SM filled to the
 // occupancy the kernel allows with this much dynamic shared memory, and no
 // more blocks than rows need.
@@ -258,8 +270,11 @@ static void hist_device_limits(int device, long long* optin, int* max_cluster) {
 // How many clusters of G blocks of HIST_THREADS threads with `smem`
 // dynamic bytes the card holds at once (cudaOccupancyMaxActiveClusters;
 // 0 where the query fails), cached per (kernel, device, G, smem): launches
-// must not pay the query. Also raises the kernel's dynamic shared memory
-// limit to the card's opt-in bytes less `static_bytes`.
+// must not pay the query. K1's launcher holds every plan structure's
+// kernel, so the cache holds HIST_CACHE entries. Also raises the kernel's
+// dynamic shared memory limit to the card's opt-in bytes less
+// `static_bytes`.
+#define HIST_CACHE 1024
 template <typename Kernel>
 static int hist_max_clusters(Kernel kernel, int device, int G, size_t smem,
                              size_t static_bytes, long long optin) {
@@ -270,7 +285,7 @@ static int hist_max_clusters(Kernel kernel, int device, int G, size_t smem,
     int clusters;
   };
   static std::mutex mu;
-  static Entry cache[64];
+  static Entry cache[HIST_CACHE];
   static int n_cached = 0;
   std::lock_guard<std::mutex> lock(mu);
   for (int k = 0; k < n_cached; ++k) {
@@ -298,8 +313,8 @@ static int hist_max_clusters(Kernel kernel, int device, int G, size_t smem,
     clusters = 0;
     cudaGetLastError();  // a launch after this one must not report it
   }
-  if (n_cached < 64) cache[n_cached++] = {(const void*)kernel, device, G,
-                                          smem, clusters};
+  if (n_cached < HIST_CACHE)
+    cache[n_cached++] = {(const void*)kernel, device, G, smem, clusters};
   return clusters;
 }
 
@@ -349,10 +364,11 @@ static bool hist_plan(Kernel kernel, int device, int n_slots, int C,
                            static_bytes, optin, n, rows_per_thread, out);
 }
 
-// Launch `kernel` as planned, on `st`, with its arguments.
-template <typename... Params, typename... Args>
-static cudaError_t hist_launch(void (*kernel)(Params...), const HistLaunch& h,
-                               cudaStream_t st, Args&&... args) {
+// Launch `kernel` as planned, on `st`: args[k] points at the value of its
+// k-th parameter (cudaLaunchKernelExC). `kernel` is a __global__
+// function's address or a cudaKernel_t from a loaded image.
+static cudaError_t hist_launch_args(const void* kernel, const HistLaunch& h,
+                                    cudaStream_t st, void** args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(h.clusters * h.L.G);
   cfg.blockDim = dim3(HIST_THREADS);
@@ -365,7 +381,18 @@ static cudaError_t hist_launch(void (*kernel)(Params...), const HistLaunch& h,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  return cudaLaunchKernelExC(&cfg, kernel, args);
 }
 
-#endif  // __CUDACC__
+// Launch `kernel` as planned, on `st`, with its arguments, each converted
+// to its parameter's type.
+template <typename... Params, typename... Args>
+static cudaError_t hist_launch(void (*kernel)(Params...), const HistLaunch& h,
+                               cudaStream_t st, Args&&... args) {
+  return [&](Params... typed) {
+    void* argv[] = {(void*)&typed...};
+    return hist_launch_args((const void*)kernel, h, st, argv);
+  }(std::forward<Args>(args)...);
+}
+
+#endif  // ARES_HIST_HOST

@@ -26,14 +26,23 @@
 // coalesced across the warp, and the unrolled rows' column loads are all
 // issued before their updates, so they overlap.
 //
+// Build and launch: a plan's source is device code only. nvcc compiles it
+// to a cubin (`nvcc -cubin`, cuda_build's "cubin" kind): no host compiler,
+// no link. The fixed launcher library (fused_dense_launch.cu, built once)
+// loads that image, finds `fused_dense_kernel` by name, sizes the launch
+// with block_hist.cuh's hist_plan and launches it. The two agree on the
+// kernel's parameters through the ABI block below, which the launcher
+// includes alone (ARES_K1_ABI_ONLY), and check them against the image's
+// own parameter sizes at load.
+//
 // A plan's source holds its structure only. The values that move with the
 // query's `now` or with the data (number literals, the time-filter bounds
 // among them, each dense domain's base, size and stride) are the plan's
 // literal block, AresLits, which the kernel takes by value, so its reads
 // come from the constant bank with no local copy (0-byte stack frame).
 // (__constant__ memory would race between launches on two streams.) So a
-// moved window or a moved column range launches the library already
-// built. The cost: those values no longer fold into the arithmetic, which
+// moved window or a moved column range launches the cubin already built.
+// The cost: those values no longer fold into the arithmetic, which
 // on the smoke's plans takes up to 14 more registers and up to 8.5% more
 // kernel time (PERF.md). A plan whose literals overflow the block
 // (fused_dense.MAX_LITS) bakes them into its source, with ARES_NI and
@@ -45,7 +54,22 @@
 
 #include "ares_common.cuh"
 
+// The kernel's ABI, shared with its launcher: fused_dense_kernel's
+// parameters are (AresCols, AresLits, n, n_valid, tcol, cutoff,
+// HistLayout, out, ovf); AresLits holds 4 * (max(ARES_NI, 1) +
+// max(ARES_NF, 1)) bytes, its ints then its floats.
 #define ARES_MAX_COLS 24
+// rows a thread evaluates before it adds any of them
+#define K1_UNROLL 2
+// block_sum_int keeps 32 ints of static shared memory
+#define K1_STATIC_BYTES (32 * sizeof(int))
+
+struct AresCols {
+  const void* v[ARES_MAX_COLS];
+  const bool* b[ARES_MAX_COLS];
+};
+
+#ifndef ARES_K1_ABI_ONLY
 
 struct AresRow {
   bool keep;    // the plan's filters pass (before the n_valid/cutoff mask)
@@ -84,12 +108,9 @@ ARES_HD AresLits ares_lits(const int* lits_i, const float* lits_f) {
 }
 
 #ifdef __CUDACC__
+// the cubin holds device code only: none of block_hist.cuh's host helpers
+#define ARES_DEVICE_ONLY
 #include "block_hist.cuh"
-
-struct AresCols {
-  const void* v[ARES_MAX_COLS];
-  const bool* b[ARES_MAX_COLS];
-};
 
 // fused_dense_kernel's parameters: AresCols (384 bytes), AresLits (at
 // most 4 * (MAX_LITS + 1) = 2,052 bytes), six 8-byte scalars and pointers
@@ -97,11 +118,6 @@ struct AresCols {
 static_assert(sizeof(AresCols) + sizeof(AresLits) + 6 * 8 +
                       sizeof(HistLayout) + 8 <= 4096,
               "fused_dense_kernel's parameters exceed 4 KB");
-
-// rows a thread evaluates before it adds any of them
-#define K1_UNROLL 2
-// block_sum_int keeps 32 ints of static shared memory
-#define K1_STATIC_BYTES (32 * sizeof(int))
 
 // Whether row i is live: below n_valid and, with a time column, at or
 // after the archiving cutoff.
@@ -130,7 +146,8 @@ __device__ __forceinline__ int fold_row(float* hist, const HistLayout& L,
 // registers a thread of a 1,024-thread block may use. __grid_constant__:
 // the row function reads cols and lits through references to the
 // parameters themselves, which this qualifier allows without a copy.
-__global__ void __launch_bounds__(1024)
+// extern "C": the launcher finds the kernel in the image by this name.
+extern "C" __global__ void __launch_bounds__(1024)
     fused_dense_kernel(const __grid_constant__ AresCols cols,
                        const __grid_constant__ AresLits lits, long long n,
                        long long n_valid, const int* tcol, long long cutoff,
@@ -170,48 +187,6 @@ __global__ void __launch_bounds__(1024)
   cluster_hist_flush<3, 1>(hist, L, out, 1, L.n_slots);
 }
 
-// The cluster size a launch over n_slots takes (0: no cluster holds the
-// table, and the launch fails).
-extern "C" int ares_fused_dense_cluster(int n_slots, int device) {
-  long long optin = 0;
-  int max_cluster = 0;
-  hist_device_limits(device, &optin, &max_cluster);
-  return hist_policy(n_slots, 3, K1_STATIC_BYTES, optin, max_cluster);
-}
-
-// vals/valids: n_cols device pointers each; lits_i/lits_f: the host
-// arrays of the plan's literal block (ARES_NI and ARES_NF values), copied
-// into the launch's parameters; tcol: the uint32 time column for the
-// cutoff mask, or null; out: float32 [3, n_slots] and ovf: int32 [1],
-// both zeroed by the caller. Launches on `stream`, allocates nothing,
-// returns the launch's cudaError_t (cudaErrorInvalidValue where no cluster
-// holds the table).
-extern "C" int ares_fused_dense(const void* const* vals,
-                                const void* const* valids, int n_cols,
-                                const int* lits_i, const float* lits_f,
-                                long long n, long long n_valid,
-                                const void* tcol, long long cutoff,
-                                int n_slots, void* out, void* ovf, int device,
-                                void* stream) {
-  if (n_cols > ARES_MAX_COLS) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  AresCols cols = {};
-  for (int j = 0; j < n_cols; ++j) {
-    cols.v[j] = vals[j];
-    cols.b[j] = (const bool*)valids[j];
-  }
-  HistLaunch h;
-  if (!hist_plan<HIST_SPLIT_DSMEM>(fused_dense_kernel, device, n_slots, 3,
-                                   K1_STATIC_BYTES, n, K1_UNROLL, &h))
-    return (int)cudaErrorInvalidValue;
-  err = hist_launch(fused_dense_kernel, h, (cudaStream_t)stream, cols,
-                    ares_lits(lits_i, lits_f), n, n_valid, (const int*)tcol,
-                    cutoff, h.L, (float*)out, (int*)ovf);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 #else
 
 // Host harness: the per-row lanes of ares_row for rows [0, n), with the
@@ -234,3 +209,5 @@ extern "C" void ares_rows_host(const void* const* V, const bool* const* B,
 }
 
 #endif
+
+#endif  // ARES_K1_ABI_ONLY

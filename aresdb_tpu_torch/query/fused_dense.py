@@ -8,13 +8,16 @@ exactly.
 
 The Pallas body is traced per plan. Here the per-row work is EMITTED per
 plan as C (`emit_cuda`, one `ares_row` function per plan) and compiled
-into the fixed template `csrc/fused_dense_template.cuh`, built with nvcc
-and cached by the SHA-256 of its source. The source holds the plan's
+into the fixed template `csrc/fused_dense_template.cuh`: device code only,
+built by `nvcc -cubin` and cached by the SHA-256 of its source. One fixed
+launcher library (`csrc/fused_dense_launch.cu`, built once) loads each
+structure's image, checks its parameters and launches it, so a new
+structure pays for nvcc's device compile alone. The source holds the plan's
 structure only: the values that move with the query's `now` or with the
 data (every number literal, the time-filter bounds among them, and each
 dense domain's base, size and stride) are read from a literal block
 (`P.i[k]`, `P.f[k]`) that the kernel takes by value at launch. So a
-moved window or a moved column range finds the library already built.
+moved window or a moved column range finds the cubin already built.
 The divisors (a domain's step and post-division, a bucket width, a
 literal divisor of `/`, `%` or FLOOR) come from the query text and stay
 C constants, which keeps their division a multiply and shift. The same
@@ -22,7 +25,8 @@ source builds with g++ for the CPU test of the row logic. The plain
 PyTorch version (`FusedDenseKernel.reduce_plain`) is the torch emitter,
 then kernels.dense_slot_lane, then K2's plain version.
 
-Eligibility is the JAX package's (`plan_fused`), and so is FD_MIN_ROWS,
+Eligibility is the JAX package's (`plan_fused`), and so are FD_MIN_ROWS
+and ARES_FUSED=0 (no K1: eligible plans take the unfused dense kernel),
 so the same batches reach the same kernel. A joined column of a lane type
 is a kernel input like a main-table column: the wrapper resolves the
 joined rows once per batch in PyTorch (`_EvalCtx.foreign_column`, the
@@ -33,6 +37,7 @@ the main columns.
 from __future__ import annotations
 
 import ctypes
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -552,7 +557,7 @@ class FusedDenseKernel:
         self.dense_plan = dense_plan
         self.spec = spec
         self.device = device
-        self._fn = None   # the built kernel's entry point, at first launch
+        self._kernel = None   # the structure's loaded kernel, at first launch
         # the literal block's host arrays, copied into the kernel's
         # parameters at each launch
         self._lits = ((ctypes.c_int * max(len(spec.lits_i), 1))(
@@ -630,13 +635,14 @@ class FusedDenseKernel:
             *[v.data_ptr() for v, _ in lanes])
         valids = (ctypes.c_void_p * max(n_cols, 1))(
             *[b.data_ptr() for _, b in lanes])
-        if self._fn is None:
-            self._fn = _launcher(self.spec.source)
+        if self._kernel is None:
+            self._kernel = structure_kernel(self.spec, device)
         stream = torch.cuda.current_stream(device)
-        rc = self._fn(vals, valids, n_cols, *self._lits, self.n_rows,
-                      int(n_valid), tptr, int(live_cutoff or 0), n_slots,
-                      out.data_ptr(), ovf.data_ptr(), device.index or 0,
-                      stream.cuda_stream)
+        rc = _launcher().ares_fused_dense(
+            self._kernel, len(self.spec.lits_i), len(self.spec.lits_f), vals,
+            valids, n_cols, *self._lits, self.n_rows, int(n_valid), tptr,
+            int(live_cutoff or 0), n_slots, out.data_ptr(), ovf.data_ptr(),
+            device.index or 0, stream.cuda_stream)
         if rc != 0:
             raise RuntimeError(
                 f"fused_dense kernel launch failed: CUDA error {rc}")
@@ -649,21 +655,72 @@ class FusedDenseKernel:
                                      out[1], out[2], overflow)
 
 
-def _launcher(source: str):
-    """The entry point of the library built from this structural source:
-    every window and column range of one plan structure shares it."""
-    fn = cuda_build.load_library("fused_dense", source).ares_fused_dense
-    if fn.argtypes is None:
-        p, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [p, p, ctypes.c_int, p, p, ll, ll, p, ll, ctypes.c_int,
-                       p, p, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return fn
+LAUNCH_SOURCE = "fused_dense_launch.cu"
+
+
+def build_item(source: str) -> Tuple[str, str, str]:
+    """cuda_build's (name, text, kind) of a structure's device image."""
+    return ("fused_dense", source, "cubin")
+
+
+def launcher_item() -> Tuple[str, str, str]:
+    """cuda_build's (name, text, kind) of the fixed launcher library."""
+    return ("fused_dense_launch", cuda_build.csrc_text(LAUNCH_SOURCE), "host")
+
+
+def _launcher() -> ctypes.CDLL:
+    """The launcher library, loaded once a process, with its argtypes."""
+    def load():
+        lib = cuda_build.load_library(*launcher_item())
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ares_fused_dense_load.argtypes = [p, i, i, i,
+                                              ctypes.POINTER(p)]
+        lib.ares_fused_dense_cluster.argtypes = [i, i]
+        lib.ares_fused_dense.argtypes = [p, i, i, p, p, i, p, p, ll, ll, p,
+                                         ll, i, p, p, i, p]
+        for fn in (lib.ares_fused_dense_load, lib.ares_fused_dense_cluster,
+                   lib.ares_fused_dense):
+            fn.restype = i
+        return lib
+    return cuda_build.cached(("fused_dense launcher",), load)
+
+
+def structure_kernel(spec: FusedSpec, device: torch.device) -> int:
+    """The loaded kernel (a cudaKernel_t) of this plan structure: its cubin
+    built if needed (the launcher too, both at once, where neither is
+    built yet) and loaded once a process; every window and column range of
+    the structure shares it. Raises where a build, the load or the check
+    of its parameters fails."""
+    def load():
+        cuda_build.build_all([launcher_item(), build_item(spec.source)])
+        image = cuda_build.load_cubin(*build_item(spec.source)[:2])
+        handle = ctypes.c_void_p()
+        rc = _launcher().ares_fused_dense_load(
+            image, len(spec.lits_i), len(spec.lits_f), device.index or 0,
+            ctypes.byref(handle))
+        if rc < 0:
+            raise RuntimeError(
+                "fused_dense: the cubin's parameter "
+                f"{'count' if rc == -100 else -rc - 1} does not match the "
+                "launcher's ABI (fused_dense_template.cuh)")
+        if rc != 0:
+            raise RuntimeError(f"fused_dense: loading the cubin failed: CUDA "
+                               f"error {rc}")
+        return handle.value
+    return cuda_build.cached(("fused_dense kernel", spec.source), load)
+
+
+def cluster_size(n_slots: int, device: torch.device) -> int:
+    """The ranks of the cluster a K1 launch over n_slots takes (0: none
+    holds the table)."""
+    return _launcher().ares_fused_dense_cluster(n_slots, device.index or 0)
 
 
 def maybe_make_fused_kernel(plan: CompiledQuery, n_rows: int, dense_plan,
                             device: torch.device):
-    if n_rows < FD_MIN_ROWS:
+    # ARES_FUSED=0 turns K1 off, as in the JAX package; its "interp"
+    # (interpreter mode, which the port has no counterpart of) leaves it on
+    if n_rows < FD_MIN_ROWS or os.environ.get("ARES_FUSED") == "0":
         return None
     spec = plan_fused(plan, dense_plan)
     if spec is None:

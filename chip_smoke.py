@@ -3,11 +3,17 @@
     python3 chip_smoke.py [--rows N] [--atrips-rows M] [--events-rows E]
                           [--server-rows R] [--cluster-rows C] [--seed S]
 
-Builds the port's hand-written CUDA kernels from `aresdb_tpu_torch/csrc/`,
-holds each against its plain PyTorch version on the card at the main
-path's shapes (K2 also on the engine's skewed traffic, a NaN measure,
-the run-length path's weighted per-run rows and, through its
-global-atomic kernel, nine channels; K3 also on one real Q5
+First `phase_build`, on a fresh temporary build directory: K1's launcher
+library (`csrc/fused_dense_launch.cu`, host code, built once), then for
+each of the K1 plan structures below, one at a time, its cubin (one `nvcc
+-cubin` of the structure's device code) and its first launch, against the
+plain version; each one's seconds go to the `{"build": ...}` line.
+Then builds the port's hand-written CUDA kernels from
+`aresdb_tpu_torch/csrc/` (K2's and K3's libraries, K1's launcher and its
+cubins, all at once), holds each against its plain PyTorch version on
+the card at the main path's shapes (K2 also on the engine's skewed
+traffic, a NaN measure, the run-length path's weighted per-run rows and,
+through its global-atomic kernel, nine channels; K3 also on one real Q5
 batch's slots and values, and on that batch with a NaN and an inf), and
 asserts which `__global__` function each K2 and K3 case ran,
 then drives the main paths end to end: N rows (default 16M,
@@ -25,6 +31,8 @@ service on the CPU (the kernels' plain versions):
   Q5  sum(fare) by day of month x status under ARES_FACTORED=0, through K3
   Q1 with an understated city domain: every batch overflows its dense
       plan and reruns on the sort path
+  Q1 once more under ARES_FUSED=0, through a new service: K1 off, every
+      batch through the unfused dense kernel and K2, equal to the CPU run
   J1  Q1 joined to a 300-row cities table, filtered on the joined
       population: K1 with one joined lane
   J2  Q2 with the same join: unfused, through K2
@@ -172,25 +180,30 @@ quarter-hour"), A6 at ATRIPS_NOW + 1 s and + 2 s (its window ends at
 "now"), and, at the end of phase_server, B1 after 65,536 trips in cities
 300-599 land in a batch of their own (its city domain doubles). K1's
 source holds the plan's structure only, so each of these runs must build
-no library (cuda_build.built), must launch K1, and must equal the CPU
+nothing (cuda_build.built), must launch K1, and must equal the CPU
 run and the numpy oracle at its own `now`; each run's ms stands beside
-its query's warm median in a `{"window": ...}` line.
+its query's warm median in a `{"window": ...}` line. A cold query of a
+new plan structure builds its K1 cubin (the launcher is built once).
 
 Kernels and what they replace:
   K1 fused_dense  (csrc/fused_dense_template.cuh, one row function emitted
-                   per plan) <- aresdb_tpu/query/fused_dense.py _make_kernel
+                   per plan structure and built as a cubin, launched by
+                   csrc/fused_dense_launch.cu)
+                   <- aresdb_tpu/query/fused_dense.py _make_kernel
   K2 segment_sum  (csrc/segment_sum.cu)
                    <- aresdb_tpu/query/pallas_ops.py _make_factored_pallas_kernel
   K3 dense_segment_sum  (csrc/dense_segment_sum.cu)
                    <- aresdb_tpu/query/pallas_ops.py _make_kernel
 
 Prints the card's name and power limit, per-phase results, one
-`{"window": ...}` line, one `{"kernels": [...]}` line (K1's also with
-each plan's registers, stack frame and spill bytes from ptxas, all 0 but
-the registers, or the run fails) and, last, `{"ok": true, "device":
-{...}}`. A
-kernel's `ms` is the device time of one wrapper call (its output memset
-included), `kernel_ms` that of the kernel's own `__global__` functions,
+`{"window": ...}` line, one `{"build": ...}` line (phase_build's seconds,
+the all-at-once build's, and the builds and seconds of the whole run),
+one `{"kernels": [...]}` line (each kernel's registers, stack frame and
+spill bytes from ptxas: K1's for each plan, all 0 but the registers, or
+the run fails; K2's and K3's for each `__global__` function) and, last,
+`{"ok": true, "device": {...}}`. A kernel's `ms` is the device time of
+one wrapper call (its output memset included), `kernel_ms` that of the
+kernel's own `__global__` functions,
 and `in_situ_ms_per_launch` its device time per launch inside each query
 of the end-to-end phases, from one profiled warm run; K2's row also
 holds its run-length cases under `runlen_a2` and `runlen_a4`, K3's its
@@ -856,18 +869,116 @@ def phase_k3(P, device, rng, q5) -> dict:
     return results
 
 
+def ptxas_functions(log: str) -> dict:
+    """Each function's registers, stack frame and spill bytes from a
+    `ptxas -v` log, by its (mangled) name."""
+    out = {}
+    frame = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads")
+    used = re.compile(r"Used (\d+) registers")
+    for m in re.finditer(r"Function properties for (\S+)", log):
+        end = log.find("Function properties for", m.end())
+        part = log[m.end():end if end >= 0 else len(log)]
+        f, u = frame.search(part), used.search(part)
+        if f is None or u is None:
+            continue
+        stack, stores, loads = map(int, f.groups())
+        out[m.group(1)] = {"registers": int(u.group(1)),
+                           "stack_bytes": stack,
+                           "spill_bytes": stores + loads}
+    return out
+
+
 def ptxas_k1(log: str) -> dict:
     """fused_dense_kernel's registers, stack frame and spill bytes from
-    the `ptxas -v` log of its library."""
-    at = log.find("Function properties for _Z18fused_dense_kernel")
-    frame = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                       r"(\d+) bytes spill loads").search(log, max(at, 0))
-    used = re.compile(r"Used (\d+) registers").search(log, max(at, 0))
-    if at < 0 or frame is None or used is None:
+    the `ptxas -v` log of its cubin."""
+    usage = ptxas_functions(log).get("fused_dense_kernel")
+    if usage is None:
         raise AssertionError(f"no fused_dense_kernel usage in:\n{log}")
-    stack, stores, loads = map(int, frame.groups())
-    return {"registers": int(used.group(1)), "stack_bytes": stack,
-            "spill_bytes": stores + loads}
+    return usage
+
+
+def k1_setup(demo, FD, columns_from_numpy, plan_dense, query, city_max,
+             seed, device) -> tuple:
+    """One K1 case at n = one batch: (plan, dense plan, fused spec, its
+    FusedDenseKernel, the staged columns, the joined tables' probes)."""
+    n = BATCH_ROWS
+    plan, dp, spec = k1_spec(demo, FD, plan_dense, query, city_max)
+    cols_np, _ = demo.demo_columns(plan, n, seed=3,
+                                   n_cities=max(city_max, 300))
+    kern = FD.FusedDenseKernel(plan, n, dp, spec, device)
+    columns = columns_from_numpy(cols_np, n, device)
+    foreign = ()
+    if spec.fkeys:
+        fcols, foreign = city_columns(plan, seed, device)
+        columns.update(fcols)
+    return plan, dp, spec, kern, columns, foreign
+
+
+def k1_check(name, kern, columns, n_valid, cutoff, foreign, city_max, got,
+             got_ovf) -> tuple:
+    """K1's (out, overflow) of one case against its plain version: the
+    overflow exact and present only where the city domain is understated,
+    the counts exact, the sums within check_close's tolerance. Returns
+    (the largest error, the rows kept)."""
+    want, want_ovf = kern.reduce_plain(columns, n_valid, cutoff, foreign)
+    torch.cuda.synchronize()
+    if int(got_ovf) != int(want_ovf) or \
+            (city_max < 300) != (int(want_ovf) > 0):
+        raise AssertionError(f"{name}: overflow {int(got_ovf)} vs "
+                             f"{int(want_ovf)}")
+    return (check_close(f"K1 {name}", got, want, exact_rows=(1, 2)),
+            int(want[2].sum().item()))
+
+
+def phase_build(demo, FD, columns_from_numpy, plan_dense, cuda_build,
+                device, seed: int = 0) -> dict:
+    """K1's build on a fresh temporary build directory: the launcher
+    library's one-off build, then for each of phase_k1's plans, one at a
+    time, its structure's cubin (one `nvcc -cubin`; none where an earlier
+    plan has its structure: the overflowing and the 1,000-city Q1 are
+    Q1's) and its first launch (the image loaded, its parameters checked,
+    the launch sized and run), held against the plain version. Returns
+    the seconds of each."""
+    n = BATCH_ROWS
+    out = {"structures": {}}
+    saved = cuda_build.BUILD_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        cuda_build.BUILD_DIR = Path(tmp)
+        try:
+            built = cuda_build.built
+            out["launcher_s"] = cuda_build.build_all([FD.launcher_item()])
+            print(f"build: K1's launcher library in {out['launcher_s']:.3f} s"
+                  f" (nvcc -x c++)", flush=True)
+            sources = set()
+            for name, (query, city_max) in k1_cases(demo, seed).items():
+                *_, spec, kern, columns, foreign = k1_setup(
+                    demo, FD, columns_from_numpy, plan_dense, query,
+                    city_max, seed, device)
+                new = spec.source not in sources
+                sources.add(spec.source)
+                build_s = cuda_build.build_all([FD.build_item(spec.source)])
+                n_valid, cutoff = n - 777, demo.DEMO_NOW - 15 * 3600
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, got_ovf = kern.reduce(columns, n_valid, cutoff, foreign)
+                torch.cuda.synchronize()
+                first_ms = 1e3 * (time.perf_counter() - t0)
+                k1_check(f"{name} first launch", kern, columns, n_valid,
+                         cutoff, foreign, city_max, got, got_ovf)
+                out["structures"][name] = {"new": new, "cubin_s": build_s,
+                                           "first_launch_ms": first_ms}
+                print(f"build: K1 {name}: "
+                      + (f"cubin in {build_s:.3f} s" if new else
+                         "an earlier plan's structure")
+                      + f", first launch {first_ms:.3f} ms", flush=True)
+            if cuda_build.built - built != 1 + len(sources):
+                raise AssertionError(f"build: {cuda_build.built - built} "
+                                     "builds, not the launcher and one "
+                                     "cubin a structure")
+        finally:
+            cuda_build.BUILD_DIR = saved
+    return out
 
 
 def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
@@ -876,40 +987,25 @@ def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
     plan, the 26,650-slot one included, reduces through the cluster
     histogram. J1's joined lane is gathered through the cities table's
     probe, as the executor's batches gather it. Each plan's kernel has
-    no stack frame and no spill (ptxas_k1 of its library's log)."""
+    no stack frame and no spill (ptxas_k1 of its cubin's log)."""
     n = BATCH_ROWS
     results = {}
     for name, (query, city_max) in k1_cases(demo, seed).items():
-        plan, dp, spec = k1_spec(demo, FD, plan_dense, query, city_max)
-        ranks = cuda_build.load_library("fused_dense", spec.source) \
-            .ares_fused_dense_cluster(spec.n_slots, device.index or 0)
+        plan, dp, spec, kern, columns, foreign = k1_setup(
+            demo, FD, columns_from_numpy, plan_dense, query, city_max, seed,
+            device)
+        ranks = FD.cluster_size(spec.n_slots, device)
         usage = ptxas_k1(cuda_build.library_path(
-            "fused_dense", spec.source).with_suffix(".log").read_text())
+            *FD.build_item(spec.source)).with_suffix(".log").read_text())
         if usage["stack_bytes"] or usage["spill_bytes"]:
             raise AssertionError(f"K1 {name}: ptxas {usage}")
         if ranks <= 0:
             raise AssertionError(f"K1 {name}: no cluster holds its "
                                  f"{spec.n_slots} slots")
-        cols_np, _ = demo.demo_columns(plan, n, seed=3,
-                                       n_cities=max(city_max, 300))
-        kern = FD.FusedDenseKernel(plan, n, dp, spec, device)
-        columns = columns_from_numpy(cols_np, n, device)
-        foreign = ()
-        if spec.fkeys:
-            fcols, foreign = city_columns(plan, seed, device)
-            columns.update(fcols)
-        n_valid = n - 777
-        cutoff = demo.DEMO_NOW - 15 * 3600
+        n_valid, cutoff = n - 777, demo.DEMO_NOW - 15 * 3600
         got, got_ovf = kern.reduce(columns, n_valid, cutoff, foreign)
-        want, want_ovf = kern.reduce_plain(columns, n_valid, cutoff,
-                                           foreign)
-        torch.cuda.synchronize()
-        if int(got_ovf) != int(want_ovf) or \
-                (city_max < 300) != (int(want_ovf) > 0):
-            raise AssertionError(f"{name}: overflow {int(got_ovf)} vs "
-                                 f"{int(want_ovf)}")
-        err = check_close(f"K1 {name}", got, want, exact_rows=(1, 2))
-        rows_in = int(want[2].sum().item())
+        err, rows_in = k1_check(name, kern, columns, n_valid, cutoff,
+                                foreign, city_max, got, got_ovf)
         call = lambda: kern.reduce(columns, n_valid, cutoff,  # noqa: E731
                                    foreign)
         (ms, kernel_ms), call_ms = device_ms(call, kernel="K1"), wall_ms(call)
@@ -1309,9 +1405,9 @@ def warm_ms(rec: dict) -> float:
 
 def window_run(name: str, send, check) -> dict:
     """One run of a query whose window or column range moved: its ms, the
-    libraries it built (cuda_build.built) and K1's launches in it (set to
+    builds it made (cuda_build.built) and K1's launches in it (set to
     0 just before, read just after); check(answer) holds the answer to
-    the CPU run and the numpy oracle. Raises if the run built a library
+    the CPU run and the numpy oracle. Raises if the run built anything
     or did not launch K1."""
     from aresdb_tpu_torch.query import fused_dense as FD
     from aresdb_tpu_torch.utils import cuda_build
@@ -1327,7 +1423,7 @@ def window_run(name: str, send, check) -> dict:
            "k1_launches": FD.FusedDenseKernel.launches}
     check(answer)
     if run["builds"] or not run["k1_launches"]:
-        raise AssertionError(f"{name}: built {run['builds']} libraries, "
+        raise AssertionError(f"{name}: built {run['builds']} times, "
                              f"launched K1 {run['k1_launches']} times")
     return run
 
@@ -1622,6 +1718,10 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None,
     if "Q1" in single:
         phase_window("Q1", gpu, cpu, queries["Q1"][0], single["Q1"][1],
                      q1_oracle(data, demo))
+        launches = phase_unfused(store, queries["Q1"][0], cpu_answers["Q1"],
+                                 device, n_batches)
+        for k in totals:
+            totals[k] += launches[k]
     if mesh:
         launches, mesh_in_situ = phase_mesh(
             "trips", store, {n: queries[n][:2] for n in mesh}, single,
@@ -1637,6 +1737,39 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None,
     print(f"device column cache: {X.GLOBAL_DEVICE_CACHE.stats()}",
           flush=True)
     return totals, in_situ
+
+
+def phase_unfused(store, q, cpu_answer, device, n_batches: int) -> dict:
+    """Q1 once under ARES_FUSED=0, through a new QueryService with a
+    kernel cache of its own (the cache's key, as the JAX package's, holds
+    no environment): K1 off, every batch through the unfused dense kernel
+    and K2, the answer equal to the CPU run's. Returns the launches (set
+    to 0 just before, read just after)."""
+    from aresdb_tpu_torch.query import executor as X
+    from aresdb_tpu_torch.query.kernels import KernelCache
+    from aresdb_tpu_torch.query.service import QueryService
+
+    counters = kernel_counters()
+    svc = QueryService(store, device=device)
+    svc.executor.kernel_cache = KernelCache()
+    with query_setting(X, {"ARES_FUSED": "0"}, False):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        answer, _ = ask(svc, "Q1 ARES_FUSED=0", q)
+        if svc.device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        got = {k: c.launches for k, c in counters.items()}
+    want = {"K1": 0, "K2": n_batches, "K3": 0}
+    if got != want:
+        raise AssertionError(f"Q1 ARES_FUSED=0: launches {got}, expected "
+                             f"{want}")
+    same_result("Q1 ARES_FUSED=0", answer, cpu_answer)
+    print(f"Q1 ARES_FUSED=0: {ms:.3f} ms, launches "
+          + " ".join(f"{k}={v}" for k, v in got.items())
+          + ", equal to the cpu run's Q1", flush=True)
+    return got
 
 
 def zones128_wkt() -> list:
@@ -2005,8 +2138,8 @@ def phase_atrips(n_rows: int, seed: int, warm: int = 5, device=None,
     """The archive half: ingest and archive atrips (ingest_atrips), answer
     every query of atrips_queries and geo_queries (or those in `names`)
     on the CPU service, but G2 dense (the card's only: its CPU answer is
-    G2's), build the K1 row functions those answers planned (all nvcc's
-    at once), then run each on the card as phase_e2e does, with its
+    G2's), build the K1 cubins those answers planned (all nvcc's at
+    once), then run each on the card as phase_e2e does, with its
     launches asserted, against the CPU answer and the numpy oracle; the
     queries in `mesh` as mesh batches (phase_mesh); on the card, then the
     geo sweep (phase_geo_sweep). Returns each kernel's launches and
@@ -2039,11 +2172,11 @@ def phase_atrips(n_rows: int, seed: int, warm: int = 5, device=None,
             with query_setting(X, env, False):
                 cpu_answers[name] = ask(cpu, name, q)[0]
         if gpu.device.type == "cuda":
-            sources = {("fused_dense", fn.spec.source, "nvcc")
+            sources = {FD.build_item(fn.spec.source)
                        for fn in cpu.executor.kernel_cache._cache.values()
                        if isinstance(fn, FD.FusedDenseKernel)}
             build_s = cuda_build.build_all(sorted(sources))
-            print(f"atrips: built {len(sources)} K1 row functions in "
+            print(f"atrips: built {len(sources)} K1 cubins in "
                   f"{build_s:.1f} s", flush=True)
         counters = kernel_counters()
         totals = dict.fromkeys(counters, 0)
@@ -3915,22 +4048,6 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}", flush=True)
     device = torch.device("cuda")
 
-    # build every kernel of the path at once, one nvcc per source
-    sources = [("segment_sum", cuda_build.csrc_text(P.SOURCE), "nvcc"),
-               ("dense_segment_sum", cuda_build.csrc_text(P.K3_SOURCE),
-                "nvcc")]
-    for query, city_max in k1_cases(demo, args.seed).values():
-        spec = k1_spec(demo, FD, plan_dense, query, city_max)[2]
-        sources.append(("fused_dense", spec.source, "nvcc"))
-    build_s = cuda_build.build_all(sources)
-    print(f"built {len(sources)} kernel libraries in {build_s:.1f} s",
-          flush=True)
-
-    rng = np.random.RandomState(args.seed)
-    k2 = phase_k2(P, device, rng)
-    k3 = phase_k3(P, device, rng, q5_batch(args.seed))
-    k1 = phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
-                  device, args.seed)
     def timed(phase, *a, **kw):
         t0 = time.perf_counter()
         out = phase(*a, **kw)
@@ -3938,6 +4055,29 @@ def main(argv=None) -> int:
               flush=True)
         return out
 
+    build = timed(phase_build, demo, FD, columns_from_numpy, plan_dense,
+                  cuda_build, device, args.seed)
+    # build every kernel of the path at once, one nvcc per source: K2's
+    # and K3's libraries, K1's launcher and one cubin a K1 plan structure
+    sources = [("segment_sum", cuda_build.csrc_text(P.SOURCE), "nvcc"),
+               ("dense_segment_sum", cuda_build.csrc_text(P.K3_SOURCE),
+                "nvcc"), FD.launcher_item()]
+    for query, city_max in k1_cases(demo, args.seed).values():
+        spec = k1_spec(demo, FD, plan_dense, query, city_max)[2]
+        sources.append(FD.build_item(spec.source))
+    build["all_at_once_s"] = cuda_build.build_all(sources)
+    print(f"built {len(sources)} kernel libraries and cubins in "
+          f"{build['all_at_once_s']:.1f} s", flush=True)
+    ptxas = {name: ptxas_functions(cuda_build.library_path(*src)
+                                   .with_suffix(".log").read_text())
+             for name, src in (("segment_sum", sources[0]),
+                               ("dense_segment_sum", sources[1]))}
+
+    rng = np.random.RandomState(args.seed)
+    k2 = phase_k2(P, device, rng)
+    k3 = phase_k3(P, device, rng, q5_batch(args.seed))
+    k1 = phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
+                  device, args.seed)
     launches, in_situ = timed(phase_e2e, args.rows, args.seed,
                               mesh=MESH_E2E, pool=True)
     phases = [timed(phase_atrips, args.atrips_rows, args.seed,
@@ -3972,11 +4112,14 @@ def main(argv=None) -> int:
                    traffic={"q5_traffic": k3[K3_Q5_CASE]}),
     ]
     kernels[0]["ptxas"] = {name: r["ptxas"] for name, r in k1.items()}
+    kernels[1]["ptxas"] = ptxas["segment_sum"]
+    kernels[2]["ptxas"] = ptxas["dense_segment_sum"]
     if sorted(WINDOW) != ["A6", "B1 raised range", "Q1"]:
         raise AssertionError(f"window: runs of {sorted(WINDOW)}")
-    print(json.dumps({"window": {**WINDOW, "nvcc": {
-        "libraries": cuda_build.built,
-        "seconds": cuda_build.build_seconds}}}), flush=True)
+    print(json.dumps({"window": WINDOW}), flush=True)
+    print(json.dumps({"build": {**build, "built": cuda_build.built,
+                                "seconds": cuda_build.build_seconds}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

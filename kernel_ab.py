@@ -1,7 +1,7 @@
 """Measure the slot-histogram kernels K1, K2 and K3 on one GPU.
 
     python3 kernel_ab.py [--parent DIR] [--parent-tree ROOT]
-                         [--modes sass,ab,trees] [--out FILE]
+                         [--modes sass,ab,trees,split] [--out FILE]
 
 - sass:  what the float atomicAdd of each built kernel compiles to
          (cuobjdump -sass): shared-memory, distributed shared-memory and
@@ -24,9 +24,17 @@
          (instructions, LDC, constant-bank operands); and, on its first
          turn (the build directory as the machine has it, empty on a
          fresh copy), the window probe: Q1 (4 batches of trips) cold,
-         twice warm and a quarter-hour on, and A6 (4 batches of atrips,
-         two days archived) cold, twice warm and one and two seconds on,
-         each run's ms and the libraries it built.
+         twice warm and a quarter-hour on, a plan structure neither tree
+         has built (Q1 with NEW_STRUCTURE's measure) cold and twice warm,
+         and A6 (4 batches of atrips, two days archived) cold, twice warm
+         and one and two seconds on, each run's ms, the builds it made
+         and their seconds; then mode split on the tree's own sources.
+- split: where K1's per-plan build spends its time: `nvcc -time` of Q1's
+         and J1's generated sources under the fixed libraries' command
+         (cuda_build.NVCC_FLAGS: a shared library) and under `-cubin`
+         with the same code-generation flags, each twice, with each
+         phase's ms (cudafe++, the host compiler's passes, cicc, ptxas,
+         fatbinary, the link) and the command's wall seconds.
 
 Times are device milliseconds per call from torch.profiler: `ms` with the
 output memset the wrapper launches, `kernel_ms` of the kernels alone. Every
@@ -37,7 +45,9 @@ one. Needs one card and nvcc.
 from __future__ import annotations
 
 import argparse
+import csv
 import ctypes
+import io
 import json
 import re
 import subprocess
@@ -287,9 +297,26 @@ def check_k3(out, slots, vals, n_slots, exact, name) -> float:
     return S.check_close(name, out.t(), want.t(), exact_rows=exact)
 
 
+def parent_k1_kernel(text: str, spec, device) -> int:
+    """The parent's K1 source `text`, built as a cubin and loaded by this
+    tree's launcher (the kernel's ABI is the launcher's check)."""
+    from aresdb_tpu_torch.query import fused_dense as FD
+    from aresdb_tpu_torch.utils import cuda_build
+
+    image = cuda_build.load_cubin("parent_fused_dense", text)
+    handle = ctypes.c_void_p()
+    rc = FD._launcher().ares_fused_dense_load(
+        image, len(spec.lits_i), len(spec.lits_f), device.index or 0,
+        ctypes.byref(handle))
+    if rc != 0:
+        raise RuntimeError(f"parent K1: load failed ({rc})")
+    return handle.value
+
+
 def mode_ab(parent: Path, k1, k3, rng, device) -> None:
     """Parent and change at every K2, K1 and K3 shape: old, new, new,
     old."""
+    from aresdb_tpu_torch.query import fused_dense as FD
     from aresdb_tpu_torch.query import pallas_ops as P
     from aresdb_tpu_torch.utils import cuda_build
 
@@ -323,24 +350,23 @@ def mode_ab(parent: Path, k1, k3, rng, device) -> None:
         emit({"mode": "ab", "kernel": "K2", "shape": name,
               "max_abs_err": errs, "runs": runs})
     for name, (kern, columns, n_valid, cutoff) in k1.items():
+        # the parent's template, a cubin launched by this tree's launcher
         text = kern.spec.source.replace(
             '#include "fused_dense_template.cuh"',
             inline_includes((parent / "fused_dense_template.cuh").read_text(),
                             parent))
-        old_fn = cuda_build.load_library("parent_fused_dense", text) \
-            .ares_fused_dense
-        old_fn.argtypes = [p, p, i, p, p, ll, ll, p, ll, i, p, p, i, p]
-        old_fn.restype = i
+        old_k = parent_k1_kernel(text, kern.spec, device)
+        ni, nf = len(kern.spec.lits_i), len(kern.spec.lits_f)
         vals_p, valids_p, n_cols, tptr = k1_pointers(kern, columns)
         n_slots = kern.spec.n_slots
 
         def old():
             out = torch.zeros((3, n_slots), device=device)
             ovf = torch.zeros(1, dtype=torch.int32, device=device)
-            rc = old_fn(vals_p, valids_p, n_cols, *kern._lits, N, n_valid,
-                        tptr, cutoff, n_slots, out.data_ptr(),
-                        ovf.data_ptr(), 0,
-                        torch.cuda.current_stream().cuda_stream)
+            rc = FD._launcher().ares_fused_dense(
+                old_k, ni, nf, vals_p, valids_p, n_cols, *kern._lits, N,
+                n_valid, tptr, cutoff, n_slots, out.data_ptr(),
+                ovf.data_ptr(), 0, torch.cuda.current_stream().cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"parent K1: CUDA error {rc}")
             return out
@@ -390,12 +416,19 @@ def mode_ab(parent: Path, k1, k3, rng, device) -> None:
               "cold_l2_runs": cold})
 
 
+# Q1 with a measure no other query of either tree plans: a structure that
+# neither tree has built when the window probe reaches it
+NEW_STRUCTURE = {"sqlExpression": "sum(fare * 3 - 1)",
+                 "rowFilters": ["status='completed'", "city_id != 13"]}
+
+
 def window_probe(device, seed: int, rows: int = TREE_ROWS,
                  batch_rows: int = N) -> dict:
-    """Q1 over `rows` trips cold, twice warm and a quarter-hour on, and A6
-    over `rows` atrips (two days archived) cold, twice warm and one and
-    two seconds on, through the tree's QueryService on `device`: each
-    run's ms, groups and the libraries it built."""
+    """Q1 over `rows` trips cold, twice warm and a quarter-hour on, then a
+    new structure (Q1 with NEW_STRUCTURE's measure) cold and twice warm;
+    and A6 over `rows` atrips (two days archived) cold, twice warm and one
+    and two seconds on, through the tree's QueryService on `device`: each
+    run's ms, groups, the builds it made and their seconds."""
     import tempfile
 
     from aresdb_tpu_torch import demo
@@ -414,21 +447,24 @@ def window_probe(device, seed: int, rows: int = TREE_ROWS,
     def runs(svc, name, q, moves):
         out = []
         for move in moves:
-            n0 = len(built)
+            n0, s0 = len(built), cuda_build.build_seconds
             t0 = time.perf_counter()
             answer, _ = S.ask(svc, name, dict(q, now=q["now"] + move))
             if svc.device.type == "cuda":
                 torch.cuda.synchronize()
             out.append({"move_s": move, "groups": len(S.flatten(answer)),
                         "ms": 1e3 * (time.perf_counter() - t0),
-                        "builds": len(built) - n0})
+                        "builds": len(built) - n0,
+                        "build_s": cuda_build.build_seconds - s0})
         return out
 
     cuda_build._start = counting_start
     try:
         store, _, _ = S.ingest_trips(rows, seed, batch_rows)
-        rec = {"Q1": runs(QueryService(store, device=device), "Q1",
-                          demo.DEMO_QUERY, (0, 0, 0, 900))}
+        svc = QueryService(store, device=device)
+        rec = {"Q1": runs(svc, "Q1", demo.DEMO_QUERY, (0, 0, 0, 900)),
+               "new structure": runs(svc, "new structure", dict(
+                   demo.DEMO_QUERY, measures=[NEW_STRUCTURE]), (0, 0, 0))}
         with tempfile.TemporaryDirectory() as root:
             store = S.ingest_atrips(rows, seed, batch_rows, root)[0]
             rec["A6"] = runs(QueryService(store, device=device), "A6",
@@ -451,10 +487,14 @@ def tree_child(tag: str, window: bool, seed: int) -> None:
     rec = {"tree": tag, "root": str(Path(S.__file__).parent)}
     if window:
         rec.update(window_probe(device, seed))
+        rec["split"] = mode_split(seed)
+    # a tree from before K1's cubins builds each structure as a library
+    item = getattr(FD, "build_item",
+                   lambda source: ("fused_dense", source, "nvcc"))
     sources = []
     for query, city_max in S.k1_cases(demo, seed).values():
         spec = S.k1_spec(demo, FD, plan_dense, query, city_max)[2]
-        sources.append(("fused_dense", spec.source, "nvcc"))
+        sources.append(item(spec.source))
     rec["k1_build_s"] = cuda_build.build_all(sources)
     rec["k1_ptxas"] = {
         k: ptxas_usage(cuda_build.library_path(*src).with_suffix(".log")
@@ -505,6 +545,64 @@ def mode_trees(parent: Path, seed: int) -> None:
         emit({"mode": "trees", **json.loads(lines[0][5:])})
 
 
+def nvcc_phases(csv_text: str) -> dict:
+    """phase name -> ms, summed over the rows of one `nvcc -time` csv."""
+    phases = {}
+    for row in csv.reader(io.StringIO(csv_text)):
+        cells = [c.strip() for c in row]
+        nums = [c for c in cells if re.fullmatch(r"[0-9]+(\.[0-9]+)?", c)]
+        if len(cells) < 2 or not nums or cells[0].startswith("source"):
+            continue
+        phases[cells[1]] = phases.get(cells[1], 0.0) + float(nums[-1])
+    return phases
+
+
+def mode_split(seed: int) -> list:
+    """nvcc -time of Q1's and J1's K1 sources, as a shared library and as
+    a cubin, twice each (the second with the headers in the page cache):
+    one record each."""
+    import tempfile
+
+    from aresdb_tpu_torch import demo
+    from aresdb_tpu_torch.query import fused_dense as FD
+    from aresdb_tpu_torch.query.dense import plan_dense
+    from aresdb_tpu_torch.utils import cuda_build
+
+    nvcc = cuda_build.nvcc_path()
+    codegen = [f for f in cuda_build.NVCC_FLAGS
+               if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    commands = {"shared library": [nvcc] + cuda_build.NVCC_FLAGS,
+                "cubin": [nvcc] + codegen + ["-cubin"]}
+    cases = S.k1_cases(demo, seed)
+    out = []
+    for name in ("Q1 sum(fare) hour x city", S.J1_K1_CASE):
+        spec = S.k1_spec(demo, FD, plan_dense, *cases[name])[2]
+        with tempfile.TemporaryDirectory() as tmp:
+            src = Path(tmp) / "k1.cu"
+            src.write_text(spec.source)
+            for kind, cmd in commands.items():
+                for turn in (1, 2):
+                    # nvcc -time appends: a file a command
+                    csv_path = Path(tmp) / f"{len(out)}.csv"
+                    t0 = time.perf_counter()
+                    proc = subprocess.run(
+                        cmd + ["-time", str(csv_path), "-I",
+                               str(cuda_build.CSRC), str(src), "-o",
+                               str(Path(tmp) / "out")],
+                        capture_output=True, text=True)
+                    wall = time.perf_counter() - t0
+                    if proc.returncode != 0:
+                        raise RuntimeError(f"{kind} of {name}:\n"
+                                           f"{proc.stdout}{proc.stderr}")
+                    text = csv_path.read_text()
+                    out.append({"mode": "split", "plan": name,
+                                "build": kind, "turn": turn, "wall_s": wall,
+                                "command": " ".join(cmd[1:]),
+                                "phases_ms": nvcc_phases(text),
+                                "csv": text[-4000:]})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path,
@@ -534,20 +632,25 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip()
     emit({"card": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    if "split" in modes:
+        for rec in mode_split(args.seed):
+            emit(rec)
     if "trees" in modes:
         mode_trees(args.parent_tree, args.seed)
-        if modes == ["trees"]:
-            return 0
+    if not set(modes) & {"sass", "ab"}:
+        return 0
     from aresdb_tpu_torch.query import pallas_ops as P
     from aresdb_tpu_torch.utils import cuda_build
 
     device = torch.device("cuda")
     rng = np.random.RandomState(args.seed)
     k1 = k1_setups(device)
+    from aresdb_tpu_torch.query import fused_dense as FD
+
     sources = [("segment_sum", cuda_build.csrc_text(P.SOURCE), "nvcc"),
                ("dense_segment_sum", cuda_build.csrc_text(P.K3_SOURCE),
                 "nvcc")] + [
-        ("fused_dense", kern.spec.source, "nvcc") for kern, *_ in k1.values()]
+        FD.build_item(kern.spec.source) for kern, *_ in k1.values()]
     emit({"built_s": cuda_build.build_all(sources)})
     if "sass" in modes:
         libs = {f"{n} {k}": cuda_build.library_path(n, t, c)

@@ -173,10 +173,15 @@ def test_engine_shapes_take_the_cluster_path(lib, n_slots, kernel):
     assert g == ENGINE_RANKS[n_slots]
     # rows reach their owner through distributed shared memory only in K1,
     # whose integer counts make remote adds native; K2's float channels
-    # take slot-range tiles
+    # take slot-range tiles. K1's launch is planned in its fixed launcher,
+    # and its kernel reads its rows split the same way
     source, split = (("segment_sum.cu", "HIST_SPLIT_TILES") if kernel == "k2"
-                     else ("fused_dense_template.cuh", "HIST_SPLIT_DSMEM"))
+                     else ("fused_dense_launch.cu", "HIST_SPLIT_DSMEM"))
     assert f"hist_plan<{split}>" in (CSRC / source).read_text()
+    if kernel == "k1":
+        device_code = (CSRC / "fused_dense_template.cuh").read_text()
+        assert f"hist_part<{split}>" in device_code
+        assert f"hist_takes<{split}>" in device_code
     per, nbytes = _layout(lib, n_slots, 3, g)
     assert nbytes + static_bytes <= H100_OPTIN_BYTES
     assert per * g >= n_slots

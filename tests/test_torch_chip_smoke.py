@@ -87,6 +87,28 @@ def test_check_close_holds_nonfinite_values_to_their_indices(got_value,
             S.check_close("case", got, want, nonfinite=nonfinite)
 
 
+PTXAS_LOG = """ptxas info    : Compiling entry function 'fused_dense_kernel' for 'sm_90a'
+ptxas info    : Function properties for fused_dense_kernel
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 51 registers, used 1 barriers, 128 bytes smem
+ptxas info    : Function properties for _Z19segment_sum_clusterILi3EEvPKiPKfx10HistLayoutPf
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers
+"""
+
+
+def test_ptxas_logs_are_read_function_by_function():
+    usage = S.ptxas_functions(PTXAS_LOG)
+    assert usage == {
+        "fused_dense_kernel": {"registers": 51, "stack_bytes": 0,
+                               "spill_bytes": 0},
+        "_Z19segment_sum_clusterILi3EEvPKiPKfx10HistLayoutPf": {
+            "registers": 40, "stack_bytes": 8, "spill_bytes": 8}}
+    assert S.ptxas_k1(PTXAS_LOG) == usage["fused_dense_kernel"]
+    with pytest.raises(AssertionError):
+        S.ptxas_k1(PTXAS_LOG.replace("fused_dense_kernel", "other"))
+
+
 @pytest.fixture
 def cpu_rehearsal(monkeypatch):
     """The smoke's end-to-end phase on the CPU, as on the card: K2 and K3
@@ -166,11 +188,14 @@ def test_phase_mesh_and_phase_pool_follow_the_trips_queries(cpu_rehearsal,
                      out)
     assert pool and int(pool.group(1)) + int(pool.group(2)) == 32
     assert min(int(pool.group(1)), int(pool.group(2))) > 0
-    # e2e: 2 runs of Q1, J1 (K1) and Q2 (K2) over 3 batches; the mesh's
-    # K2; pool: 8 requests of each of Q1, J1 (K1) and Q2 (K2)
+    # e2e: 2 runs of Q1, J1 (K1) and Q2 (K2) over 3 batches; Q1 once
+    # under ARES_FUSED=0 (K2); the mesh's K2; pool: 8 requests of each of
+    # Q1, J1 (K1) and Q2 (K2)
     assert launches == {"K1": 2 * 3 + 2 * 3 + 16 * 3,
-                        "K2": 2 * 3 + sum(g for g, _ in k2.values())
+                        "K2": 2 * 3 + 3 + sum(g for g, _ in k2.values())
                         + 8 * 3, "K3": 0}
+    assert re.search(r"Q1 ARES_FUSED=0: [0-9.]+ ms, launches K1=0 K2=3 K3=0, "
+                     r"equal to the cpu run's Q1", out)
     # phase_window: Q1 at now and a quarter-hour on, K1 on its 3 batches
     assert "window Q1: now + 0 s" in out
     assert [(r["move_s"], r["builds"], r["k1_launches"])

@@ -19,9 +19,15 @@ against the torch emitter, the same way.
 
 The emitted source holds a plan's structure only: a moved window (the
 query's `now`) or a moved column range gives the same source, and so one
-library, with another literal block. The g++-built row function is run
+cubin, with another literal block. The g++-built row function is run
 with each window's block against the torch emitter at that window, and
 both packages' services answer at two windows alike.
+
+That source is device code only, built as a cubin: it holds no host
+launcher, and every plan structure is launched by one fixed launcher
+library, whose text no plan changes (its build and load are stood in for
+here: no nvcc and no card). Under ARES_FUSED=0 both packages take the
+unfused dense kernel, and the port builds no FusedDenseKernel.
 
 Tolerances are the JAX package's: counts, row totals and overflow exact,
 float sums within rtol=2e-4, atol=1e-3.
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import shutil
 
 import numpy as np
@@ -481,3 +488,97 @@ def test_both_packages_answer_alike_at_two_windows(name, windowed_services,
     assert answers[0] != answers[1]
     # both windows ran K1 on each batch, from one structural source
     assert len(sources) == 4 and len(set(sources)) == 1
+
+
+def test_the_per_plan_source_holds_device_code_only():
+    template = (cuda_build.CSRC / "fused_dense_template.cuh").read_text()
+    for name, text in (("source", _port_spec(JD.DEMO_QUERY).source),
+                       ("template", template)):
+        # no host launcher: no C entry point that returns a status
+        assert not re.search(r'extern\s+"C"\s+int', text), name
+    # the launcher finds the kernel in the image by its C name
+    assert re.search(r'extern "C" __global__ void __launch_bounds__\(1024\)'
+                     r'\s+fused_dense_kernel\(', template)
+    # a device-only compile parses none of block_hist.cuh's host helpers
+    assert "#define ARES_DEVICE_ONLY" in template
+    hist = (cuda_build.CSRC / "block_hist.cuh").read_text()
+    host = hist[hist.index("#ifdef ARES_HIST_HOST"):]
+    for helper in ("<mutex>", "hist_plan", "hist_launch_args"):
+        assert helper in host and helper not in hist[:hist.index(
+            "#ifdef ARES_HIST_HOST")], helper
+
+
+def test_every_plan_takes_one_fixed_launcher(monkeypatch):
+    """structure_kernel builds the launcher's fixed text beside each new
+    structure's cubin, and loads each structure once; another window of
+    a structure finds its kernel loaded."""
+    builds, loads = [], []
+    monkeypatch.setattr(cuda_build, "_loaded", {})
+    monkeypatch.setattr(cuda_build, "build_all",
+                        lambda items, build_dir=None: builds.append(
+                            list(items)) or 0.0)
+    monkeypatch.setattr(cuda_build, "load_cubin",
+                        lambda name, text, build_dir=None: text.encode())
+
+    class Launcher:
+        def ares_fused_dense_load(self, image, ni, nf, device, handle):
+            loads.append((image, ni, nf, device))
+            handle._obj.value = 4096 * len(loads)
+            return 0
+
+    monkeypatch.setattr(FD, "_launcher", lambda: Launcher())
+    specs = [_port_spec(JD.DEMO_QUERY),
+             _port_spec(OTHER_STRUCTURE["count measure"]),
+             _port_spec(JD.DEMO_QUERY, now=JD.DEMO_NOW + 900)]
+    handles = [FD.structure_kernel(spec, CPU) for spec in specs]
+    assert handles == [4096, 8192, 4096]
+    assert [b[0] for b in builds] == [FD.launcher_item()] * 2
+    assert [b[1] for b in builds] == [FD.build_item(s.source)
+                                      for s in specs[:2]]
+    assert builds[0][1] != builds[1][1]
+    assert [(ni, nf) for _, ni, nf, _ in loads] == [
+        (len(s.lits_i), len(s.lits_f)) for s in specs[:2]]
+    name, text, kind = FD.launcher_item()
+    assert kind == "host" and text == cuda_build.csrc_text(FD.LAUNCH_SOURCE)
+    # no plan's text in it: the ABI block alone of the template
+    assert "#define ARES_K1_ABI_ONLY" in text
+    assert "#define ARES_NI" not in text and "ares_row" not in text
+
+
+UNFUSED = {
+    "Q1": JD.DEMO_QUERY,
+    "count by city": _q(measures=[{"sqlExpression": "count(*)"}],
+                        dimensions=[{"sqlExpression": "city_id"}]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UNFUSED))
+def test_ares_fused_0_takes_the_unfused_kernel_in_both_packages(
+        name, monkeypatch):
+    """Both packages over two live batches of FD_MIN_ROWS trips, each with
+    a kernel cache of its own: under ARES_FUSED=0 the answers agree and
+    the port makes no FusedDenseKernel; without it, the same plan on the
+    same batches makes one a batch size."""
+    from tests.test_torch_service import (TRIPS, _assert_same,
+                                          _random_batches, _services)
+
+    made = []
+    real = FD.FusedDenseKernel.__init__
+
+    def init(self, *args, **kw):
+        made.append(self)
+        real(self, *args, **kw)
+
+    monkeypatch.setattr(FD.FusedDenseKernel, "__init__", init)
+    n = 2 * FD.FD_MIN_ROWS
+    trips = dict(TRIPS, config={"batchSize": FD.FD_MIN_ROWS,
+                                "recordRetentionInDays": 0})
+    jsvc, tsvc = _services([trips], _random_batches(n, 4, n))
+    tsvc.executor.kernel_cache = K.KernelCache()
+    monkeypatch.setenv("ARES_FUSED", "0")
+    _assert_same(UNFUSED[name], jsvc, tsvc)
+    assert made == []
+    monkeypatch.delenv("ARES_FUSED")
+    tsvc.executor.kernel_cache = K.KernelCache()
+    tsvc.handle_aql({"queries": [UNFUSED[name]]})
+    assert len(made) == 1
