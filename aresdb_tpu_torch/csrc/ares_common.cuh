@@ -1,15 +1,34 @@
 // Helpers shared by the port's kernels. This header compiles under nvcc
-// (device code) and under a host C++ compiler, which is how the CPU tests
-// run the fused kernel's generated row functions.
+// (device code), under NVRTC (K1's per-structure device code) and under a
+// host C++ compiler, which is how the CPU tests run the fused kernel's
+// generated row functions.
 //
 // Integer arithmetic mirrors the plain PyTorch versions and the JAX
 // reference bit for bit: 32-bit lanes wrap in two's complement, `//` and
 // `%` of numpy floor, the query language's `%` truncates (C, jax.lax.rem).
 #pragma once
 
+#ifdef __CUDACC_RTC__
+// NVRTC has no C library headers, and K1's device code includes none: the
+// names it takes from them, in the words of the toolkit's own
+// cuda/std/__cuda/cstdint_prelude.h and cuda/std/climits. The math
+// functions are NVRTC's built-ins.
+typedef signed char int8_t;
+typedef short int16_t;
+typedef int int32_t;
+typedef signed long long int64_t;
+typedef unsigned char uint8_t;
+typedef unsigned short uint16_t;
+typedef unsigned int uint32_t;
+typedef unsigned long long uint64_t;
+typedef uint64_t uintptr_t;
+#define INT_MAX 0x7fffffff
+#define INT_MIN (-INT_MAX - 1)
+#else
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+#endif
 
 // ARES_DEV: device code (inline host code under a host compiler); ARES_HD:
 // code that nvcc also calls from the host side of a launcher

@@ -12,7 +12,8 @@
 //   shared-memory add; a row's slot is read G times, all but once from L2.
 // - HIST_SPLIT_DSMEM (K1): the ranks read disjoint rows and add each into
 //   the owner's shared memory through the cluster's distributed shared
-//   memory (cooperative_groups map_shared_rank), remote for (G - 1) / G.
+//   memory (ares_cluster_map, cooperative_groups' map_shared_rank),
+//   remote for (G - 1) / G.
 // At G = 1 both are one private table per block. A block may hold several
 // copies of its slice (K3: one a warp where 32 fit, so that no warp
 // contends with another); the flush sums them. The grid is
@@ -109,9 +110,7 @@ ARES_HD int hist_policy(int n_slots, int C, long long static_bytes,
 #define HIST_SPLIT_DSMEM 1
 
 #ifdef __CUDACC__
-#include <cooperative_groups.h>
-
-namespace cg = cooperative_groups;
+#include "ares_cluster.cuh"
 
 // Zero this block's copies of its slice of the cluster table, then wait
 // until every rank of the cluster has zeroed its own.
@@ -119,7 +118,7 @@ __device__ __forceinline__ void cluster_hist_zero(float* h,
                                                   const HistLayout& L) {
   for (int j = threadIdx.x; j < L.per * L.C * L.copies; j += blockDim.x)
     h[j] = 0.f;
-  cg::this_cluster().sync();
+  ares_cluster_sync();
 }
 
 // The rows of a launch are cut into parts, each part looped over by
@@ -141,7 +140,7 @@ template <int kSplit>
 __device__ __forceinline__ bool hist_takes(const HistLayout& L, int s) {
   if ((uint32_t)s >= (uint32_t)L.n_slots) return false;
   if (kSplit == HIST_SPLIT_DSMEM || L.G == 1) return true;
-  const int local = s - (int)cg::this_cluster().block_rank() * L.per;
+  const int local = s - (int)ares_cluster_rank() * L.per;
   return (uint32_t)local < (uint32_t)L.per;
 }
 
@@ -158,10 +157,10 @@ __device__ __forceinline__ void cluster_hist_add(float* h,
   if (L.G == 1) {
     p = h + s * C;
   } else if (kSplit == HIST_SPLIT_TILES) {
-    p = h + (s - (int)cg::this_cluster().block_rank() * L.per) * C;
+    p = h + (s - (int)ares_cluster_rank() * L.per) * C;
   } else {
     const int r = hist_owner(L, s);
-    p = cg::this_cluster().map_shared_rank(h, r) + (s - r * L.per) * C;
+    p = ares_cluster_map(h, r) + (s - r * L.per) * C;
   }
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -184,9 +183,8 @@ __device__ __forceinline__ void cluster_hist_flush(const float* h,
                                                    float* out,
                                                    long long stride_slot,
                                                    long long stride_ch) {
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();  // every peer's adds into this slice have landed
-  const int lo = (int)cluster.block_rank() * L.per;
+  ares_cluster_sync();  // every peer's adds into this slice have landed
+  const int lo = (int)ares_cluster_rank() * L.per;
   const int hi = min(lo + L.per, L.n_slots);
   const int n_local = hi > lo ? hi - lo : 0;
   const int slice = L.per * C;

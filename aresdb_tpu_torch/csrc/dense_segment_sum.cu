@@ -203,7 +203,7 @@ __device__ __forceinline__ void k3_body(const int* __restrict__ slots,
   cluster_hist_zero(hist, L);
   const int lane = threadIdx.x & 31;
   float* h = hist + (threadIdx.x >> 5) % L.copies * (L.per * C);
-  const int lo = L.G == 1 ? 0 : (int)cg::this_cluster().block_rank() * L.per;
+  const int lo = L.G == 1 ? 0 : (int)ares_cluster_rank() * L.per;
   const HistPart pt = hist_part<HIST_SPLIT_TILES>(L);
   // a warp runs every pass with all its lanes (the warp-wide reductions
   // and shuffles), so the loops run on the warp's first row

@@ -3,8 +3,8 @@
 // plan structure.
 //
 // Replaces the host launcher each per-plan library used to carry. A plan
-// structure is now device code only, compiled by `nvcc -cubin`; this
-// library loads its image through the CUDA runtime's library API
+// structure is now device code only, a cubin NVRTC compiles in process;
+// this library loads its image through the CUDA runtime's library API
 // (cudaLibraryLoadData, cudaLibraryGetKernel: a handle tied to no context,
 // so a launch on another device loads it there), checks the kernel's
 // parameters against the ABI that fused_dense_template.cuh states, sizes
@@ -97,6 +97,36 @@ extern "C" int ares_fused_dense_cluster(int n_slots, int device) {
   int max_cluster = 0;
   hist_device_limits(device, &optin, &max_cluster);
   return hist_policy(n_slots, 3, K1_STATIC_BYTES, optin, max_cluster);
+}
+
+// The registers a thread of `kernel` (a handle from ares_fused_dense_load)
+// takes and its local memory bytes (its stack frame, spills included), as
+// the loaded image states them. 0 on success, else a cudaError_t.
+extern "C" int ares_fused_dense_usage(const void* kernel, int device,
+                                      int* regs, int* local_bytes) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
+}
+
+// Sizes a launch of `kernel` over n rows into n_slots as ares_fused_dense
+// does (hist_plan: the card's limits and, once a kernel and shape, the
+// occupancy query), without launching it: the clusters of its persistent
+// grid, 0 where no cluster holds the table, or minus a cudaError_t.
+extern "C" int ares_fused_dense_plan(const void* kernel, int n_slots,
+                                     long long n, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  HistLaunch h;
+  if (!hist_plan<HIST_SPLIT_DSMEM>(kernel, device, n_slots, 3,
+                                   K1_STATIC_BYTES, n, K1_UNROLL, &h))
+    return 0;
+  return h.clusters;
 }
 
 // kernel: a handle from ares_fused_dense_load, whose plan has (ni, nf)

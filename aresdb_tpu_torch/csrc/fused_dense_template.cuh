@@ -26,9 +26,13 @@
 // coalesced across the warp, and the unrolled rows' column loads are all
 // issued before their updates, so they overlap.
 //
-// Build and launch: a plan's source is device code only. nvcc compiles it
-// to a cubin (`nvcc -cubin`, cuda_build's "cubin" kind): no host compiler,
-// no link. The fixed launcher library (fused_dense_launch.cu, built once)
+// Build and launch: a plan's source is device code only. NVRTC compiles it
+// to a cubin inside the process (cuda_build's "nvrtc" kind): no compiler
+// process, no host code, no link; under __CUDACC_RTC__ it reaches no
+// system header (ares_common.cuh names the few C library types it takes,
+// ares_cluster.cuh calls the cluster built-ins directly), so the compile
+// parses this file, the row function and the csrc headers alone. The
+// fixed launcher library (fused_dense_launch.cu, built once)
 // loads that image, finds `fused_dense_kernel` by name, sizes the launch
 // with block_hist.cuh's hist_plan and launches it. The two agree on the
 // kernel's parameters through the ABI block below, which the launcher
@@ -109,7 +113,10 @@ ARES_HD AresLits ares_lits(const int* lits_i, const float* lits_f) {
 
 #ifdef __CUDACC__
 // the cubin holds device code only: none of block_hist.cuh's host helpers
+// (NVRTC's options define it too)
+#ifndef ARES_DEVICE_ONLY
 #define ARES_DEVICE_ONLY
+#endif
 #include "block_hist.cuh"
 
 // fused_dense_kernel's parameters: AresCols (384 bytes), AresLits (at

@@ -9,14 +9,15 @@ exactly.
 The Pallas body is traced per plan. Here the per-row work is EMITTED per
 plan as C (`emit_cuda`, one `ares_row` function per plan) and compiled
 into the fixed template `csrc/fused_dense_template.cuh`: device code only,
-built by `nvcc -cubin` and cached by the SHA-256 of its source. One fixed
-launcher library (`csrc/fused_dense_launch.cu`, built once) loads each
-structure's image, checks its parameters and launches it, so a new
-structure pays for nvcc's device compile alone. The source holds the plan's
-structure only: the values that move with the query's `now` or with the
-data (every number literal, the time-filter bounds among them, and each
-dense domain's base, size and stride) are read from a literal block
-(`P.i[k]`, `P.f[k]`) that the kernel takes by value at launch. So a
+compiled to a cubin inside the process by NVRTC and cached by the SHA-256
+of its source. One fixed launcher library (`csrc/fused_dense_launch.cu`,
+built once by nvcc) loads each structure's image, checks its parameters
+and launches it, so a new structure pays for one in-process compile of a
+few hundred lines, which reaches no system header. The source holds the
+plan's structure only: the values that move with the query's `now` or
+with the data (every number literal, the time-filter bounds among them,
+and each dense domain's base, size and stride) are read from a literal
+block (`P.i[k]`, `P.f[k]`) that the kernel takes by value at launch. So a
 moved window or a moved column range finds the cubin already built.
 The divisors (a domain's step and post-division, a bucket width, a
 literal divisor of `/`, `%` or FLOOR) come from the query text and stay
@@ -659,8 +660,9 @@ LAUNCH_SOURCE = "fused_dense_launch.cu"
 
 
 def build_item(source: str) -> Tuple[str, str, str]:
-    """cuda_build's (name, text, kind) of a structure's device image."""
-    return ("fused_dense", source, "cubin")
+    """cuda_build's (name, text, kind) of a structure's device image: a
+    cubin NVRTC compiles in this process."""
+    return ("fused_dense", source, "nvrtc")
 
 
 def launcher_item() -> Tuple[str, str, str]:
@@ -678,8 +680,12 @@ def _launcher() -> ctypes.CDLL:
         lib.ares_fused_dense_cluster.argtypes = [i, i]
         lib.ares_fused_dense.argtypes = [p, i, i, p, p, i, p, p, ll, ll, p,
                                          ll, i, p, p, i, p]
+        lib.ares_fused_dense_usage.argtypes = [p, i, ctypes.POINTER(i),
+                                               ctypes.POINTER(i)]
+        lib.ares_fused_dense_plan.argtypes = [p, i, ll, i]
         for fn in (lib.ares_fused_dense_load, lib.ares_fused_dense_cluster,
-                   lib.ares_fused_dense):
+                   lib.ares_fused_dense, lib.ares_fused_dense_usage,
+                   lib.ares_fused_dense_plan):
             fn.restype = i
         return lib
     return cuda_build.cached(("fused_dense launcher",), load)
@@ -708,6 +714,34 @@ def structure_kernel(spec: FusedSpec, device: torch.device) -> int:
                                f"error {rc}")
         return handle.value
     return cuda_build.cached(("fused_dense kernel", spec.source), load)
+
+
+def kernel_usage(kernel: int, device: torch.device) -> dict:
+    """A loaded K1 kernel's registers a thread and local memory bytes (its
+    stack frame, spills included), as its image states them: NVRTC's log
+    carries ptxas's report only where its ptxas ran, not where the CUDA
+    compute cache answered."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    rc = _launcher().ares_fused_dense_usage(kernel, device.index or 0,
+                                            ctypes.byref(regs),
+                                            ctypes.byref(local))
+    if rc != 0:
+        raise RuntimeError(f"fused_dense: reading the kernel's attributes "
+                           f"failed: CUDA error {rc}")
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
+def launch_plan(kernel: int, n_slots: int, n_rows: int,
+                device: torch.device) -> int:
+    """Sizes a launch of a loaded K1 kernel as `reduce` does, without
+    launching it: the clusters of its grid (the occupancy query runs once
+    a kernel and shape, then is cached)."""
+    clusters = _launcher().ares_fused_dense_plan(kernel, n_slots, n_rows,
+                                                 device.index or 0)
+    if clusters <= 0:
+        raise RuntimeError(f"fused_dense: no launch of {n_slots} slots "
+                           f"({clusters})")
+    return clusters
 
 
 def cluster_size(n_slots: int, device: torch.device) -> int:

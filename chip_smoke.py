@@ -4,13 +4,16 @@
                           [--server-rows R] [--cluster-rows C] [--seed S]
 
 First `phase_build`, on a fresh temporary build directory: K1's launcher
-library (`csrc/fused_dense_launch.cu`, host code, built once), then for
-each of the K1 plan structures below, one at a time, its cubin (one `nvcc
--cubin` of the structure's device code) and its first launch, against the
-plain version; each one's seconds go to the `{"build": ...}` line.
+library (`csrc/fused_dense_launch.cu`, host code, built once by nvcc),
+then for each of the K1 plan structures below, one at a time, its cubin
+(NVRTC in this process, on the structure's device code) and its first
+launch split into the image's load, the launch's sizing (the occupancy
+query) and the run, against the plain version; each one's seconds go to
+the `{"build": ...}` line.
 Then builds the port's hand-written CUDA kernels from
-`aresdb_tpu_torch/csrc/` (K2's and K3's libraries, K1's launcher and its
-cubins, all at once), holds each against its plain PyTorch version on
+`aresdb_tpu_torch/csrc/` (K2's and K3's libraries and K1's launcher by
+nvcc, K1's cubins by NVRTC, all at once), holds each against its plain
+PyTorch version on
 the card at the main path's shapes (K2 also on the engine's skewed
 traffic, a NaN measure, the run-length path's weighted per-run rows and,
 through its global-atomic kernel, nine channels; K3 also on one real Q5
@@ -183,11 +186,13 @@ source holds the plan's structure only, so each of these runs must build
 nothing (cuda_build.built), must launch K1, and must equal the CPU
 run and the numpy oracle at its own `now`; each run's ms stands beside
 its query's warm median in a `{"window": ...}` line. A cold query of a
-new plan structure builds its K1 cubin (the launcher is built once).
+new plan structure compiles its K1 cubin with NVRTC (the launcher is
+built once).
 
 Kernels and what they replace:
   K1 fused_dense  (csrc/fused_dense_template.cuh, one row function emitted
-                   per plan structure and built as a cubin, launched by
+                   per plan structure and compiled to a cubin by NVRTC,
+                   launched by
                    csrc/fused_dense_launch.cu)
                    <- aresdb_tpu/query/fused_dense.py _make_kernel
   K2 segment_sum  (csrc/segment_sum.cu)
@@ -198,9 +203,10 @@ Kernels and what they replace:
 Prints the card's name and power limit, per-phase results, one
 `{"window": ...}` line, one `{"build": ...}` line (phase_build's seconds,
 the all-at-once build's, and the builds and seconds of the whole run),
-one `{"kernels": [...]}` line (each kernel's registers, stack frame and
-spill bytes from ptxas: K1's for each plan, all 0 but the registers, or
-the run fails; K2's and K3's for each `__global__` function) and, last,
+one `{"kernels": [...]}` line (each kernel's registers and local memory:
+K1's for each plan from its loaded image, its local bytes 0 or the run
+fails; K2's and K3's registers, stack frame and spill bytes from ptxas for
+each `__global__` function) and, last,
 `{"ok": true, "device": {...}}`. A kernel's `ms` is the device time of
 one wrapper call (its output memset included), `kernel_ms` that of the
 kernel's own `__global__` functions,
@@ -889,15 +895,6 @@ def ptxas_functions(log: str) -> dict:
     return out
 
 
-def ptxas_k1(log: str) -> dict:
-    """fused_dense_kernel's registers, stack frame and spill bytes from
-    the `ptxas -v` log of its cubin."""
-    usage = ptxas_functions(log).get("fused_dense_kernel")
-    if usage is None:
-        raise AssertionError(f"no fused_dense_kernel usage in:\n{log}")
-    return usage
-
-
 def k1_setup(demo, FD, columns_from_numpy, plan_dense, query, city_max,
              seed, device) -> tuple:
     """One K1 case at n = one batch: (plan, dense plan, fused spec, its
@@ -934,12 +931,14 @@ def k1_check(name, kern, columns, n_valid, cutoff, foreign, city_max, got,
 def phase_build(demo, FD, columns_from_numpy, plan_dense, cuda_build,
                 device, seed: int = 0) -> dict:
     """K1's build on a fresh temporary build directory: the launcher
-    library's one-off build, then for each of phase_k1's plans, one at a
-    time, its structure's cubin (one `nvcc -cubin`; none where an earlier
-    plan has its structure: the overflowing and the 1,000-city Q1 are
-    Q1's) and its first launch (the image loaded, its parameters checked,
-    the launch sized and run), held against the plain version. Returns
-    the seconds of each."""
+    library's one-off build (nvcc) and libnvrtc's load, then for each of
+    phase_k1's plans, one
+    at a time, its structure's cubin (NVRTC in this process; none where an
+    earlier plan has its structure: the overflowing and the 1,000-city Q1
+    are Q1's) and its first launch, split: the image's load (read, loaded
+    with cudaLibraryLoadData, its parameters checked), the launch's sizing
+    (the card's limits and the occupancy query, then cached) and the run,
+    held against the plain version. Returns the seconds of each."""
     n = BATCH_ROWS
     out = {"structures": {}}
     saved = cuda_build.BUILD_DIR
@@ -950,6 +949,11 @@ def phase_build(demo, FD, columns_from_numpy, plan_dense, cuda_build,
             out["launcher_s"] = cuda_build.build_all([FD.launcher_item()])
             print(f"build: K1's launcher library in {out['launcher_s']:.3f} s"
                   f" (nvcc -x c++)", flush=True)
+            t0 = time.perf_counter()
+            cuda_build.nvrtc()
+            out["nvrtc_load_s"] = time.perf_counter() - t0
+            print(f"build: libnvrtc loaded in {out['nvrtc_load_s']:.3f} s",
+                  flush=True)
             sources = set()
             for name, (query, city_max) in k1_cases(demo, seed).items():
                 *_, spec, kern, columns, foreign = k1_setup(
@@ -961,17 +965,26 @@ def phase_build(demo, FD, columns_from_numpy, plan_dense, cuda_build,
                 n_valid, cutoff = n - 777, demo.DEMO_NOW - 15 * 3600
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
+                handle = FD.structure_kernel(spec, device)
+                t1 = time.perf_counter()
+                FD.launch_plan(handle, spec.n_slots, n, device)
+                t2 = time.perf_counter()
                 got, got_ovf = kern.reduce(columns, n_valid, cutoff, foreign)
                 torch.cuda.synchronize()
-                first_ms = 1e3 * (time.perf_counter() - t0)
+                t3 = time.perf_counter()
                 k1_check(f"{name} first launch", kern, columns, n_valid,
                          cutoff, foreign, city_max, got, got_ovf)
-                out["structures"][name] = {"new": new, "cubin_s": build_s,
-                                           "first_launch_ms": first_ms}
+                first = {"load_ms": 1e3 * (t1 - t0),
+                         "plan_ms": 1e3 * (t2 - t1),
+                         "run_ms": 1e3 * (t3 - t2)}
+                out["structures"][name] = {"new": new, "nvrtc_s": build_s,
+                                           "first_launch_ms": first}
                 print(f"build: K1 {name}: "
-                      + (f"cubin in {build_s:.3f} s" if new else
+                      + (f"NVRTC in {build_s:.3f} s" if new else
                          "an earlier plan's structure")
-                      + f", first launch {first_ms:.3f} ms", flush=True)
+                      + ", first launch: load {load_ms:.3f} ms, sizing "
+                      "{plan_ms:.3f} ms, run {run_ms:.3f} ms".format(**first),
+                      flush=True)
             if cuda_build.built - built != 1 + len(sources):
                 raise AssertionError(f"build: {cuda_build.built - built} "
                                      "builds, not the launcher and one "
@@ -987,7 +1000,8 @@ def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
     plan, the 26,650-slot one included, reduces through the cluster
     histogram. J1's joined lane is gathered through the cities table's
     probe, as the executor's batches gather it. Each plan's kernel has
-    no stack frame and no spill (ptxas_k1 of its cubin's log)."""
+    no local memory, so no stack frame and no spill (FD.kernel_usage of
+    its loaded image)."""
     n = BATCH_ROWS
     results = {}
     for name, (query, city_max) in k1_cases(demo, seed).items():
@@ -995,10 +1009,12 @@ def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
             demo, FD, columns_from_numpy, plan_dense, query, city_max, seed,
             device)
         ranks = FD.cluster_size(spec.n_slots, device)
-        usage = ptxas_k1(cuda_build.library_path(
-            *FD.build_item(spec.source)).with_suffix(".log").read_text())
-        if usage["stack_bytes"] or usage["spill_bytes"]:
-            raise AssertionError(f"K1 {name}: ptxas {usage}")
+        # the loaded image's registers and local bytes: NVRTC's log holds
+        # ptxas's report only where its ptxas ran
+        usage = FD.kernel_usage(FD.structure_kernel(spec, device), device)
+        if usage["local_bytes"]:
+            raise AssertionError(f"K1 {name}: a stack frame or spills: "
+                                 f"{usage}")
         if ranks <= 0:
             raise AssertionError(f"K1 {name}: no cluster holds its "
                                  f"{spec.n_slots} slots")
@@ -1026,9 +1042,9 @@ def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
         results[name] = dict(n_slots=spec.n_slots, max_abs_err=err, ms=ms,
                              kernel_ms=kernel_ms, wall_ms=call_ms,
                              plain_ms=plain_ms, library_ms=None,
-                             bound_ms=b_ms, bound_by=b_by, ptxas=usage)
+                             bound_ms=b_ms, bound_by=b_by, usage=usage)
         print(f"K1 fused_dense {name}: n={n} n_slots={spec.n_slots} "
-              f"cluster of {ranks} ok, ptxas {usage}, literal block "
+              f"cluster of {ranks} ok, {usage}, literal block "
               f"{len(spec.lits_i)} ints {len(spec.lits_f)} floats, "
               f"rows kept={rows_in} overflow={int(got_ovf)} "
               f"max_abs_err={err:.3g} device ms={ms:.4f} kernel-only "
@@ -2138,7 +2154,7 @@ def phase_atrips(n_rows: int, seed: int, warm: int = 5, device=None,
     """The archive half: ingest and archive atrips (ingest_atrips), answer
     every query of atrips_queries and geo_queries (or those in `names`)
     on the CPU service, but G2 dense (the card's only: its CPU answer is
-    G2's), build the K1 cubins those answers planned (all nvcc's at
+    G2's), build the K1 cubins those answers planned (all NVRTC's at
     once), then run each on the card as phase_e2e does, with its
     launches asserted, against the CPU answer and the numpy oracle; the
     queries in `mesh` as mesh batches (phase_mesh); on the card, then the
@@ -4057,8 +4073,9 @@ def main(argv=None) -> int:
 
     build = timed(phase_build, demo, FD, columns_from_numpy, plan_dense,
                   cuda_build, device, args.seed)
-    # build every kernel of the path at once, one nvcc per source: K2's
-    # and K3's libraries, K1's launcher and one cubin a K1 plan structure
+    # build every kernel of the path at once: one nvcc process for each of
+    # K2's and K3's libraries and K1's launcher, one NVRTC thread for each
+    # K1 plan structure's cubin
     sources = [("segment_sum", cuda_build.csrc_text(P.SOURCE), "nvcc"),
                ("dense_segment_sum", cuda_build.csrc_text(P.K3_SOURCE),
                 "nvcc"), FD.launcher_item()]
@@ -4111,7 +4128,7 @@ def main(argv=None) -> int:
                    k3[K3_CASES[0][0]], in_situ["K3"],
                    traffic={"q5_traffic": k3[K3_Q5_CASE]}),
     ]
-    kernels[0]["ptxas"] = {name: r["ptxas"] for name, r in k1.items()}
+    kernels[0]["usage"] = {name: r["usage"] for name, r in k1.items()}
     kernels[1]["ptxas"] = ptxas["segment_sum"]
     kernels[2]["ptxas"] = ptxas["dense_segment_sum"]
     if sorted(WINDOW) != ["A6", "B1 raised range", "Q1"]:

@@ -1,19 +1,23 @@
 """The port's kernel builds (`aresdb_tpu_torch/utils/cuda_build.py`), on the
-CPU with g++ and a stand-in compiler.
+CPU with g++ and a stand-in NVRTC.
 
 A build holds the lock of its own key only: a thread that loads a library
 already built does not wait for another key's compiler, and two threads
 that ask for one new key build it once. K1's per-plan build is a cubin of
-device code, made with the same code generation flags as the fixed
-libraries; its image is built once a source and found again on disk and
-in the process. Here no nvcc runs: the cubin's compiler is a script that
-copies its input to its output and prints a `ptxas -v` line, so what is
-checked is the build's keying, caching and log, not the compiler.
+device code that NVRTC compiles in the process, with the same code
+generation as the fixed libraries; its image is built once a source and
+found again in the process and on disk, keyed also on NVRTC's version and
+every csrc header. A failed compile raises with NVRTC's log and leaves no
+file; a missing libnvrtc raises and no nvcc runs in its place; NVRTC's
+compiles run on threads beside the compiler processes of one build_all.
+Here no NVRTC runs: its binding is stood in for by an object whose
+"cubin" is the source text and whose log is a `ptxas -v` line, so what is
+checked is the build's options, keying, caching and log, not the
+compiler.
 """
 
 from __future__ import annotations
 
-import os
 import shutil
 import stat
 import threading
@@ -125,57 +129,190 @@ def test_build_all_and_a_load_of_one_key_build_it_once(tmp_path, slow_gxx):
 
 
 def test_the_per_plan_command_is_a_cubin_with_the_libraries_codegen():
-    lib = cuda_build.FLAGS["nvcc"]
-    cubin = cuda_build.FLAGS["cubin"]
-    assert "-cubin" in cubin
-    assert "-shared" not in cubin and "-Xcompiler" not in cubin
+    """NVRTC's options are NVCC_CODEGEN's in NVRTC's words."""
     codegen = cuda_build.NVCC_CODEGEN
-    for flags in (lib, cubin):
-        assert flags[:len(codegen)] == codegen
+    options = cuda_build.NVRTC_OPTIONS
+    assert cuda_build.FLAGS["nvcc"][:len(codegen)] == codegen
+    assert cuda_build.FLAGS["nvrtc"] == options
+    # SASS for the libraries' architecture: a real one, so no PTX
     assert "arch=compute_90a,code=sm_90a" in codegen
-    for flag in ("-O3", "-fmad=false", "-std=c++17"):
-        assert flag in codegen
+    assert "--gpu-architecture=sm_90a" in options
+    assert not any("compute_" in o for o in options)
+    for flag in ("-fmad=false", "-std=c++17"):
+        assert flag in codegen and "-" + flag in options
     assert codegen[codegen.index("-Xptxas") + 1] == "-v"
+    assert "--ptxas-options=-v" in options
+    assert "-DARES_DEVICE_ONLY" in options
+    assert not any(o.startswith(("--include-path", "-I")) for o in options)
     # the launcher is host code: no device code generation at all
     host = cuda_build.FLAGS["host"]
     assert host[:2] == ["-x", "c++"] and "-gencode" not in host
-    assert cuda_build.SUFFIX["cubin"] == ".cubin"
+    assert cuda_build.SUFFIX["nvrtc"] == ".cubin"
+    assert "cubin" not in cuda_build.FLAGS
+    with pytest.raises(ValueError):
+        cuda_build._command("nvrtc")
+
+
+class FakeNvrtc:
+    """Stands in for cuda_build.Nvrtc: the "cubin" is the source text, the
+    log one ptxas line; `fail` makes a compile fail with that log, and
+    `sleep` makes it take that long (the interpreter lock released, as
+    ctypes releases it)."""
+
+    def __init__(self):
+        self.ver = (12, 9)
+        self.calls = []
+        self.fail = None
+        self.sleep = 0.0
+
+    def version(self):
+        return self.ver
+
+    def compile(self, text, name, headers, options):
+        self.calls.append((name, dict(headers), list(options)))
+        time.sleep(self.sleep)
+        if self.fail is not None:
+            raise cuda_build.NvrtcError(f"compiling {name}: "
+                                        f"NVRTC_ERROR_COMPILATION\n{self.fail}")
+        return text.encode(), ("ptxas info    : Function properties for "
+                               "fused_dense_kernel\n")
 
 
 @pytest.fixture
-def fake_nvcc(tmp_path, monkeypatch):
-    """A stand-in for nvcc: copies its input to `-o`, prints a ptxas
-    line. Returns the file that lists each command it ran."""
-    calls = tmp_path / "calls"
-    script = _script(tmp_path / "nvcc", f"""echo "$@" >> {calls}
-out=""; src=""; prev=""
-for a in "$@"; do
-  if [ "$prev" = "-o" ]; then out="$a"; fi
-  case "$a" in *.cu) src="$a";; esac
-  prev="$a"
-done
-cp "$src" "$out"
-echo "ptxas info    : Function properties for fused_dense_kernel"
-""")
-    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: script)
-    return calls
+def fake_nvrtc(tmp_path, monkeypatch):
+    """cuda_build's NVRTC stood in for, nothing loaded yet, and an nvcc
+    that only lists each command it is given (in `nvrtc.nvcc_calls`)."""
+    nvrtc = FakeNvrtc()
+    monkeypatch.setattr(cuda_build, "nvrtc", lambda: nvrtc)
+    monkeypatch.setattr(cuda_build, "_loaded", {})
+    nvrtc.nvcc_calls = tmp_path / "nvcc-calls"
+    nvcc = _script(tmp_path / "nvcc", f'echo "$@" >> {nvrtc.nvcc_calls}\n'
+                   "exit 1\n")
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: nvcc)
+    return nvrtc
 
 
-def test_one_cubin_a_source_built_once_and_found_again(tmp_path, fake_nvcc):
+K1_TEXT = '#define ARES_NI 1\n#define ARES_NF 0\n' \
+          '#include "fused_dense_template.cuh"\n'
+
+
+def test_one_cubin_a_source_built_once_and_found_again(tmp_path, fake_nvrtc,
+                                                        monkeypatch):
     build_dir = tmp_path / "build"
-    text = '#define ARES_NI 1\n#include "fused_dense_template.cuh"\n'
     built = cuda_build.built
-    image = cuda_build.load_cubin("fused_dense", text, build_dir)
-    assert image == text.encode()
+    image = cuda_build.load_cubin("fused_dense", K1_TEXT, build_dir)
+    assert image == K1_TEXT.encode()
     assert cuda_build.built == built + 1
-    # found in the process, then on disk
-    assert cuda_build.load_cubin("fused_dense", text, build_dir) is image
-    cuda_build.build_all([("fused_dense", text, "cubin")], build_dir)
+    # found in the process, then on disk by a process that has loaded
+    # nothing
+    assert cuda_build.load_cubin("fused_dense", K1_TEXT, build_dir) is image
+    monkeypatch.setattr(cuda_build, "_loaded", {})
+    again = cuda_build.load_cubin("fused_dense", K1_TEXT, build_dir)
+    assert again == image and again is not image
+    cuda_build.build_all([("fused_dense", K1_TEXT, "nvrtc")], build_dir)
     assert cuda_build.built == built + 1
-    path = cuda_build.library_path("fused_dense", text, "cubin", build_dir)
-    assert path.suffix == ".cubin" and path.exists()
+    path = cuda_build.library_path("fused_dense", K1_TEXT, "nvrtc",
+                                   build_dir)
+    assert path.suffix == ".cubin" and path.read_bytes() == image
     assert "fused_dense_kernel" in path.with_suffix(".log").read_text()
-    # one nvcc, -cubin with the libraries' code generation
-    (call,) = fake_nvcc.read_text().splitlines()
-    assert call.startswith(" ".join(cuda_build.CUBIN_FLAGS))
-    assert os.path.basename(call.split()[-1]).endswith(".tmp")
+    assert sorted(p.name for p in build_dir.iterdir()) == \
+        sorted([path.name, path.with_suffix(".log").name])
+    # one NVRTC compile, with NVRTC_OPTIONS and every csrc header in memory
+    (call,) = fake_nvrtc.calls
+    name, headers, options = call
+    assert name == "fused_dense.cu" and options == cuda_build.NVRTC_OPTIONS
+    assert headers == {h.name: h.read_text()
+                       for h in cuda_build.CSRC.glob("*.cuh")}
+    assert {"fused_dense_template.cuh", "ares_common.cuh", "block_hist.cuh",
+            "ares_cluster.cuh"} <= set(headers)
+    assert not fake_nvrtc.nvcc_calls.exists()
+
+
+HEADERS = sorted(h.name for h in cuda_build.CSRC.glob("*.cuh"))
+
+
+@pytest.mark.parametrize("header", HEADERS)
+def test_the_cubin_key_moves_with_nvrtc_and_each_header(header, tmp_path,
+                                                        fake_nvrtc,
+                                                        monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+
+    def path():
+        return cuda_build.library_path("fused_dense", K1_TEXT, "nvrtc",
+                                       tmp_path)
+    base = path()
+    assert path() == base
+    fake_nvrtc.ver = (12, 8)
+    assert path() != base
+    fake_nvrtc.ver = (12, 9)
+    assert path() == base
+    hdr = csrc / header
+    text = hdr.read_text()
+    hdr.write_text(text + "\n// one more line\n")
+    assert path() != base
+    hdr.write_text(text)
+    assert path() == base
+    # a header no source includes yet is hashed too
+    (csrc / "new.cuh").write_text("#pragma once\n")
+    assert path() != base
+
+
+def test_a_failed_compile_raises_with_its_log_and_leaves_no_file(
+        tmp_path, fake_nvrtc):
+    build_dir = tmp_path / "build"
+    built, secs = cuda_build.built, cuda_build.build_seconds
+    fake_nvrtc.fail = 'fused_dense.cu(4): error: identifier "x" is undefined'
+    with pytest.raises(RuntimeError, match='identifier "x" is undefined'):
+        cuda_build.load_cubin("fused_dense", K1_TEXT, build_dir)
+    assert cuda_build.built == built
+    assert list(build_dir.iterdir()) == []
+    # nothing of it is cached: the next load compiles again
+    fake_nvrtc.fail = None
+    image = cuda_build.load_cubin("fused_dense", K1_TEXT, build_dir)
+    assert image == K1_TEXT.encode() and len(fake_nvrtc.calls) == 2
+    assert cuda_build.built == built + 1 and cuda_build.build_seconds > secs
+    assert not fake_nvrtc.nvcc_calls.exists()
+
+
+def test_a_missing_libnvrtc_raises_and_runs_no_nvcc(tmp_path, monkeypatch):
+    """A toolkit whose lib64 holds no libnvrtc: the build raises before
+    any compiler starts, the nvcc library of the same build_all included."""
+    cuda = tmp_path / "cuda"
+    (cuda / "bin").mkdir(parents=True)
+    (cuda / "lib64").mkdir()
+    calls = tmp_path / "nvcc-calls"
+    _script(cuda / "bin" / "nvcc", f'echo "$@" >> {calls}\nexit 1\n')
+    monkeypatch.setenv("CUDA_HOME", str(cuda))
+    monkeypatch.setattr(cuda_build, "_loaded", {})
+    build_dir = tmp_path / "build"
+    with pytest.raises(RuntimeError, match="libnvrtc not found"):
+        cuda_build.load_cubin("fused_dense", K1_TEXT, build_dir)
+    with pytest.raises(RuntimeError, match="libnvrtc not found"):
+        cuda_build.build_all([("answer", SOURCE % 7, "nvcc"),
+                              ("fused_dense", K1_TEXT, "nvrtc")], build_dir)
+    assert not calls.exists() and not build_dir.exists()
+
+
+NVRTC_SLEEP_S = 1.5
+
+
+def test_nvrtc_compiles_run_on_threads_beside_a_compiler_process(
+        tmp_path, fake_nvrtc, slow_gxx):
+    """One build_all of a library behind a compiler that sleeps SLEEP_S
+    and two NVRTC compiles of NVRTC_SLEEP_S each: all three at once."""
+    slow_gxx()
+    fake_nvrtc.sleep = NVRTC_SLEEP_S
+    build_dir = tmp_path / "build"
+    built = cuda_build.built
+    secs = cuda_build.build_all([("answer", SOURCE % 8, "g++"),
+                                 ("fused_dense", K1_TEXT, "nvrtc"),
+                                 ("fused_dense", K1_TEXT + "// b\n",
+                                  "nvrtc")], build_dir)
+    assert cuda_build.built == built + 3
+    assert len(fake_nvrtc.calls) == 2
+    # one after another they take SLEEP_S + 2 * NVRTC_SLEEP_S at least
+    assert SLEEP_S <= secs < SLEEP_S + 2 * NVRTC_SLEEP_S - 1.0
+    assert sorted(p.suffix for p in build_dir.iterdir()) == \
+        [".cubin", ".cubin", ".log", ".log", ".log", ".so"]

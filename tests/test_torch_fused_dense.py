@@ -39,6 +39,8 @@ import ctypes
 import json
 import re
 import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -506,6 +508,51 @@ def test_the_per_plan_source_holds_device_code_only():
     for helper in ("<mutex>", "hist_plan", "hist_launch_args"):
         assert helper in host and helper not in hist[:hist.index(
             "#ifdef ARES_HIST_HOST")], helper
+
+
+# plans whose device code NVRTC compiles: the headline, the widest (a
+# joined lane) and a float dimension (the numeric bucket's floorf)
+RTC_PLANS = {
+    "Q1": lambda: _port_spec(JD.DEMO_QUERY),
+    "J1": lambda: _joined_case()[5],
+    "numeric bucket": lambda: _port_spec(OTHER_STRUCTURE["a numeric bucket"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RTC_PLANS))
+def test_k1_device_code_reaches_no_system_header_under_nvrtc(name, tmp_path):
+    """The emitted source preprocessed as NVRTC preprocesses it (the
+    device side, __CUDACC_RTC__, NVRTC_OPTIONS' defines) with no system
+    include directory at all: every header it reaches is a csrc one."""
+    if shutil.which("g++") is None:
+        pytest.fail("the host C++ compiler g++ is required for this test")
+    src = tmp_path / "k1.cu"
+    src.write_text(RTC_PLANS[name]().source)
+    defines = [o for o in cuda_build.NVRTC_OPTIONS if o.startswith("-D")]
+    proc = subprocess.run(
+        ["g++", "-E", "-nostdinc", "-Werror", "-x", "c++", "-D__CUDACC__",
+         "-D__CUDACC_RTC__", "-D__CUDA_ARCH__=900", *defines, "-I",
+         str(cuda_build.CSRC), str(src)], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    out = proc.stdout
+    # the device side was reached, through the cluster helpers, and none
+    # of the host helpers
+    assert "fused_dense_kernel" in out and "ares_cluster_sync" in out
+    assert "hist_launch_args" not in out and "ares_rows_host" not in out
+    reached = set(re.findall(r'^# \d+ "([^"<]+)"', out, re.M))
+    assert {Path(f).name for f in reached if f != str(src)} == {
+        "fused_dense_template.cuh", "ares_common.cuh", "block_hist.cuh",
+        "ares_cluster.cuh"}
+    assert all(Path(f).parent == cuda_build.CSRC for f in reached
+               if f != str(src))
+
+
+def test_no_csrc_file_includes_cooperative_groups():
+    for path in cuda_build.CSRC.glob("*.cu*"):
+        text = path.read_text()
+        assert not re.search(r"#\s*include\s*<cooperative_groups", text), \
+            path.name
+        assert "cg::" not in text, path.name
 
 
 def test_every_plan_takes_one_fixed_launcher(monkeypatch):
