@@ -45,13 +45,19 @@ def calculate_shard_assignment(view: TopologyView) -> Dict[str, Tuple]:
     """shard→host choice, balancing shard counts across hosts.
 
     Reference: broker/util/assignment.go:24 CalculateShardAssignment — one
-    Available replica per shard, least-loaded host first.
+    Available replica per shard, least-loaded host first. A shard with no
+    Available replica goes to a Leaving one: a replacement's source holds
+    the shard whole and keeps serving it until the joiner has copied it
+    and turned Available (DataNode.desired_shards), where the JAX
+    package's broker answers "no available host" for the whole copy
+    (ROADMAP section 3).
     """
     load: Dict[str, int] = {}
     hosts: Dict[str, Any] = {}
     assignment: Dict[str, List[int]] = {}
     for sid in view.shard_ids():
-        candidates = view.available_hosts(sid)
+        candidates = view.available_hosts(sid) or \
+            view.bootstrap_sources(sid)
         if not candidates:
             raise BrokerError(f"no available host for shard {sid}")
         best = min(candidates, key=lambda h: (load.get(h.name, 0), h.name))

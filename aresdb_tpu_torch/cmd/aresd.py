@@ -51,26 +51,28 @@ def build_server(cfg, device=None):
     return server, memstore, scheduler
 
 
-def run_datanode(cfg, device=None) -> int:
+def start_datanode(cfg, device=None):
     """Distributed mode (reference: cmd/aresd cluster flow — etcd advertise
     + topology watch replaced by the HTTP controller): the node registers
     with the controller, polls placement for its shard set, bootstraps
-    shards from peers, and serves queries for its shards on `device`."""
+    shards from peers, and serves queries for its shards on `device`; its
+    scheduler runs unless cfg.scheduler_off. Returns the serving DataNode.
+    Each peer copy's attempts are logged to standard error."""
+    import logging
+
     from aresdb_tpu_torch.datanode.datanode import DataNode
     from aresdb_tpu_torch.diskstore.local_diskstore import LocalDiskStore
     from aresdb_tpu_torch.memstore.memstore import MemStore
     from aresdb_tpu_torch.memstore.scheduler import Scheduler
     from aresdb_tpu_torch.metastore.disk_metastore import DiskMetaStore
 
+    logging.basicConfig(stream=sys.stderr)
+    logging.getLogger("aresdb.datanode").setLevel(logging.INFO)
     memstore = MemStore(DiskMetaStore(cfg.root_path),
                         LocalDiskStore(cfg.root_path),
                         total_memory_bytes=cfg.total_memory_size)
-    scheduler = Scheduler(memstore)
-    if not cfg.scheduler_off:
-        scheduler.start()
-        scheduler.enable()
     node = DataNode(
-        memstore, scheduler,
+        memstore, Scheduler(memstore),
         controller_address=cfg.cluster.controller_address,
         namespace=cfg.cluster.namespace,
         instance_name=cfg.cluster.instance_name,
@@ -78,16 +80,21 @@ def run_datanode(cfg, device=None) -> int:
         heartbeat_seconds=cfg.cluster.heartbeat_interval_seconds,
         device=device)
     port = node.open()
-    node.serve()
+    node.serve(scheduler_on=not cfg.scheduler_off)
     print(f"aresd datanode {cfg.cluster.instance_name!r} serving on :{port} "
           f"(namespace={cfg.cluster.namespace}, "
           f"controller={cfg.cluster.controller_address}, "
           f"device={node.server.ctx.device})", file=sys.stderr, flush=True)
+    return node
+
+
+def run_datanode(cfg, device=None) -> int:
+    """start_datanode, then serve until interrupted."""
+    node = start_datanode(cfg, device)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:
         node.close()
-        scheduler.stop()
     return 0
 
 

@@ -9,6 +9,7 @@ metastore/schema_fetch.go:29).
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import Dict, Optional, Set
@@ -20,6 +21,8 @@ from aresdb_tpu_torch.cluster.topology import DynamicTopology
 from aresdb_tpu_torch.common.schema import Table
 from aresdb_tpu_torch.datanode.bootstrap import (bootstrap_shard,
                                                 find_bootstrap_source)
+
+_log = logging.getLogger("aresdb.datanode")
 
 
 class DataNode:
@@ -53,6 +56,7 @@ class DataNode:
         self._threads = []
         self._schema_hash = ""
         self.owned_shards: Set[int] = set()
+        self._add_lock = threading.Lock()
         self.port = 0
 
     # -- lifecycle (reference datanode.go Open/Serve) --
@@ -62,7 +66,10 @@ class DataNode:
         self.port = self.server.start_background()
         return self.port
 
-    def serve(self) -> None:
+    def serve(self, scheduler_on: bool = True) -> None:
+        """Advertise the node and start its loops; `scheduler_on` False
+        (the daemon's --scheduler-off) leaves the scheduler paused, so that
+        jobs run only through /dbg."""
         # advertise membership
         r = self.session.post(
             f"{self.controller}/membership/{self.namespace}/instances",
@@ -73,7 +80,7 @@ class DataNode:
         self._spawn(self._heartbeat_loop, "datanode-heartbeat")
         self._spawn(self._placement_loop, "datanode-placement")
         self._spawn(self._schema_loop, "datanode-schema")
-        if self.scheduler is not None:
+        if self.scheduler is not None and scheduler_on:
             self.scheduler.start()
             self.scheduler.enable()
 
@@ -199,53 +206,51 @@ class DataNode:
 
     BOOTSTRAP_RETRIES = 4
     BOOTSTRAP_BACKOFF_S = 0.5
+    RECOVERY_TOKEN_TIMEOUT_S = 60.0
 
     def _add_shard(self, shard_id: int) -> None:
-        """Bootstrap every table of the shard from peers, with retry +
-        exponential backoff per table (reference:
-        datanode/bootstrap_manager.go:172 m3 retry). Each attempt re-picks
-        a peer so a single dead/busy source doesn't wedge the add."""
-        import logging
+        """Copy every table of the shard from a peer, recover it, own it
+        and mark it Available.
 
-        log = logging.getLogger("aresdb.datanode")
-        for table in sorted(self.memstore.get_schemas()):
-            backoff = self.BOOTSTRAP_BACKOFF_S
-            for attempt in range(self.BOOTSTRAP_RETRIES):
-                view = self.topology.refresh()
-                peer = find_bootstrap_source(view, shard_id,
-                                             self.instance_name)
-                if peer is None:
-                    break  # no peer owns the shard: fresh/empty start
-                try:
-                    copied = bootstrap_shard(peer, table, shard_id,
-                                             self.memstore.diskstore,
-                                             self.memstore.metastore,
-                                             session=self.session)
-                    log.info(
-                        "bootstrap of %s/%s from %s: %d files, %.1f MB in "
-                        "%.2fs (%.1f MB/s)", table, shard_id, peer,
-                        copied["archive"] + copied["snapshot"]
-                        + copied["redolog"], copied["bytes"] / 1e6,
-                        copied["seconds"], copied["mb_per_sec"])
-                    break
-                except Exception as e:
-                    if attempt + 1 >= self.BOOTSTRAP_RETRIES:
-                        log.warning(
-                            "bootstrap of %s/%s failed after %d attempts "
-                            "(last peer %s): %s — starting empty",
-                            table, shard_id, self.BOOTSTRAP_RETRIES, peer, e)
-                    else:
-                        log.info(
-                            "bootstrap of %s/%s from %s failed (attempt "
-                            "%d/%d): %s — retrying in %.1fs", table,
-                            shard_id, peer, attempt + 1,
-                            self.BOOTSTRAP_RETRIES, e, backoff)
-                        if self._stop.wait(backoff):
-                            return
-                        backoff *= 2
-            shard = self.memstore.add_table_shard(table, shard_id)
-            self.memstore._recover_shard(shard)
-        self.owned_shards.add(shard_id)
+        A table's copy is retried with exponential backoff, each attempt
+        re-picking a peer (reference: datanode/bootstrap_manager.go:172 m3
+        retry) and starting from an empty local shard. Where every attempt
+        fails, or a recovery fails, the shard's copies are deleted and it
+        is neither recovered, owned nor marked Available: it stays
+        Initializing, the Leaving source keeps serving it, and the
+        placement loop (or /dbg/bootstrap/retry) tries it again. Only a
+        shard that no peer owns starts from the local disk (empty on a new
+        node). Marking a short copy Available would drop the Leaving
+        replica (ControllerState.mark_available) and route the shard to
+        a node that lacks its rows."""
+        with self._add_lock:
+            if shard_id in self.owned_shards:
+                return
+            tables = sorted(self.memstore.get_schemas())
+            copied = []
+            for table in tables:
+                outcome = self._copy_table_shard(table, shard_id)
+                if outcome == "failed":
+                    for t in copied:
+                        self._discard_copy(t, shard_id)
+                    return
+                if outcome == "copied":
+                    copied.append(table)
+            recovered = []
+            try:
+                for table in tables:
+                    recovered.append(table)
+                    self._recover_table_shard(table, shard_id)
+            except Exception as e:  # noqa: BLE001 — the shard stays
+                _log.warning(        # Initializing and is retried
+                    "recovery of %s/%s failed: %s; the shard stays "
+                    "Initializing", recovered[-1], shard_id, e)
+                for t in recovered:
+                    self.memstore.remove_table_shard(t, shard_id)
+                for t in copied:
+                    self._discard_copy(t, shard_id)
+                return
+            self.owned_shards.add(shard_id)
         # mark available for query routing
         try:
             self.session.post(
@@ -254,6 +259,76 @@ class DataNode:
                 json={"shardId": shard_id}, timeout=5)
         except http_client.RequestException:
             pass
+
+    def _copy_table_shard(self, table: str, shard_id: int) -> str:
+        """Copy one table's shard from a peer into an emptied local shard:
+        "copied", "no peer" (nothing was copied or deleted) or "failed"
+        (every attempt failed, or the node closed mid-backoff; nothing of
+        the copy is left)."""
+        backoff = self.BOOTSTRAP_BACKOFF_S
+        for attempt in range(self.BOOTSTRAP_RETRIES):
+            view = self.topology.refresh()
+            peer = find_bootstrap_source(view, shard_id, self.instance_name)
+            if peer is None:
+                if attempt:
+                    self._discard_copy(table, shard_id)
+                return "no peer"
+            self._discard_copy(table, shard_id)
+            try:
+                copied = bootstrap_shard(peer, table, shard_id,
+                                         self.memstore.diskstore,
+                                         self.memstore.metastore,
+                                         session=self.session)
+                _log.info(
+                    "bootstrap of %s/%s from %s: %d files, %.1f MB in "
+                    "%.2fs (%.1f MB/s)", table, shard_id, peer,
+                    copied["archive"] + copied["snapshot"]
+                    + copied["redolog"], copied["bytes"] / 1e6,
+                    copied["seconds"], copied["mb_per_sec"])
+                return "copied"
+            except Exception as e:  # noqa: BLE001 — any fault of the copy
+                if attempt + 1 >= self.BOOTSTRAP_RETRIES:
+                    _log.warning(
+                        "bootstrap of %s/%s failed after %d attempts "
+                        "(last peer %s): %s; the shard stays Initializing",
+                        table, shard_id, self.BOOTSTRAP_RETRIES, peer, e)
+                else:
+                    _log.warning(
+                        "bootstrap of %s/%s from %s failed (attempt "
+                        "%d/%d): %s; retrying in %.1fs", table, shard_id,
+                        peer, attempt + 1, self.BOOTSTRAP_RETRIES, e,
+                        backoff)
+                    if self._stop.wait(backoff):
+                        break
+                    backoff *= 2
+        self._discard_copy(table, shard_id)
+        return "failed"
+
+    def _discard_copy(self, table: str, shard_id: int) -> None:
+        """Delete a copy's files and metastore entries (archive batches,
+        snapshots, redo logs, watermarks), so that no attempt or recovery
+        reads what an earlier attempt left."""
+        self.memstore.diskstore.delete_table_shard(table, shard_id)
+        self.memstore.metastore.delete_table_shard(table, shard_id)
+
+    def _recover_table_shard(self, table: str, shard_id: int) -> None:
+        """Add the table's shard to the store and replay it, holding its
+        bootstrap token from before the shard is listed until its
+        recovery ends: a data job (Scheduler.run_job) skips a shard whose
+        token is held, and one that ran on a half-recovered shard would
+        publish a cutoff past rows that are not yet visible, hiding
+        them."""
+        from aresdb_tpu_torch.memstore.common import GLOBAL_BOOTSTRAP_TOKEN
+
+        if not GLOBAL_BOOTSTRAP_TOKEN.acquire(
+                table, shard_id, timeout=self.RECOVERY_TOKEN_TIMEOUT_S):
+            raise TimeoutError(f"bootstrap token for {table}/{shard_id} "
+                               "busy")
+        try:
+            shard = self.memstore.add_table_shard(table, shard_id)
+            self.memstore._recover_shard(shard)
+        finally:
+            GLOBAL_BOOTSTRAP_TOKEN.release(table, shard_id)
 
     def retry_bootstrap(self):
         """Bootstrap desired-but-not-owned shards now (reference

@@ -110,6 +110,13 @@ class DiskMetaStore:
         with self.lock:
             shutil.rmtree(self._table_dir(name), ignore_errors=True)
 
+    def delete_table_shard(self, table: str, shard: int) -> None:
+        """Drop a shard's watermarks and batch versions, its schema kept
+        (a failed peer copy's entries, datanode/datanode.py)."""
+        import shutil
+        with self.lock:
+            shutil.rmtree(self._shard_dir(table, shard), ignore_errors=True)
+
     def watch_schema(self, callback: Callable[[Table], None]) -> None:
         self._schema_watchers.append(callback)
 

@@ -1129,6 +1129,34 @@ def _rt_dense_enabled() -> bool:
     return os.environ.get("ARES_RTDENSE", "") != "0"
 
 
+def _prefix_enabled() -> bool:
+    """The sort path's sums and counts add over its sorted runs (the JAX
+    package's prefix reduction); ARES_PREFIX=0 sends its float32 sums and
+    its counts through K2, as the JAX package's factored route does
+    (aresdb_tpu/query/kernels.py:57). Read at call time."""
+    return os.environ.get("ARES_PREFIX", "") != "0"
+
+
+def _k2_takes_runs(k_groups: int, device) -> bool:
+    """Whether ARES_PREFIX=0 reduces a sorted batch of k_groups slots
+    through K2: on a device where use_factored holds, up to K2's
+    K2_MAX_SLOTS. Past the cap the JAX package sums through an XLA one-hot
+    matmul and no Pallas kernel; the port keeps its index_add_ route."""
+    return (not _prefix_enabled() and k_groups <= P.K2_MAX_SLOTS
+            and P.use_factored(k_groups, device))
+
+
+def _k2_runs(values: torch.Tensor, idx: torch.Tensor,
+             k_groups: int) -> torch.Tensor:
+    """K2 over the sorted rows: values[n, C] float32 summed by each row's
+    slot into [k_groups, C] float32. Rows past k_groups (sentinel and
+    overflow rows, which _scatter_index spreads over spill slots for
+    index_add_) go in as -1: K2 drops a slot outside [0, n_slots) before
+    it adds, so that they cost no atomic."""
+    slot = torch.where(idx < k_groups, idx, -1)
+    return P.segment_sum(slot, values, k_groups)
+
+
 def _runtime_dense_slots(keys: torch.Tensor, dim_types: List[int],
                          dim_strides: Optional[List[int]] = None):
     """Per-batch dense-domain detection: rebase every dim's value field to
@@ -1332,7 +1360,8 @@ def _reduce_by_key_sorted(keys, mval, mvalid, agg: str, out_float: bool,
     brings each group into one contiguous run; sums and counts add over
     the runs in float64 (integer sums in int64) and round to the batch
     lanes' float32, so a NaN poisons only its own group and +/-inf
-    propagate, as direct summation does. min/max sort the measure as a
+    propagate, as direct summation does. Under ARES_PREFIX=0 float32
+    sums and every count add through K2 instead (_k2_takes_runs). min/max sort the measure as a
     secondary key and read each run's first or last row. With an exact
     key pack (dim_types given), dims unpack from the group keys; otherwise
     they are gathered from each group's first row.
@@ -1353,18 +1382,30 @@ def _reduce_by_key_sorted(keys, mval, mvalid, agg: str, out_float: bool,
         perm, skeys, first, live, idx, starts, ends = _sorted_runs(
             keys, k_groups)
     mval, mvalid = mval[perm], mvalid[perm]
-    cnt = _segment_add(mvalid, idx, k_groups, torch.float64)
+    k2 = _k2_takes_runs(k_groups, keys.device)
     if agg in ("sum", "count", "avg"):
         contrib = torch.where(mvalid, mval, torch.zeros_like(mval))
-        wide = torch.float64 if contrib.dtype.is_floating_point \
-            else torch.int64
-        aggv = _segment_add(contrib, idx, k_groups, wide).to(contrib.dtype)
+        if k2 and contrib.dtype == torch.float32:
+            both = _k2_runs(torch.stack([contrib, mvalid.to(contrib.dtype)],
+                                        dim=1), idx, k_groups)
+            aggv, cnt = both[:, 0], both[:, 1]
+        else:
+            # integer sums keep their int64 accumulator, and their counts
+            # their float64 one, under ARES_PREFIX=0 too
+            wide = torch.float64 if contrib.dtype.is_floating_point \
+                else torch.int64
+            aggv = _segment_add(contrib, idx, k_groups, wide).to(
+                contrib.dtype)
+            cnt = _segment_add(mvalid, idx, k_groups, torch.float64)
     elif minmax:
         contrib = contrib0[perm]
         at = starts if agg == "min" else (ends - 1).clamp(min=0)
         aggv = contrib[at[:k_groups].clamp(0, n - 1)]
         empty = starts[:k_groups] >= ends[:k_groups]
         aggv = torch.where(empty, torch.full_like(aggv, ident), aggv)
+        cnt = _k2_runs(mvalid.to(torch.float32)[:, None], idx,
+                       k_groups)[:, 0] if k2 else \
+            _segment_add(mvalid, idx, k_groups, torch.float64)
     else:
         raise QueryError(f"agg {agg} has no device kernel yet")
     gkeys, slot_used, n_groups, dim_values, dim_valids = _group_table(
@@ -1687,12 +1728,17 @@ def hll_batch_body(plan: CompiledQuery, n_rows: int, k_groups: int,
         0, reg_key, torch.where(valid_m, srho + 1, 0).to(torch.int32),
         "amax")[:k_groups * m]
     registers = registers.to(torch.uint8).reshape(k_groups, m)
-    # valid measures per group from the sorted runs' prefix sums (the JAX
-    # package's default prefix path): an index_add_ would pile every row
-    # of a few-group query onto a few float64 atomics
-    csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
-                      torch.cumsum(svalid, 0)])
-    cnt = csum[ends[:k_groups]] - csum[starts[:k_groups]]
+    if _k2_takes_runs(k_groups, device):
+        cnt = _k2_runs(svalid.to(torch.float32)[:, None], idx,
+                       k_groups)[:, 0]
+    else:
+        # valid measures per group from the sorted runs' prefix sums (the
+        # JAX package's default prefix path): an index_add_ would pile
+        # every row of a few-group query onto a few float64 atomics
+        csum = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                      device=device),
+                          torch.cumsum(svalid, 0)])
+        cnt = csum[ends[:k_groups]] - csum[starts[:k_groups]]
     gkeys, slot_used, n_groups, dim_values, dim_valids = _group_table(
         perm, skeys, first, live, starts, k_groups, dim_vals,
         dim_types if (exact and dim_vals) else None)

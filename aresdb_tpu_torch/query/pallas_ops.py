@@ -29,6 +29,7 @@ from aresdb_tpu_torch.utils import cuda_build
 SOURCE = "segment_sum.cu"
 K3_SOURCE = "dense_segment_sum.cu"
 PALLAS_MAX_SLOTS = 8192   # K3's slot cap, as in the JAX package
+K2_MAX_SLOTS = 1 << 16    # K2's (FP_KLO * FP_MAX_KHI in the JAX package)
 K3_MAX_CHANNELS = 8       # the kernel is instantiated for C = 1 .. 8
 
 
@@ -128,7 +129,7 @@ def segment_sum(slots: torch.Tensor, values: torch.Tensor, n_slots: int,
     """
     del ones_channels
     out = _launch("segment_sum", SOURCE, "ares_segment_sum", slots, values,
-                  n_slots, 1 << 16, 1 << 30)
+                  n_slots, K2_MAX_SLOTS, 1 << 30)
     if out is None:
         return segment_sum_plain(slots, values, n_slots)
     if slots.shape[0]:

@@ -15,8 +15,9 @@ Then builds the port's hand-written CUDA kernels from
 nvcc, K1's cubins by NVRTC, all at once), holds each against its plain
 PyTorch version on
 the card at the main path's shapes (K2 also on the engine's skewed
-traffic, a NaN measure, the run-length path's weighted per-run rows and,
-through its global-atomic kernel, nine channels; K3 also on one real Q5
+traffic, a NaN measure, the run-length path's weighted per-run rows, the
+sort path's sorted runs under ARES_PREFIX=0 (6,321 and 301 slots, C = 2)
+and, through its global-atomic kernel, nine channels; K3 also on one real Q5
 batch's slots and values, and on that batch with a NaN and an inf), and
 asserts which `__global__` function each K2 and K3 case ran,
 then drives the main paths end to end: N rows (default 16M,
@@ -50,6 +51,12 @@ numpy oracle over the ingested rows: N1's rows are the first 50 matching
 rows in order; H1's and H2's estimates are hll.compute_estimate of
 registers built with np.maximum.at, and H1's are within 5% of the exact
 distinct counts.
+Then `phase_prefix`, over the same store: Q1 overflow (its rerun on the
+sort path, ARES_RTDENSE=0), M1 (Q4 with max(fare), the sort path), H1,
+H2 and Q3 under ARES_PREFIX=0 through a QueryService of its own, one
+cold and one warm run each: every sorted reduce and HLL batch of at most
+65,536 groups launches K2 once and one past that (Q3's) none; each
+answer equals the default route's and its numpy oracle.
 
 The archive half: M rows (default 16M, 8 upserts of 2,097,152) of the
 TPU battery's atrips table, timed over three days in time order, are
@@ -136,7 +143,9 @@ and K2's launches on the datanodes asserted (B5, the join, fails on the
 node without shard 0 of cities, as in the JAX cluster); archiving on each
 owner with the clock 14 hours on; a third datanode started as a process
 of its own (`cmd.aresd --controller`) replaces one of them and
-bootstraps its shards from it (timed, with the bytes it copied); the 14
+bootstraps its shards from it (timed, with the bytes it copied), each
+of those shards holding on the new node the rows below and above the
+cutoff that it held on the old one, and no copy attempt failing; the 14
 shapes again, equal to their first answers.
 
 The deployment fed and queried as its users do (`phase_stream`): the
@@ -212,8 +221,9 @@ one wrapper call (its output memset included), `kernel_ms` that of the
 kernel's own `__global__` functions,
 and `in_situ_ms_per_launch` its device time per launch inside each query
 of the end-to-end phases, from one profiled warm run; K2's row also
-holds its run-length cases under `runlen_a2` and `runlen_a4`, K3's its
-case on Q5's batch under `q5_traffic`.
+holds its run-length cases under `runlen_a2` and `runlen_a4` and its
+sorted runs under `sorted_6321` and `sorted_301`, K3's its case on Q5's
+batch under `q5_traffic`.
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails. Needs one card.
 """
@@ -314,6 +324,14 @@ K2_CASES = (("uniform 13,338", 13_338, 3, None, 0.0),
             ("one NaN measure, 16,416 slots", 16_416, 3, None, 0.0),
             ("9 channels, 16,416 slots", 16_416, 9, None, 0.0))
 K2_ROW_CASE = "uniform 16,416"
+# K2 on the sort path's slots under ARES_PREFIX=0 (kernels._k2_runs): one
+# batch sorted by key, each group one run of rows and the rows past the
+# table (sentinel and overflow rows) a tail of -1; two channels, measure
+# and valid count. (name, slots, traffic key): Q1 overflow's 6,321 groups
+# and H1's 301 cities.
+K2_SORTED_CASES = (("sorted runs: 6,321 slots", 6_321, "sorted_6321"),
+                   ("sorted runs: 301 slots", 301, "sorted_301"))
+K2_SORTED_TAIL = 0.1      # the share of a batch's rows past the table
 # K2 at the run-length path's shape: one row a run (n_runs_pad rows), the
 # runtime-dense table of 16,384 slots, three weighted channels (each
 # run's fare sum, valid rows and rows; counts up to thousands, not 0/1).
@@ -364,6 +382,10 @@ MESH_COUNTERS = ("mesh_batches", "mesh_ineligible_batches",
 POOL_QUERIES = ("Q1", "Q2", "J1", "H1")
 POOL_THREADS, POOL_REQUESTS = 8, 4
 Q3_CAPACITY = 1 << 19    # the ladder's rung for about 300k groups a batch
+# phase_prefix: queries of the sort and HLL paths under ARES_PREFIX=0, one
+# cold and one warm run each
+PREFIX_QUERIES = ("Q1 overflow", "M1", "H1", "H2", "Q3")
+PREFIX_RUNS = 2
 H1_CAPACITY = 512        # the HLL ladder's rung for 301 groups a batch
 # phase_window: each query again with its `now` moved by these seconds
 # (A6's window ends at "now" and moves every second, Q1's at "this
@@ -719,17 +741,35 @@ def runlen_k2_inputs(n: int, live: int, rng) -> tuple:
     return slots, np.stack([fare, valid, rows], axis=1)
 
 
+def sorted_k2_inputs(n: int, n_slots: int, rng) -> tuple:
+    """numpy slots int32 [n] and values float32 [n, 2] of K2's call on a
+    sorted batch under ARES_PREFIX=0 (K2_SORTED_CASES): ascending slots,
+    each a run of uniform random length, then a K2_SORTED_TAIL of -1; the
+    channels a fare (5% invalid, so 0) and its valid count."""
+    kept = n - int(n * K2_SORTED_TAIL)
+    slots = np.full(n, -1, np.int32)
+    slots[:kept] = np.sort(rng.randint(0, n_slots, kept))
+    valid = (rng.rand(n) > 0.05).astype(np.float32)
+    fare = (rng.rand(n) * 50).astype(np.float32) * valid
+    return slots, np.stack([fare, valid], axis=1)
+
+
 def phase_k2(P, device, rng) -> dict:
-    """K2 against its plain version for each of K2_CASES at n = one
-    batch, and K2_RUNLEN_CASES at n = n_runs_pad; at C <= 8 through the
-    cluster kernel, above 8 channels through the global-atomic one."""
+    """K2 against its plain version for each of K2_CASES and
+    K2_SORTED_CASES at n = one batch, and K2_RUNLEN_CASES at n =
+    n_runs_pad; at C <= 8 through the cluster kernel, above 8 channels
+    through the global-atomic one."""
     results = {}
     cases = [(name, n_slots, c, live, dropped, BATCH_ROWS)
              for name, n_slots, c, live, dropped in K2_CASES] + \
+        [(name, n_slots, 2, None, "sorted", BATCH_ROWS)
+         for name, n_slots, _ in K2_SORTED_CASES] + \
         [(name, RT_DENSE_SLOTS, 3, live, None, n)
          for name, n, live in K2_RUNLEN_CASES]
     for name, n_slots, c, live, dropped, n in cases:
-        if dropped is None:
+        if dropped == "sorted":
+            slots_np, vals_np = sorted_k2_inputs(n, n_slots, rng)
+        elif dropped is None:
             slots_np, vals_np = runlen_k2_inputs(n, live, rng)
         else:
             slots_np, vals_np = k2_inputs(n_slots, c, live, dropped, rng)
@@ -744,7 +784,8 @@ def phase_k2(P, device, rng) -> dict:
         want = P.segment_sum_plain(slots, vals, n_slots)
         torch.cuda.synchronize()
         err = check_close(f"K2 {name}", got.t(), want.t(),
-                          exact_rows=(1, 2) if c == 3 else (),
+                          exact_rows=(1, 2) if c == 3 else
+                          (1,) if dropped == "sorted" else (),
                           nonfinite=nonfinite)
         call = lambda: P.segment_sum(slots, vals, n_slots)  # noqa: E731
         func = kernel_function(call, "K2")
@@ -1470,6 +1511,184 @@ def phase_window(name: str, gpu, cpu, q: dict, warm: float, oracle) -> None:
         + "; each equals the cpu run and the numpy oracle", flush=True)
 
 
+def prefix_queries(demo) -> dict:
+    """phase_prefix's queries: name -> (query, environment, understate the
+    city domain). Q1 overflow's rerun takes the sort path, not the
+    runtime-dense branch (ARES_RTDENSE=0); M1 is Q4 with max(fare), which
+    the runtime-dense branch never takes; H1, H2 and Q3 as phase_e2e's."""
+    e2e = e2e_queries(demo)
+    minute_city = [("request_at", "minute"), ("city_id", None)]
+    return {
+        "Q1 overflow": (e2e["Q1 overflow"][0], {"ARES_RTDENSE": "0"}, True),
+        "M1": (demo_variant(demo, "max(fare)", minute_city,
+                            ["city_id <= 20"], "3 hours ago"), {}, False),
+        "H1": e2e["H1"], "H2": e2e["H2"], "Q3": e2e["Q3"]}
+
+
+def minute_oracle(data, demo):
+    """oracle(name, answer, query) of Q3's and M1's form by minute x city
+    over the query's window, from the ingested batches: Q3 sum(fare) of
+    the completed trips (NULL where the city is), M1 max(fare) over the
+    cities <= 20 (the identity, -FLT_MAX, where no fare of the group is
+    valid, as both packages answer)."""
+    from aresdb_tpu_torch.query.time_util import format_time_dimension
+
+    col = {k: np.concatenate([b[k] for b in data])
+           for k in ("request_at", "city_id", "city_valid", "status",
+                     "status_valid", "fare", "fare_valid")}
+    t = col["request_at"].astype(np.int64)
+    city = np.where(col["city_valid"], col["city_id"], 0).astype(np.int64)
+    fare, fare_valid = col["fare"].astype(np.float64), col["fare_valid"]
+
+    def check(name, answer, q):
+        plan = demo.demo_plan(q)
+        sel = (t >= plan.from_ts) & (t < plan.to_ts)
+        if name == "Q3":
+            sel &= col["status_valid"] & (col["status"] == 0)
+        else:
+            sel &= col["city_valid"] & (col["city_id"] <= 20)
+        keys, inv = np.unique(((t // 60) * 65536 + city)[sel],
+                              return_inverse=True)
+        ok = fare_valid[sel]
+        if name == "Q3":
+            vals = np.bincount(inv, weights=np.where(ok, fare[sel], 0.0),
+                               minlength=len(keys)).tolist()
+        else:
+            top = np.full(len(keys), -float(np.finfo(np.float32).max))
+            np.maximum.at(top, inv[ok], fare[sel][ok])
+            vals = top.tolist()
+        want = {(format_time_dimension(k // 65536 * 60, "minute"),
+                 "NULL" if k % 65536 == 0 else str(k % 65536)): v
+                for k, v in zip(keys.tolist(), vals)}
+        got = flatten(answer)
+        if set(got) != set(want):
+            raise AssertionError(f"{name}: {len(got)} groups, the oracle "
+                                 f"{len(want)}")
+        for k, v in want.items():
+            if abs((got[k] or 0.0) - v) > max(ATOL, abs(v) * RTOL):
+                raise AssertionError(f"{name}: {k} {got[k]} against {v}")
+    return check
+
+
+def phase_prefix(store, gpu, single: dict, data, demo, device,
+                 n_batches: int, fused: int, names=PREFIX_QUERIES) -> tuple:
+    """The sort path's sums and counts through K2 (ARES_PREFIX=0), through
+    a new QueryService with a kernel cache of its own (the cache's key, as
+    the JAX package's, holds no environment): each of prefix_queries (or
+    those in `names`) one cold and one warm run, the launches set to 0
+    just before and read just after, then one profiled warm run. Each
+    answer equals the default route's (phase_e2e's answer, or `gpu`'s for
+    M1; HLL exactly, sums within RTOL/ATOL) and, the sums, their numpy
+    oracle (phase_e2e held H1's and H2's to theirs exactly). Every
+    sorted reduce and HLL batch of a table of at most K2_MAX_SLOTS groups
+    launches K2 once, and one past the cap (Q3's 524,288) none; K2's
+    launches are those plus the unfused dense kernel's (Q1 overflow's
+    batches below FD_MIN_ROWS), K1's those of phase_e2e. Returns each
+    kernel's launches over the runs and {kernel: {query: device ms per
+    launch}} from the profiled runs."""
+    from aresdb_tpu_torch.query import executor as X
+    from aresdb_tpu_torch.query import kernels as K
+    from aresdb_tpu_torch.query import pallas_ops as P
+    from aresdb_tpu_torch.query.kernels import KernelCache
+    from aresdb_tpu_torch.query.service import QueryService
+
+    counters = kernel_counters()
+    totals = dict.fromkeys(counters, 0)
+    in_situ = {k: {} for k in counters}
+    svc = QueryService(store, device=device)
+    svc.executor.kernel_cache = KernelCache()
+    queries = prefix_queries(demo)
+    oracle_q1, oracle_min = q1_oracle(data, demo), minute_oracle(data, demo)
+    calls = []   # (k_groups, K2 launches inside) of each sorted reduce
+
+    def spied(fn, k_at):
+        def run(*a, **kw):
+            k, before = a[k_at], P.segment_sum.launches
+            out = fn(*a, **kw)
+            calls.append((k, P.segment_sum.launches - before))
+            return out
+        return run
+
+    real = K._reduce_by_key_sorted, K.hll_batch_body
+    K._reduce_by_key_sorted = spied(real[0], 5)
+    K.hll_batch_body = spied(real[1], 2)
+    try:
+        for name in names:
+            q, env, understate = queries[name]
+            label = f"{name} ARES_PREFIX=0"
+            with query_setting(X, env, understate):
+                default = single[name][0] if name in single else \
+                    ask(gpu, name, q)[0]
+            with query_setting(X, {**env, "ARES_PREFIX": "0"}, understate):
+                for c in counters.values():
+                    c.launches = 0
+                calls.clear()
+                times = []
+                for _ in range(PREFIX_RUNS):
+                    t0 = time.perf_counter()
+                    answer, _ = ask(svc, label, q)
+                    if svc.device.type == "cuda":
+                        torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                got = {k: c.launches for k, c in counters.items()}
+                sorted_calls = list(calls)
+                events = device_events(lambda: ask(svc, label, q), 1) \
+                    if svc.device.type == "cuda" else []
+            # each reduce within K2's cap launched it once, each past the
+            # cap none; Q3's batches end past it (its cold run's first
+            # rung, 4,096 slots, is within), the others' within
+            eligible = sum(k <= P.K2_MAX_SLOTS for k, _ in sorted_calls)
+            past = len(sorted_calls) - eligible
+            wrong = [(k, d) for k, d in sorted_calls
+                     if d != int(k <= P.K2_MAX_SLOTS)]
+            if wrong or len(sorted_calls) < PREFIX_RUNS * n_batches:
+                raise AssertionError(f"{label}: sorted reduces (k_groups, "
+                                     f"K2 launches) {sorted_calls}")
+            if (past >= PREFIX_RUNS * n_batches) != (name == "Q3") or \
+                    (name != "Q3" and past):
+                raise AssertionError(f"{label}: {past} of "
+                                     f"{len(sorted_calls)} sorted reduces "
+                                     "past K2's cap")
+            unfused = PREFIX_RUNS * (n_batches - fused) \
+                if name == "Q1 overflow" else 0
+            want = {"K1": PREFIX_RUNS * fused if name == "Q1 overflow"
+                    else 0, "K2": unfused + eligible, "K3": 0}
+            if got != want:
+                raise AssertionError(f"{label}: launches {got}, expected "
+                                     f"{want}")
+            if name in HLL_QUERIES:
+                # phase_e2e held the default route's estimates to the
+                # numpy oracle's exactly
+                if answer != default:
+                    raise AssertionError(f"{label}: estimates differ from "
+                                         "the default route's")
+            else:
+                same_result(label, answer, default)
+                if name == "Q1 overflow":
+                    oracle_q1(answer, q)
+                else:
+                    oracle_min(name, answer, q)
+            per_launch = kernel_events(events, "K2")
+            if per_launch:
+                in_situ["K2"][label] = sum(per_launch) / 1e3 / len(
+                    per_launch)
+            for k in totals:
+                totals[k] += got[k]
+            print(f"{label}: cold {1e3 * times[0]:.3f} ms, warm "
+                  f"{1e3 * times[1]:.3f} ms, {len(flatten(answer))} groups,"
+                  f" sorted reduces {len(sorted_calls)} (k_groups "
+                  f"{sorted({k for k, _ in sorted_calls})}, {eligible} "
+                  "through K2), launches "
+                  + " ".join(f"{k}={v}" for k, v in got.items())
+                  + (f", K2 {in_situ['K2'][label]:.4f} ms per launch in "
+                     f"situ over {len(per_launch)}" if per_launch else "")
+                  + "; equal to the default route's answer and the oracle",
+                  flush=True)
+    finally:
+        K._reduce_by_key_sorted, K.hll_batch_body = real
+    return totals, in_situ
+
+
 def q1_oracle(data, demo):
     """oracle(answer, query) of Q1's form at any `now`: sum(fare) of the
     completed trips by hour x city (NULL where the city is) over the
@@ -1738,6 +1957,17 @@ def phase_e2e(n_rows: int, seed: int, warm: int = 5, device=None,
                                  device, n_batches)
         for k in totals:
             totals[k] += launches[k]
+    prefix = [n for n in PREFIX_QUERIES if n in single or n == "M1"]
+    if "Q1 overflow" in single:
+        t0 = time.perf_counter()
+        launches, prefix_in_situ = phase_prefix(
+            store, gpu, single, data, demo, device, n_batches, q1_k1,
+            prefix)
+        print(f"phase_prefix took {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        for k in totals:
+            totals[k] += launches[k]
+            in_situ[k].update(prefix_in_situ[k])
     if mesh:
         launches, mesh_in_situ = phase_mesh(
             "trips", store, {n: queries[n][:2] for n in mesh}, single,
@@ -3175,6 +3405,20 @@ def bootstrap_metrics(port: int) -> tuple:
     return seconds, nbytes
 
 
+def shard_counts(port: int, sid: int, cutoff: int) -> tuple:
+    """(rows below cutoff, rows at or above it) of trips shard sid on the
+    datanode at port: a count by `request_at >= cutoff` with shards: [sid]
+    sent to that datanode directly."""
+    q = {"table": "trips", "shards": [sid], "now": SERVER_NOW,
+         "measures": [{"sqlExpression": "count(*)"}],
+         "dimensions": [{"sqlExpression": f"request_at >= {cutoff}"}]}
+    resp = http(port, "query/aql", {"queries": [q]})
+    if "errors" in resp:
+        raise AssertionError(f"shard {sid} count: {resp['errors']}")
+    got = resp["results"][0]
+    return int(got.get("0", 0)), int(got.get("1", 0))
+
+
 def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
                   device=None, batch_rows: int = BATCH_ROWS) -> tuple:
     """Distributed mode on the card: the port's controller over a
@@ -3408,6 +3652,18 @@ def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
                                      f"the cutoff {cutoff} holds {want}")
             print(f"cluster: archived {archived} rows to {cutoff} on "
                   f"{CLUSTER_SHARDS} shards in {archive_s:.3f} s", flush=True)
+            # the migration check: dn1's shards counted on dn1 below and
+            # above the cutoff (archived and live rows), against the rows
+            # sent to each, and after the replace on dn2
+            before = {}
+            for sid in sorted(nodes["dn1"].owned_shards):
+                t = data["request_at"][sid * quarter:(sid + 1) * quarter]
+                want = (int((t < cutoff).sum()), int((t >= cutoff).sum()))
+                before[sid] = shard_counts(nodes["dn1"].port, sid, cutoff)
+                if before[sid] != want:
+                    raise AssertionError(f"cluster: dn1's shard {sid} holds "
+                                         f"{before[sid]} rows below and "
+                                         f"above the cutoff, not {want}")
 
             log = []
             t_start = time.perf_counter()
@@ -3439,6 +3695,22 @@ def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
             if boot_bytes <= 0:
                 raise AssertionError(f"cluster: dn2 copied {boot_bytes} "
                                      "bytes")
+            for sid, want in before.items():
+                got = shard_counts(port2, sid, cutoff)
+                for part, g, w in zip(("below", "at or above"), got, want):
+                    if g != w:
+                        raise AssertionError(
+                            f"cluster: dn2's shard {sid} holds {g} rows "
+                            f"{part} the cutoff, dn1's held {w}")
+            attempts = [x.rstrip() for x in log if "aresdb.datanode" in x]
+            print("cluster: dn2's peer copies: " + " | ".join(attempts),
+                  flush=True)
+            failed = [x for x in attempts
+                      if "starting empty" in x or "failed" in x]
+            if failed or len(attempts) < len(before):
+                raise AssertionError(f"cluster: dn2's peer copies {attempts}")
+            print(f"cluster: dn2 holds dn1's shards whole, rows below and "
+                  f"at or above the cutoff {before}", flush=True)
             print(f"cluster: dn2 (a process of its own, device "
                   f"{dev.type}) served {serving_s:.3f} s after its start; "
                   f"replacing dn1 took {replace_s:.3f} s to all shards "
@@ -4121,7 +4393,9 @@ def main(argv=None) -> int:
                    "aresdb_tpu/query/pallas_ops.py:308", launches["K2"],
                    k2[K2_ROW_CASE], in_situ["K2"],
                    traffic={"runlen_a2": k2[K2_RUNLEN_CASES[0][0]],
-                            "runlen_a4": k2[K2_RUNLEN_CASES[1][0]]}),
+                            "runlen_a4": k2[K2_RUNLEN_CASES[1][0]],
+                            **{key: k2[name]
+                               for name, _, key in K2_SORTED_CASES}}),
         kernel_row("dense_segment_sum",
                    "aresdb_tpu_torch/csrc/dense_segment_sum.cu",
                    "aresdb_tpu/query/pallas_ops.py:99", launches["K3"],

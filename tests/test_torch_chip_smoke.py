@@ -483,7 +483,8 @@ def test_phase_cluster_runs_the_battery_through_the_broker(cpu_rehearsal,
     shapes through the broker against the numpy oracle and the single
     daemon (B5 the reference cluster's error), the HLL frames, archiving
     on each owner, dn2 started as a process of its own on the CPU in dn1's
-    place, its peer bootstrap, and the shapes again. The launch counts
+    place, its peer bootstrap, each of dn1's shards counted on dn2 below
+    and above the cutoff as on dn1, and the shapes again. The launch counts
     assert inside the phase: before the migration K1 on the dense shapes'
     four batches (twice for B2, the broker's sum and count) and K2 on the
     calendar shape's; after it, dn0's two live batches and four archive
@@ -501,6 +502,7 @@ def test_phase_cluster_runs_the_battery_through_the_broker(cpu_rehearsal,
     assert out.count("the reference cluster's answer: datanode") == 2
     assert out.count("its estimates equal the single daemon's") == 4
     assert "its peer bootstrap copied" in out
+    assert "cluster: dn2 holds dn1's shards whole" in out
     assert "every shape but the listing equals its first answer" in out
     assert "live batches 4, archive chunks 0 on this process's" in out
     assert "live batches 2, archive chunks 4 on this process's" in out
@@ -632,3 +634,26 @@ def test_phase_stream_feeds_and_queries_like_a_deployment(cpu_rehearsal,
     assert "every statement's output equals QueryClient's answers" in out
     assert "the array length, contains and element_at queries" in out
     assert launches == {"K1": 2 * 5 * 3, "K2": 2 * 4 * 1 + 2 * 4, "K3": 0}
+
+
+def test_phase_prefix_runs_the_sort_path_through_k2(cpu_rehearsal, capsys):
+    """phase_e2e's Q1, Q1 overflow, H1 and H2 over three batches of
+    FD_MIN_ROWS rows, then phase_prefix: the last three and M1 under
+    ARES_PREFIX=0
+    through a service of its own, each equal to the default route's
+    answer and its numpy oracle; every sorted reduce and HLL batch within
+    K2's cap launches K2 once (asserted inside the phase)."""
+    names = ("Q1 overflow", "H1", "H2")
+    batch = FD.FD_MIN_ROWS
+    S.phase_e2e(3 * batch, 0, warm=1, device="cpu", batch_rows=batch,
+                names=("Q1",) + names)
+    out = capsys.readouterr().out
+    for name in names + ("M1",):
+        m = re.search(rf"{name} ARES_PREFIX=0: .* sorted reduces (\d+) .*"
+                      rf"(\d+) through K2\), launches K1=(\d+) K2=(\d+) "
+                      r"K3=0; equal to the default route's answer and the "
+                      "oracle", out)
+        assert m, name
+        # two runs of three batches, the cold one climbing the ladder
+        assert int(m.group(1)) == int(m.group(2)) >= 2 * 3, name
+    assert "phase_prefix took" in out

@@ -82,6 +82,29 @@ def test_every_module_of_the_jax_package_has_a_counterpart():
         assert "not ported yet" not in path.read_text().lower(), path
 
 
+_READ_KNOB = re.compile(r'environ(?:\.get)?[(\[]\s*"(ARES_[A-Z0-9_]+)"')
+
+
+def _knobs_read(root: Path) -> set:
+    """The ARES_* environment names that a package's modules read."""
+    return {m.group(1) for p in root.rglob("*.py")
+            for m in _READ_KNOB.finditer(p.read_text())}
+
+
+def test_every_knob_of_the_jax_package_is_read_or_not_carried_over():
+    """Every ARES_* name that aresdb_tpu/ reads is read by the port, or
+    named in ROADMAP.md's "Not carried over" list with its reason."""
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    start = roadmap.index("**Not carried over, by design.**")
+    not_carried = roadmap[start:roadmap.index("### ", start)]
+    jax_knobs = _knobs_read(ROOT / "aresdb_tpu")
+    assert {"ARES_PREFIX", "ARES_FUSED", "ARES_FD_T"} <= jax_knobs
+    missing = {k for k in jax_knobs - _knobs_read(PORT)
+               if k not in not_carried}
+    assert not missing, sorted(missing)
+    assert "ARES_PREFIX" in _knobs_read(PORT)
+
+
 _FORBIDDEN = (re.compile(r"\bimport jax\b|\bfrom jax\b"),
               re.compile(r"(from|import) aresdb_tpu(\.|\s)"),
               re.compile(r"\bimport ml_dtypes\b|\bfrom ml_dtypes\b"),
