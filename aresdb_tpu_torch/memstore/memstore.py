@@ -190,22 +190,33 @@ class MemStore:
             cutoff = shard.archive_store.get_current_version().archiving_cutoff
             shard.live_store.archiving_cutoff_high_watermark = cutoff
             shard.live_store.primary_key.update_event_time_cutoff(cutoff)
-            redo_file, offset = self.metastore.get_backfill_progress(table, sid)
+            # every redo log left on disk replays: a batch before the
+            # backfill progress may hold live rows (at or past the
+            # cutoff), which no archive holds; only its late rows, which
+            # the backfill applied, are not queued again (skip_backfill)
+            backfilled = self.metastore.get_backfill_progress(table, sid)
+            redo_file, offset = 0, 0
         else:
             # dimension table: load latest snapshot, then replay from there
             redo_file, offset, _, _ = self.metastore.get_snapshot_progress(table, sid)
             self._load_snapshot(shard, redo_file, offset)
 
         replayed = 0
-        for rf, off, payload in shard.redolog_manager.iterate(redo_file, offset):
-            batch = UpsertBatch(payload)
-            shard.apply_upsert_batch(batch, recovery=True,
-                                     redo_file=rf, batch_offset=off)
-            max_et = shard._max_event_time(batch)
-            if max_et:
-                shard.redolog_manager.update_max_event_time(max_et, rf)
-            replayed += 1
-        shard.live_store.advance_last_read_record()
+        # the writer lock holds off an upsert to a shard that is listed
+        # before its replay ends (a datanode's bootstrap): one applied
+        # beside the replay would share its write cursor
+        with shard.writer_lock:
+            for rf, off, payload in shard.redolog_manager.iterate(
+                    redo_file, offset):
+                batch = UpsertBatch(payload)
+                shard.apply_upsert_batch(
+                    batch, recovery=True, redo_file=rf, batch_offset=off,
+                    skip_backfill=fact and (rf, off) <= tuple(backfilled))
+                max_et = shard._max_event_time(batch)
+                if max_et:
+                    shard.redolog_manager.update_max_event_time(max_et, rf)
+                replayed += 1
+            shard.live_store.advance_last_read_record()
         # kafka-backed managers keep consuming the topic after replay
         # (reference ingestion half of the kafka Iterator)
         if hasattr(shard.redolog_manager, "start_streaming"):

@@ -280,12 +280,15 @@ class TableShard:
 
     def apply_upsert_batch(self, batch: UpsertBatch, recovery: bool = False,
                            redo_file: int = 0, batch_offset: int = 0,
-                           redo_pos=None) -> IngestionStats:
+                           redo_pos=None,
+                           skip_backfill: bool = False) -> IngestionStats:
         """Classify rows (insert/update/backfill/skip) and write columns.
 
         redo_pos: optional resolver for the (redo_file, batch_offset)
         position when the WAL append runs concurrently (save_upsert_batch);
-        consulted only on the backfill path.
+        consulted only on the backfill path. skip_backfill: the batch's
+        late rows are in the archive already (a replayed batch at or
+        before the backfill progress): they are not queued again.
 
         Reference: ApplyUpsertBatch + insertPrimaryKeys + writeBatchRecords
         (memstore/ingestion.go:76-494).
@@ -343,7 +346,8 @@ class TableShard:
         if isinstance(pk, NativePrimaryKey):
             return self._apply_native(
                 batch, cols_by_id, key_cols, key_valid, event_times, fact,
-                cutoff, retention_ts, future_ts, stats, recovery, redo_pos)
+                cutoff, retention_ts, future_ts, stats, recovery, redo_pos,
+                skip_backfill)
 
         keys = build_keys(key_cols, n)
         insert_rows: List[int] = []
@@ -400,11 +404,12 @@ class TableShard:
         stats.updated = len(update_rows)
         stats.backfilled = len(backfill_rows)
 
-        if backfill_rows and self.backfill_manager is not None:
-            # During recovery, replay starts at the backfill-progress
-            # checkpoint, so every late row seen here was NOT yet backfilled
-            # — it must be re-queued or it is silently lost (reference:
-            # memstore/recovery.go replays into the backfill manager).
+        if backfill_rows and self.backfill_manager is not None and \
+                not skip_backfill:
+            # During recovery, a late row past the backfill-progress
+            # checkpoint was NOT yet backfilled — it must be re-queued or
+            # it is silently lost (reference: memstore/recovery.go replays
+            # into the backfill manager).
             # force=True: no backfill job consumes the queue mid-replay.
             rf, bo = redo_pos()
             self.backfill_manager.append(
@@ -420,7 +425,8 @@ class TableShard:
                       key_valid, event_times, fact: bool, cutoff: int,
                       retention_ts: int, future_ts: int,
                       stats: IngestionStats,
-                      recovery: bool, redo_pos=None) -> IngestionStats:
+                      recovery: bool, redo_pos=None,
+                      skip_backfill: bool = False) -> IngestionStats:
         """Batch-classified ingestion via the C++ cuckoo index."""
         from aresdb_tpu_torch.memstore.native_primary_key import build_key_matrix
 
@@ -487,7 +493,8 @@ class TableShard:
 
         backfill_rows = (np.concatenate(all_backfill)
                          if all_backfill else np.zeros(0, np.int64))
-        if len(backfill_rows) and self.backfill_manager is not None:
+        if len(backfill_rows) and self.backfill_manager is not None and \
+                not skip_backfill:
             # see apply_upsert_batch: recovery must re-queue late rows
             rf, bo = redo_pos() if redo_pos is not None else (0, 0)
             self.backfill_manager.append(

@@ -40,6 +40,12 @@ HLL_QUERY_REQUIRED_BYTES = 10 << 30  # aql_processor.go:34 (10 GiB, in MB)
 # alive (previous batch may not be freed before the next is staged)
 PIPELINE_FACTOR = 2
 CPU_MEMORY_BYTES = 16 << 30  # the budget's total for a `cpu` device
+# The device column cache (executor.DeviceColumnCache) keeps staged columns
+# between queries: this share of a CUDA device's total memory, which the
+# admission budget leaves to it, so that the two together stay within the
+# card; CPU_DEVICE_CACHE_BYTES on `cpu`.
+DEVICE_CACHE_SHARE = 0.25
+CPU_DEVICE_CACHE_BYTES = 4 << 30
 
 
 class AdmissionError(Exception):
@@ -54,31 +60,46 @@ def _dtype_bytes(data_type: int) -> int:
     return item * mdt.lanes(data_type) + 1  # +1 validity byte per row
 
 
+def device_cache_budget(device) -> int:
+    """The device column cache's bytes on `device`: DEVICE_CACHE_SHARE of
+    a CUDA device's total memory (`torch.cuda.mem_get_info`), else
+    CPU_DEVICE_CACHE_BYTES."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return int(torch.cuda.mem_get_info(dev)[1] * DEVICE_CACHE_SHARE)
+    return CPU_DEVICE_CACHE_BYTES
+
+
+def _card_budget(device: torch.device, utilization: float) -> int:
+    """A CUDA device's admission bytes: `utilization` of its total memory
+    less the column cache's share."""
+    total = torch.cuda.mem_get_info(device)[1]
+    return max(0, int(total * utilization) - device_cache_budget(device))
+
+
 def _per_device_budget(device: torch.device, utilization: float,
                        fallback: int) -> int:
-    """One device's usable bytes: a CUDA device's own total memory
-    (`torch.cuda.mem_get_info`), else `fallback`."""
+    """One device's usable bytes: a CUDA device's own (`_card_budget`),
+    else `fallback`."""
     if device.type == "cuda":
-        return int(torch.cuda.mem_get_info(device)[1] * utilization)
+        return _card_budget(device, utilization)
     return fallback
 
 
 def device_memory_budget(utilization: float = 0.95, device=None) -> int:
-    """Usable device bytes: `ARES_DEVICE_MEMORY` env override, else the
-    total memory of the `cuda` device (`torch.cuda.mem_get_info`; `cuda`
-    unless `device` names another), else 16 GiB for `cpu`."""
-    env = os.environ.get("ARES_DEVICE_MEMORY")
-    if env:
-        total = int(env)
-    else:
-        dev = resolve_device(device)
-        if dev.type == "cuda":
-            total = int(torch.cuda.mem_get_info(dev)[1])
-        else:
-            total = CPU_MEMORY_BYTES
+    """Usable device bytes: `utilization` of the `ARES_DEVICE_MEMORY` env
+    override, else of the `cuda` device's total memory
+    (`torch.cuda.mem_get_info`; `cuda` unless `device` names another) less
+    the column cache's share (`_card_budget`), else of 16 GiB for `cpu`."""
     if not (0.0 < utilization <= 1.0):
         utilization = 0.95
-    return int(total * utilization)
+    env = os.environ.get("ARES_DEVICE_MEMORY")
+    if env:
+        return int(int(env) * utilization)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return _card_budget(dev, utilization)
+    return int(CPU_MEMORY_BYTES * utilization)
 
 
 def estimate_query_memory(plan, memstore) -> int:

@@ -70,6 +70,7 @@ from aresdb_tpu_torch.query import geo as G
 from aresdb_tpu_torch.query import hll as H
 from aresdb_tpu_torch.query import kernels as K
 from aresdb_tpu_torch.query import runlen as RL
+from aresdb_tpu_torch.query.admission import device_cache_budget
 from aresdb_tpu_torch.query.compiler import CompiledQuery, QueryError
 from aresdb_tpu_torch.query.dense import _underlying_column_key, plan_dense
 from aresdb_tpu_torch.query.kernels import (
@@ -79,7 +80,6 @@ from aresdb_tpu_torch.query.kernels import (
 from aresdb_tpu_torch.utils import metrics as M
 from aresdb_tpu_torch.utils.torch_env import fetch_to_host
 
-DEVICE_CACHE_BYTES = 4 << 30  # device residency budget for staged columns
 DEFAULT_GROUP_CAPACITY = 4096
 MAX_GROUP_CAPACITY = 1 << 22
 DEFAULT_HLL_CAPACITY = 256   # HLL group capacity before the ladder climbs
@@ -101,13 +101,19 @@ class DeviceColumnCache:
 
     Live batch columns carry mutation versions, so staged tensors stay
     resident on the device across queries and only changed data pays the
-    host→device copy again. The device is part of every key.
+    host→device copy again. The device is part of every key, and each
+    device holds at most its own budget: `max_bytes` where given, else
+    `admission.device_cache_budget` (a share of a CUDA device's memory,
+    4 GiB on `cpu`); past it, that device's least recently used entries
+    go.
     """
 
-    def __init__(self, max_bytes: int = DEVICE_CACHE_BYTES):
+    def __init__(self, max_bytes: Optional[int] = None):
         self.max_bytes = max_bytes
         self._entries = OrderedDict()
         self._bytes = 0
+        self._device_bytes: Dict[str, int] = {}
+        self._budgets: Dict[str, int] = {}
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
@@ -116,8 +122,22 @@ class DeviceColumnCache:
     def _entry_bytes(entry) -> int:
         return sum(t.numel() * t.element_size() for t in entry)
 
+    def budget(self, device) -> int:
+        """The bytes `device` may hold (read once a device)."""
+        name = str(device)
+        with self._lock:
+            got = self._budgets.get(name)
+        if got is None:
+            got = (self.max_bytes if self.max_bytes is not None
+                   else device_cache_budget(device))
+            with self._lock:
+                self._budgets[name] = got
+        return got
+
     def get_or_stage(self, device: torch.device, key, stage_fn):
-        key = (str(device),) + key
+        dev = str(device)
+        limit = self.budget(device)
+        key = (dev,) + key
         with self._lock:
             hit = self._entries.get(key)
             if hit is not None:
@@ -131,9 +151,17 @@ class DeviceColumnCache:
             if key not in self._entries:
                 self._entries[key] = entry
                 self._bytes += nbytes
-                while self._bytes > self.max_bytes and len(self._entries) > 1:
-                    _, old = self._entries.popitem(last=False)
-                    self._bytes -= self._entry_bytes(old)
+                held = self._device_bytes.get(dev, 0) + nbytes
+                if held > limit:
+                    # this device's oldest entries first, never the new one
+                    for old_key in [k for k in self._entries
+                                    if k[0] == dev and k != key]:
+                        if held <= limit:
+                            break
+                        old = self._entry_bytes(self._entries.pop(old_key))
+                        held -= old
+                        self._bytes -= old
+                self._device_bytes[dev] = held
         return entry
 
     def stats(self) -> dict:

@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py [--rows N] [--atrips-rows M] [--events-rows E]
                           [--server-rows R] [--cluster-rows C] [--seed S]
+                          [--hundredm-rows H] [--hundredm-cache-bytes B]
+                          [--only hundredm,crash,rf2,migrate,soak]
 
 First `phase_build`, on a fresh temporary build directory: K1's launcher
 library (`csrc/fused_dense_launch.cu`, host code, built once by nvcc),
@@ -20,9 +22,10 @@ sort path's sorted runs under ARES_PREFIX=0 (6,321 and 301 slots, C = 2)
 and, through its global-atomic kernel, nine channels; K3 also on one real Q5
 batch's slots and values, and on that batch with a NaN and an inf), and
 asserts which `__global__` function each K2 and K3 case ran,
-then drives the main paths end to end: N rows (default 16M,
-8 live batches of 2,097,152; cut from 32M to keep the whole run near
-650 s beside the stream phase) of the demo trips table are ingested through
+then drives the main paths end to end: N rows (default 8M, 4 live
+batches of 2,097,152; cut from 32M to 16M to keep the whole run near
+650 s beside the stream phase, and to 8M beside the drive phases) of the
+demo trips table are ingested through
 the upsert wire format into a `TableShard`, and these queries run through
 `QueryService.handle_aql` on `cuda`, each checked against the same
 service on the CPU (the kernels' plain versions):
@@ -58,13 +61,14 @@ cold and one warm run each: every sorted reduce and HLL batch of at most
 65,536 groups launches K2 once and one past that (Q3's) none; each
 answer equals the default route's and its numpy oracle.
 
-The archive half: M rows (default 16M, 8 upserts of 2,097,152) of the
-TPU battery's atrips table, timed over three days in time order, are
-ingested, then the port's Archiver archives the first two days (the
-cutoff falls inside one live batch) through a DiskMetaStore and a
-LocalDiskStore in a temporary directory: two days of about 5.6M rows,
-each staged as two chunks (ARCHIVE_CHUNK_ROWS = 4,194,304 and the rest),
-one live batch straddling the cutoff and two above it. Each query runs
+The archive half: M rows (default 8M, 4 upserts of 2,097,152; cut from
+16M beside the drive phases) of the TPU battery's atrips table, timed
+over three days in time order, are ingested, then the port's Archiver
+archives the first two days (the cutoff falls inside one live batch)
+through a DiskMetaStore and a LocalDiskStore in a temporary directory:
+two days of about 2.8M rows, each staged as one chunk
+(ARCHIVE_CHUNK_ROWS = 4,194,304; at 16M rows two), one live batch
+straddling the cutoff and one above it. Each query runs
 on the card against the CPU run and a numpy oracle over the rows; its
 K1 row functions are built first, all at once, from the CPU run's plans:
   A1  sum(fare) by city_id, no time filter: K1 on every batch and chunk
@@ -117,8 +121,8 @@ The daemon (`phase_server`): `cmd.aresd.build_server` over a temporary
 root on `cuda`, its scheduler on and the port's clock frozen at the TPU
 battery's NOW, fed through the port's `Connector` as
 tools/drive_tpu_server.py:11-67 feeds the JAX package's server: R rows
-(default 8,388,608, four `insert_columns` upserts of 2,097,152 by two
-producer threads) of the battery's trips table and its 300 cities. The battery's 14 trips shapes (B1-B14: sum by hour x
+(default 4,194,304, cut from 8,388,608 beside the drive phases; two
+`insert_columns` upserts of 2,097,152 by two producer threads) of the battery's trips table and its 300 cities. The battery's 14 trips shapes (B1-B14: sum by hour x
 city, avg by status, HLL of id overall and by city, the join count, the
 listing, the two SQL forms, the sums with no dimensions, count by city,
 the numeric bucket, case and IN, calendar dimensions and the 200k-group
@@ -186,6 +190,44 @@ every answer equal to the single-device one, both entries serving, none
 running or waiting at the end, K1's and K2's launches asserted. Each
 phase's seconds are printed.
 
+Then the JAX package's deployments of tools/drive_*.py, each a phase of
+its own (`--only` runs just the ones it names, without the kernel phases
+and the kernels line):
+  phase_hundredm (drive_100m.py): H rows (default 100,000,000, never
+      cut) of its trips through a MemStore with its redo log on, in
+      upserts of 4,194,304 from seed 3, under a host budget of 0.9 GB;
+      its seven shapes (live sum by city, live completed hour x city, the
+      Archiver over every row, archive count by city x status, archive
+      sum by city, the count under ARES_RUNLEN=1, the id % 200000 sum,
+      then the budget tightened to 0.7 x the bytes held and archive sum
+      by city again) on the card through a column cache of its own (B
+      bytes, else the card's share): one cold and three warm runs each,
+      every answer against a numpy oracle of np.bincount over every group
+      (counts exactly, sums within rel 1e-5), K1's launches asserted on
+      the live and archive shapes and K2's on the run-length shape, each
+      shape's stages, host fetches, device busy share and cache stats;
+      at least one column evicted and the bytes held within 1.2 x the
+      tightened budget, or the phase fails.
+  phase_crash (drive_crash.py): `cmd.aresd` on `cuda` as a process of
+      its own, 16 acked upserts of 131,072 rows through
+      Connector.insert_columns, a 17th in flight when it is SIGKILLed; a
+      new daemon on the root holds every acked row (count and sum) and
+      takes 1,000 more.
+  phase_rf2 (drive_rf2.py): two `cmd.aresd` datanode processes on
+      `cuda` holding 2 shards of 1,048,576 rows at replica factor 2;
+      count(*) and sum(v) by id % 16 through the broker equal the oracle,
+      and again within 30 s after dn0 is SIGKILLed.
+  phase_migrate_live (drive_migrate_live.py): datanodes in this process
+      on `cuda`; a shard moves three times (dn0 -> dn1 by a rebalance,
+      back by a replace, out again) while a writer upserts to every owner
+      and archiving runs every 300 ms; after each move each shard is
+      counted below and at or above its cutoff on its old and its new
+      owner (K1 asserted), and the broker's count and sum equal the acks.
+  phase_soak (drive_soak.py): the ApiServer on `cuda` for 60 s under a
+      writer (new ids and re-upserts of old ones), a count and a join
+      thread and the archiving, backfill and snapshot jobs through /dbg;
+      the drive's final oracle checks, the join's K1 launches asserted.
+
 The moving window (`phase_window`), inside the phases that hold its
 stores: Q1 again at DEMO_NOW + 900 s (its window ends at "this
 quarter-hour"), A6 at ATRIPS_NOW + 1 s and + 2 s (its window ends at
@@ -210,7 +252,10 @@ Kernels and what they replace:
                    <- aresdb_tpu/query/pallas_ops.py _make_kernel
 
 Prints the card's name and power limit, per-phase results, one
-`{"window": ...}` line, one `{"build": ...}` line (phase_build's seconds,
+`{"window": ...}` line, one `{"drives": ...}` line (the drive phases'
+figures: the restart's and the failover's seconds, each move's
+seconds, the soak's rows, backfilled rows and cache stats), one
+`{"build": ...}` line (phase_build's seconds,
 the all-at-once build's, and the builds and seconds of the whole run),
 one `{"kernels": [...]}` line (each kernel's registers and local memory:
 K1's for each plan from its loaded image, its local bytes 0 or the run
@@ -271,7 +316,7 @@ ATRIPS_SCHEMA_JSON = {
     "config": {"batchSize": BATCH_ROWS, "recordRetentionInDays": 0}}
 STATUSES = ["completed", "canceled", "rejected"]
 DAY = 86400
-ATRIPS_ROWS = 8 * BATCH_ROWS
+ATRIPS_ROWS = 4 * BATCH_ROWS
 ATRIPS_NOW = 1_600_000_000 // DAY * DAY
 ATRIPS_BASE = ATRIPS_NOW - 3 * DAY     # rows over the three days before
 ATRIPS_CUTOFF = ATRIPS_BASE + 2 * DAY  # two days archived
@@ -2676,7 +2721,7 @@ def phase_events(n_rows: int, seed: int, warm: int = 5, device=None,
 
 # the daemon's battery: tools/drive_tpu_server.py:11-213, over HTTP
 SERVER_NOW = 1_600_000_000
-SERVER_ROWS = 4 * BATCH_ROWS
+SERVER_ROWS = 2 * BATCH_ROWS
 SERVER_TRIPS_JSON = {
     "name": "trips",
     "columns": [{"name": "request_at", "type": "Uint32"},
@@ -3205,10 +3250,14 @@ def phase_server(n_rows: int, seed: int, warm: int = 5, device=None,
             budget = http(port, "dbg/device")
             total = (torch.cuda.mem_get_info(dev)[1] if dev.type == "cuda"
                      else A.CPU_MEMORY_BYTES)
-            if budget != {"budgetBytes": int(total * 0.95), "inUseBytes": 0,
-                          "running": 0, "waiting": 0}:
+            # on a card, 0.95 of its memory less the column cache's share
+            cache_share = (A.device_cache_budget(dev) if dev.type == "cuda"
+                           else 0)
+            if budget != {"budgetBytes": int(total * 0.95) - cache_share,
+                          "inUseBytes": 0, "running": 0, "waiting": 0}:
                 raise AssertionError(f"admission: {budget} with {total} "
-                                     "bytes on the device")
+                                     f"bytes on the device, {cache_share} "
+                                     "of them the column cache's")
             name = next(iter(queries))
             _, ctx = ask_http(port, name, *queries[name], verbose=True)
             if not ctx or ctx.get("memoryRequired", 0) <= 0:
@@ -3220,7 +3269,8 @@ def phase_server(n_rows: int, seed: int, warm: int = 5, device=None,
             if resp.get("errors") != ["query timed out"]:
                 raise AssertionError(f"deadline: {resp}")
             print(f"server admission: budget {budget['budgetBytes']} bytes "
-                  f"(0.95 x {total}), {name} requires "
+                  f"(0.95 x {total} less the column cache's "
+                  f"{cache_share}), {name} requires "
                   f"{ctx['memoryRequired']} bytes; in use 0, running 0 "
                   "after the runs; a deadline of 1e-9 s answers 'query "
                   "timed out'", flush=True)
@@ -3665,24 +3715,11 @@ def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
                                          f"{before[sid]} rows below and "
                                          f"above the cutoff, not {want}")
 
-            log = []
-            t_start = time.perf_counter()
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "aresdb_tpu_torch.cmd.aresd",
-                 "--controller", caddr, "--namespace", ns, "--instance",
+            proc, port2, log, serving_s = start_daemon(
+                ["--controller", caddr, "--namespace", ns, "--instance",
                  "dn2", "--device", dev.type, "--root-path", f"{root}/dn2",
-                 "--port", "0", "--scheduler-off"],
-                cwd=str(Path(__file__).resolve().parent),
-                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-            stack.append(lambda: (proc.terminate(), proc.wait(timeout=60)))
-            reader = threading.Thread(target=lambda: log.extend(proc.stderr),
-                                      daemon=True)
-            reader.start()
-            wait_for(lambda: any(" serving on :" in line for line in log),
-                     "dn2 to serve", 600, proc, log)
-            serving_s = time.perf_counter() - t_start
-            (line,) = [x for x in log if " serving on :" in x]
-            port2 = int(line.split(" on :")[1].split()[0])
+                 "--port", "0", "--scheduler-off"], "dn2 to serve")
+            stack.append(lambda: kill(proc))
             t0 = time.perf_counter()
             http(cport, f"placement/{ns}/datanode/replace",
                  {"leaving": "dn1", "joining": "dn2"})
@@ -3743,7 +3780,7 @@ def phase_cluster(n_rows: int, seed: int, single: dict, warm: int = 5,
 # and an example dataset through cmd.examples
 STREAM_NS = "stream"
 STREAM_JOB = "trips-stream"
-# 524,288 events: the whole smoke stays near 650 s beside the mesh and pool
+# 524,288 events: the whole smoke stays near 650 s beside the drive phases
 STREAM_NEW = 3 * (1 << 17)       # new trips, ids from the loaded rows up
 STREAM_UPDATES = 1 << 17         # one update each of distinct loaded trips
 STREAM_MALFORMED = 16
@@ -4286,6 +4323,1322 @@ def phase_stream(n_rows: int, seed: int, warm: int = 5, device=None,
     return totals, {k: {} for k in counters}
 
 
+# the 100M-row deployment of tools/drive_100m.py (phase_hundredm): its
+# trips schema (:41-51), 100M rows in upserts of 1 << 22 from seed 3 over
+# four days before NOW, WAL on, under a 0.9 GB host budget
+HUNDREDM_ROWS = 100_000_000
+HUNDREDM_BATCH = 1 << 22
+HUNDREDM_SEED = 3
+HUNDREDM_BUDGET = 900_000_000
+HUNDREDM_NOW = 1_600_000_000
+HUNDREDM_BASE = HUNDREDM_NOW - HUNDREDM_NOW % DAY - 4 * DAY
+HUNDREDM_CITIES = 300
+HUNDREDM_HOURS = 4 * 24
+HUNDREDM_MODULUS = 200_000
+HUNDREDM_TIGHTEN = 0.7        # the budget's share of the managed bytes
+HUNDREDM_WARM = 3
+HUNDREDM_RTOL = 1e-5          # sums; counts exactly
+HUNDREDM_SCHEMA_JSON = {
+    "name": "trips",
+    "columns": [{"name": "request_at", "type": "Uint32"},
+                {"name": "id", "type": "Uint32"},
+                {"name": "city_id", "type": "Uint16"},
+                {"name": "status", "type": "SmallEnum"},
+                {"name": "fare", "type": "Float32"}],
+    "primaryKeyColumns": [1], "archivingSortColumns": [2, 3],
+    "isFactTable": True,
+    "config": {"batchSize": HUNDREDM_BATCH, "recordRetentionInDays": 0}}
+
+
+def hundredm_queries() -> dict:
+    """The drive's seven shapes in its order (tools/drive_100m.py:125-217):
+    name -> (query, environment, its kind for the launches and the
+    oracle). The Archiver runs between the second and the third; the
+    budget is tightened before the seventh."""
+    def q(measure, *dims, filters=()):
+        return {"table": "trips", "now": HUNDREDM_NOW,
+                "measures": [{"sqlExpression": measure,
+                              "rowFilters": list(filters)}],
+                "dimensions": [d if isinstance(d, dict)
+                               else {"sqlExpression": d} for d in dims]}
+
+    by_city = q("sum(fare)", "city_id")
+    city_status = q("count(*)", "city_id", "status")
+    return {
+        "live sum by city": (by_city, {}, "city"),
+        "live completed hour x city": (
+            q("sum(fare)", {"sqlExpression": "request_at",
+                            "timeBucketizer": "hour"}, "city_id",
+              filters=["status='completed'"]), {}, "hour"),
+        "archive count city x status": (city_status, {}, "city_status"),
+        "archive sum by city": (by_city, {}, "city"),
+        "archive count city x status, ARES_RUNLEN=1": (
+            city_status, {"ARES_RUNLEN": "1"}, "runlen"),
+        f"archive id % {HUNDREDM_MODULUS} sum": (
+            q("sum(fare)", f"id % {HUNDREDM_MODULUS}"), {}, "modulus"),
+        "archive sum by city, after eviction": (by_city, {}, "city"),
+    }
+
+
+class HundredmOracle:
+    """The drive's answers from np.bincount over each upsert's rows as it
+    is built: sum(fare) by city, completed sum(fare) by hour x city (and
+    its row counts, for the groups present), rows by city x status, and
+    sum(fare) and rows by id % HUNDREDM_MODULUS."""
+
+    def __init__(self):
+        c, h, m = HUNDREDM_CITIES, HUNDREDM_HOURS, HUNDREDM_MODULUS
+        self.city_fare = np.zeros(c)
+        self.hour_city_fare = np.zeros(h * c)
+        self.hour_city_rows = np.zeros(h * c, np.int64)
+        self.city_status_rows = np.zeros(c * 3, np.int64)
+        self.mod_fare = np.zeros(m)
+        self.mod_rows = np.zeros(m, np.int64)
+
+    def add(self, ts, ids, city, status, fare) -> None:
+        c, h, m = HUNDREDM_CITIES, HUNDREDM_HOURS, HUNDREDM_MODULUS
+        city = city.astype(np.int64)
+        fare = fare.astype(np.float64)
+        done = status == 0
+        hc = ((ts.astype(np.int64) - HUNDREDM_BASE) // 3600) * c + city
+        self.city_fare += np.bincount(city, fare, c)
+        self.hour_city_fare += np.bincount(hc[done], fare[done], h * c)
+        self.hour_city_rows += np.bincount(hc[done], minlength=h * c)
+        self.city_status_rows += np.bincount(city * 3 + status, minlength=3 * c)
+        mod = ids.astype(np.int64) % m
+        self.mod_fare += np.bincount(mod, fare, m)
+        self.mod_rows += np.bincount(mod, minlength=m)
+
+    def want(self, kind: str) -> dict:
+        """{(dim values...): measure} of a kind of shape, as flatten()
+        gives an answer: every group that holds a row."""
+        c = HUNDREDM_CITIES
+        if kind == "city":
+            return {(str(k),): v for k, v in enumerate(self.city_fare)}
+        if kind == "hour":
+            return {(time.strftime("%Y-%m-%d %H:00", time.gmtime(
+                HUNDREDM_BASE + k // c * 3600)), str(k % c)):
+                self.hour_city_fare[k]
+                for k in np.flatnonzero(self.hour_city_rows).tolist()}
+        if kind in ("city_status", "runlen"):
+            return {(str(k // 3), STATUSES[k % 3]): float(n)
+                    for k, n in enumerate(self.city_status_rows.tolist())
+                    if n}
+        return {(str(k),): self.mod_fare[k]
+                for k in np.flatnonzero(self.mod_rows).tolist()}
+
+    def check(self, name: str, kind: str, answer: dict) -> None:
+        """Every group of the answer against the oracle: counts exactly,
+        sums within HUNDREDM_RTOL."""
+        got, want = flatten(answer), self.want(kind)
+        if set(got) != set(want):
+            raise AssertionError(f"hundredm {name}: {len(got)} groups, the "
+                                 f"oracle {len(want)}")
+        exact = kind in ("city_status", "runlen")
+        for k, v in want.items():
+            g = got[k]
+            if (g != v) if exact else (abs(g - v) > HUNDREDM_RTOL * abs(v)):
+                raise AssertionError(f"hundredm {name}: {k} {g} against "
+                                     f"the oracle's {v}")
+
+
+def hundredm_rows(n_rows: int, seed: int, batch_rows: int):
+    """The drive's upserts (tools/drive_100m.py:63-83), one at a time:
+    (request_at, id, city_id, status, fare) of batch_rows rows each, ids
+    from 0, drawn from one RandomState(seed) in the drive's order."""
+    rng = np.random.RandomState(seed)
+    for off in range(0, n_rows, batch_rows):
+        m = min(batch_rows, n_rows - off)
+        ts = (HUNDREDM_BASE + rng.randint(0, 4 * DAY, m)).astype(np.uint32)
+        city = rng.randint(0, HUNDREDM_CITIES, m).astype(np.uint16)
+        status = rng.randint(0, 3, m).astype(np.uint8)
+        fare = (rng.rand(m) * 50).astype(np.float32)
+        yield ts, np.arange(off, off + m, dtype=np.uint32), city, status, fare
+
+
+def hundredm_launches(kind: str, runs: int, layout: dict) -> dict:
+    """Each kernel's launches over `runs` runs of a shape: a dense shape's
+    K1 on every batch or chunk of at least FD_MIN_ROWS padded rows (K2 on
+    the others); the run-length shape's K2 on every archive chunk; the
+    200k-group shape sorts its chunks (index_add_, past K2's 65,536
+    slots) and reduces each live batch, whose rows all lie behind the
+    archiving cutoff, through the runtime-dense branch's K2 (no live key:
+    one slot)."""
+    if kind == "modulus":
+        return {"K1": 0, "K2": runs * len(layout["live"]), "K3": 0}
+    if kind == "runlen":
+        return atrips_launches("A4", runs, layout)
+    return atrips_launches("A1", runs, layout)
+
+
+def cache_line(stats: dict) -> str:
+    return (f"{stats['entries']} entries, {stats['bytes']} bytes, "
+            f"{stats['hits']} hits, {stats['misses']} misses")
+
+
+def phase_hundredm(n_rows: int = HUNDREDM_ROWS, seed: int = HUNDREDM_SEED,
+                   warm: int = HUNDREDM_WARM, device=None,
+                   batch_rows: int = HUNDREDM_BATCH,
+                   budget: int = HUNDREDM_BUDGET, cache_bytes=None) -> tuple:
+    """tools/drive_100m.py on the port: n_rows of its trips through a
+    MemStore with its redo log (WAL) on and total_memory_bytes = budget,
+    its host-memory workers running, in upserts of batch_rows; the oracle
+    (HundredmOracle) built beside the ingest, outside its timing. Then
+    the drive's seven shapes (hundredm_queries) on `device` through a
+    QueryService whose executor has a column cache of its own (cache_bytes,
+    else the device's budget): one cold and `warm` warm runs each, each
+    answer against the oracle, each kernel's launches held to
+    hundredm_launches, a profiled warm run's device busy share and each
+    kernel's ms a launch in it, the cache's stats before and after and its
+    misses on each warm run; the Archiver over every row after the
+    second; before the seventh the budget tightened to HUNDREDM_TIGHTEN x
+    the managed bytes and the eviction triggered, so that columns evict
+    and reload from disk. Fails unless a column was evicted and the
+    managed bytes end within 1.2 x the tightened budget
+    (tools/drive_100m.py:226-227). The store and the cache are released
+    at the end. Returns each kernel's launches, {kernel: {shape: device
+    ms a launch}} and {shape: answer}."""
+    from aresdb_tpu_torch.common import data_types as mdt
+    from aresdb_tpu_torch.common.schema import Table
+    from aresdb_tpu_torch.common.upsert_batch import (UpsertBatch,
+                                                      build_columnar_upsert)
+    from aresdb_tpu_torch.diskstore.local_diskstore import LocalDiskStore
+    from aresdb_tpu_torch.memstore import archive_store as AS
+    from aresdb_tpu_torch.memstore.archiving import Archiver
+    from aresdb_tpu_torch.memstore.memstore import MemStore
+    from aresdb_tpu_torch.metastore.disk_metastore import DiskMetaStore
+    from aresdb_tpu_torch.query import executor as X
+    from aresdb_tpu_torch.query.service import QueryService
+
+    counters = kernel_counters()
+    totals = dict.fromkeys(counters, 0)
+    in_situ = {k: {} for k in counters}
+    answers = {}
+    evictions = [0]
+    real_evict = AS.ArchiveBatch.evict_column
+
+    def evict_column(self, column_id):
+        out = real_evict(self, column_id)
+        evictions[0] += bool(out)
+        return out
+
+    oracle = HundredmOracle()
+    svc = cache = None
+    with tempfile.TemporaryDirectory() as root:
+        ms = MemStore(DiskMetaStore(root), LocalDiskStore(root),
+                      total_memory_bytes=budget)
+        AS.ArchiveBatch.evict_column = evict_column
+        try:
+            ms.create_table(Table.from_json(dict(
+                HUNDREDM_SCHEMA_JSON, config={"batchSize": batch_rows,
+                                              "recordRetentionInDays": 0})))
+            ms.init_shards()
+            ms.get_schemas()["trips"].extend_enum("status", STATUSES)
+            hmm = ms.host_memory_manager
+            hmm.start()
+            shard = ms.get_table_shard("trips")
+            ingest_s = 0.0
+            for ts, ids, city, status, fare in hundredm_rows(
+                    n_rows, seed, batch_rows):
+                blob = build_columnar_upsert(
+                    [(0, mdt.Uint32, ts, None, 0),
+                     (1, mdt.Uint32, ids, None, 0),
+                     (2, mdt.Uint16, city, None, 0),
+                     (3, mdt.SmallEnum, status, None, 0),
+                     (4, mdt.Float32, fare, None, 0)], len(ids))
+                t0 = time.perf_counter()
+                shard.save_upsert_batch(UpsertBatch(blob))
+                ingest_s += time.perf_counter() - t0
+                oracle.add(ts, ids, city, status, fare)
+            print(f"hundredm: {n_rows} rows ingested in {ingest_s:.3f} s "
+                  f"({n_rows / ingest_s:.0f} rows/s, redo log on, upserts "
+                  f"of {batch_rows}), host budget {budget} bytes, "
+                  f"{hmm.get_reserved_memory()} bytes held", flush=True)
+
+            svc = QueryService(ms, device=device)
+            cache = X.DeviceColumnCache(cache_bytes)
+            svc.executor = X.ShardExecutor(ms, svc.device,
+                                           device_cache=cache)
+            gpu = svc.device.type == "cuda"
+            if gpu:
+                torch.cuda.reset_peak_memory_stats()
+            print(f"hundredm: the column cache's budget on {svc.device}: "
+                  f"{cache.budget(svc.device)} bytes", flush=True)
+            runs = 1 + warm
+            tight = None
+            archived = False
+            for name, (q, env, kind) in hundredm_queries().items():
+                if name.startswith("archive") and not archived:
+                    archived = True
+                    t0 = time.perf_counter()
+                    stats = Archiver(shard, ms.metastore, ms.diskstore) \
+                        .archive(HUNDREDM_BASE + 4 * DAY)
+                    archive_s = time.perf_counter() - t0
+                    if stats.rows_archived != n_rows:
+                        raise AssertionError(f"hundredm: archived "
+                                             f"{stats.rows_archived} rows")
+                    print(f"hundredm: the Archiver archived "
+                          f"{stats.rows_archived} rows in {archive_s:.3f} s "
+                          f"({stats.rows_archived / archive_s:.0f} rows/s); "
+                          f"{hmm.get_reserved_memory()} bytes held",
+                          flush=True)
+                if name.endswith("after eviction"):
+                    managed = hmm.get_reserved_memory()
+                    tight = int(managed * HUNDREDM_TIGHTEN)
+                    hmm.total_memory_bytes = tight
+                    hmm.trigger_eviction()
+                    deadline = time.monotonic() + 30
+                    while hmm.get_reserved_memory() > tight and \
+                            time.monotonic() < deadline:
+                        time.sleep(0.1)
+                    print(f"hundredm: budget tightened to {tight} bytes "
+                          f"({HUNDREDM_TIGHTEN} x the {managed} held); "
+                          f"{evictions[0]} columns evicted so far, "
+                          f"{hmm.get_reserved_memory()} bytes held",
+                          flush=True)
+                layout = atrips_layout(shard, X.ShardExecutor
+                                       .ARCHIVE_CHUNK_ROWS)
+                rec = hundredm_run(svc, cache, name, q, env, runs,
+                                   counters, hundredm_launches(
+                                       kind, runs, layout))
+                oracle.check(name, kind, rec["answer"])
+                answers[name] = rec["answer"]
+                for k in totals:
+                    totals[k] += rec["launches"][k]
+                for k, v in rec["in_situ"].items():
+                    in_situ[k]["hundredm " + name] = v
+                hundredm_report(name, rec, n_rows, layout)
+            managed = hmm.get_reserved_memory()
+            peak = (torch.cuda.max_memory_allocated(svc.device) if gpu
+                    else None)
+            print(f"hundredm: {evictions[0]} columns evicted; {managed} "
+                  f"bytes held against the tightened budget {tight} "
+                  f"({managed / tight:.3f} x); the card's peak allocated "
+                  f"{peak} bytes; every shape equals the numpy oracle",
+                  flush=True)
+            if evictions[0] < 1:
+                raise AssertionError("hundredm: no column was evicted")
+            if managed > 1.2 * tight:
+                raise AssertionError(f"hundredm: {managed} bytes held over "
+                                     f"1.2 x the budget {tight}")
+        finally:
+            AS.ArchiveBatch.evict_column = real_evict
+            close_memstore(ms)
+            del svc, cache
+    return totals, in_situ, answers
+
+
+def hundredm_run(svc, cache, name, q, env, runs, counters, want) -> dict:
+    """One shape `runs` times (each kernel's launches set to 0 just before
+    and read just after; raises unless they equal `want`), its cache's
+    stats before and after and its misses on each run, then once under
+    the profiler on the card."""
+    from aresdb_tpu_torch.query import executor as X
+
+    with query_setting(X, env, False):
+        before = cache.stats()
+        for c in counters.values():
+            c.launches = 0
+        times, contexts, misses = [], [], []
+        for _ in range(runs):
+            m0 = cache.stats()["misses"]
+            t0 = time.perf_counter()
+            answer, ctx = ask(svc, name, q)
+            if svc.device.type == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            contexts.append(ctx)
+            misses.append(cache.stats()["misses"] - m0)
+        got = {k: c.launches for k, c in counters.items()}
+        if got != want:
+            raise AssertionError(f"hundredm {name}: launches {got}, "
+                                 f"expected {want}")
+        after = cache.stats()
+        events, in_situ = [], {}
+        if svc.device.type == "cuda":
+            def profiled_run():
+                for c in counters.values():
+                    c.launches = 0
+                ask(svc, name, q)
+
+            events = device_events(profiled_run, 1)
+            for k, c in counters.items():
+                if c.launches and len(kernel_events(events, k)) != c.launches:
+                    events = counted_events(profiled_run, 1, k, c.launches)
+            # a kernel's ms a launch only where the trace holds every one
+            for k, c in counters.items():
+                if c.launches and len(kernel_events(events, k)) == c.launches:
+                    in_situ[k] = (sum(kernel_events(events, k)) / 1e3
+                                  / c.launches)
+    return dict(answer=answer, contexts=contexts, times=times, launches=got,
+                events=events, in_situ=in_situ, misses=misses,
+                cache=(before, after))
+
+
+def hundredm_report(name: str, rec: dict, n_rows: int, layout: dict) -> None:
+    times = 1e3 * np.array(rec["times"])
+    warm = times[1:]
+    med = float(np.median(warm))
+    busy = sum(us for _, us in rec["events"]) / 1e3
+    last = rec["contexts"][-1] or {}
+    print(f"hundredm {name}: cold {times[0]:.3f} ms, warm median "
+          f"{med:.3f} ms (min {warm.min():.3f}, max {warm.max():.3f}, "
+          f"{len(warm)} runs; {n_rows / med * 1e3:.0f} rows/s), "
+          f"{len(flatten(rec['answer']))} groups, launches "
+          + " ".join(f"{k}={v}" for k, v in rec["launches"].items())
+          + f" over {len(layout['live'])} live batches and "
+          f"{len(layout['chunks'])} archive chunks, host fetches cold "
+          f"{(rec['contexts'][0] or {}).get('hostFetches')} warm "
+          f"{last.get('hostFetches')}", flush=True)
+    print(f"hundredm {name} last warm run, seconds by stage: "
+          + ", ".join(f"{k}={v:.6f}" for k, v in last.items()
+                      if isinstance(v, float)), flush=True)
+    if rec["events"]:
+        print(f"hundredm {name} warm run under the profiler: device busy "
+              f"{busy:.3f} ms = {100 * busy / med:.1f}% of the warm median"
+              + "".join(f"; {k} {v:.4f} ms a launch"
+                        for k, v in rec["in_situ"].items()), flush=True)
+    print(f"hundredm {name} column cache: before {cache_line(rec['cache'][0])}"
+          f"; after {cache_line(rec['cache'][1])}; misses by run "
+          f"{rec['misses']}", flush=True)
+
+
+def start_daemon(args, what: str, timeout: float = 600) -> tuple:
+    """`python -m aresdb_tpu_torch.cmd.aresd ARGS` as a process of its own
+    from the repository's root, its standard error read into a list by a
+    thread; waits for its start-up line. Returns (process, port, the
+    lines of its standard error, seconds to the line)."""
+    log = []
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "aresdb_tpu_torch.cmd.aresd", *args],
+        cwd=str(Path(__file__).resolve().parent),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    threading.Thread(target=lambda: log.extend(proc.stderr),
+                     daemon=True).start()
+    try:
+        wait_for(lambda: any(" serving on :" in x for x in log), what,
+                 timeout, proc, log)
+    except BaseException:
+        kill(proc)
+        raise
+    line = next(x for x in log if " serving on :" in x)
+    return (proc, int(line.split(" on :")[1].split()[0]), log,
+            time.perf_counter() - t0)
+
+
+def kill(proc) -> None:
+    """SIGKILL a process of the phase (no flush, no clean stop) and reap
+    it."""
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait(timeout=60)
+
+
+# tools/drive_crash.py's table and load: acked upserts through the
+# Connector, one more in flight when the daemon is SIGKILLed
+CRASH_SCHEMA_JSON = {
+    "name": "t",
+    "columns": [{"name": "ts", "type": "Uint32"},
+                {"name": "id", "type": "Uint32"},
+                {"name": "v", "type": "Float32"}],
+    "primaryKeyColumns": [1], "isFactTable": True,
+    "config": {"batchSize": 4096, "recordRetentionInDays": 0}}
+CRASH_NOW = 1_600_000_000
+CRASH_UPSERTS = 16
+CRASH_UPSERT_ROWS = 1 << 17
+CRASH_MORE = 1000
+CRASH_QUERIES = [{"table": "t", "now": CRASH_NOW,
+                  "measures": [{"sqlExpression": m}]}
+                 for m in ("count(*)", "sum(v)")]
+
+
+def crash_columns(lo: int, n: int, rng) -> dict:
+    """n rows of t from id lo: times in the hour before CRASH_NOW, v whole
+    numbers below 16, so that every sum is exact in float32."""
+    return {"ts": (CRASH_NOW - rng.randint(0, 3600, n)).astype(np.uint32),
+            "id": np.arange(lo, lo + n, dtype=np.uint32),
+            "v": rng.randint(0, 16, n).astype(np.float32)}
+
+
+def count_and_sum(port: int, queries) -> tuple:
+    """(count(*), sum(v)) of one request of the two queries."""
+    resp = http(port, "query/aql", {"queries": queries})
+    if "errors" in resp:
+        raise AssertionError(f"count and sum: {resp['errors']}")
+    return tuple(float(r.get("", 0.0) or 0.0) for r in resp["results"])
+
+
+def phase_crash(seed: int, device=None, upserts: int = CRASH_UPSERTS,
+                upsert_rows: int = CRASH_UPSERT_ROWS,
+                timeout: float = 600) -> dict:
+    """tools/drive_crash.py on the port: `cmd.aresd` on `device` (its
+    scheduler off, as the drive's server) over a temporary root, the
+    drive's table t created through the Connector, `upserts` acked
+    upserts of `upsert_rows` through Connector.insert_columns, one more
+    sent from a thread, and the daemon SIGKILLed while it is in flight.
+    A new daemon on the same root must answer count(*) and sum(v) equal to
+    the acked rows' oracle, or that oracle with the in-flight upsert, and
+    never fewer; then CRASH_MORE rows go in and are counted. A daemon
+    that does not serve within `timeout` s fails the phase; every process
+    is killed at the end. Returns {"restart_s", "acked", "in_flight"}."""
+    from aresdb_tpu_torch.client import Connector
+    from aresdb_tpu_torch.utils.torch_env import resolve_device
+
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed + 16)
+    procs = []
+    with tempfile.TemporaryDirectory() as root:
+        args = ["--port", "0", "--root-path", root, "--device", dev.type,
+                "--scheduler-off"]
+        try:
+            proc, port, log, _ = start_daemon(args, "aresd to serve",
+                                              timeout)
+            procs.append(proc)
+            conn = Connector("localhost", port)
+            conn.create_table(CRASH_SCHEMA_JSON)
+            acked = [0.0, 0.0]
+            t0 = time.perf_counter()
+            for i in range(upserts):
+                cols = crash_columns(i * upsert_rows, upsert_rows, rng)
+                stats = conn.insert_columns("t", cols)
+                if stats["inserted"] != upsert_rows:
+                    raise AssertionError(f"crash: upsert {i}: {stats}")
+                acked[0] += upsert_rows
+                acked[1] += float(cols["v"].astype(np.float64).sum())
+            load_s = time.perf_counter() - t0
+            last = crash_columns(upserts * upsert_rows, upsert_rows, rng)
+            flight = [acked[0] + upsert_rows,
+                      acked[1] + float(last["v"].astype(np.float64).sum())]
+            sent = {}
+
+            def in_flight():
+                try:
+                    sent["stats"] = Connector("localhost", port) \
+                        .insert_columns("t", last)
+                except Exception as e:  # noqa: BLE001 — the kill cut it
+                    sent["error"] = repr(e)
+
+            writer = threading.Thread(target=in_flight, daemon=True)
+            writer.start()
+            time.sleep(0.02)
+            kill(proc)
+            writer.join(timeout=60)
+            print(f"crash: {upserts} upserts of {upsert_rows} rows acked in "
+                  f"{load_s:.3f} s; the daemon SIGKILLed with upsert "
+                  f"{upserts + 1} in flight "
+                  f"({'acked' if 'stats' in sent else 'not acked'}: "
+                  f"{sent.get('stats') or sent.get('error')})", flush=True)
+
+            t0 = time.perf_counter()
+            proc, port, log, serve_s = start_daemon(
+                args, "the restarted aresd to serve", timeout)
+            procs.append(proc)
+            got = count_and_sum(port, CRASH_QUERIES)
+            restart_s = time.perf_counter() - t0
+            if got != tuple(acked) and got != tuple(flight):
+                raise AssertionError(
+                    f"crash: the restarted daemon answers (count, sum) "
+                    f"{got}; the acked rows hold {tuple(acked)}, with the "
+                    f"in-flight upsert {tuple(flight)}")
+            if "stats" in sent and got != tuple(flight):
+                raise AssertionError(f"crash: the in-flight upsert was "
+                                     f"acked, and the daemon answers {got}")
+            more = crash_columns((upserts + 1) * upsert_rows, CRASH_MORE, rng)
+            Connector("localhost", port).insert_columns("t", more)
+            after = count_and_sum(port, CRASH_QUERIES)
+            want = (got[0] + CRASH_MORE,
+                    got[1] + float(more["v"].astype(np.float64).sum()))
+            if after != want:
+                raise AssertionError(f"crash: after {CRASH_MORE} more rows "
+                                     f"the daemon answers {after}, not "
+                                     f"{want}")
+            print(f"crash: the restarted daemon served {serve_s:.3f} s after "
+                  f"its start and answered {restart_s:.3f} s after it: "
+                  f"count {got[0]:.0f}, sum(v) {got[1]:.1f} "
+                  f"({'with' if got == tuple(flight) else 'without'} the "
+                  f"in-flight upsert; every acked row held); then "
+                  f"{CRASH_MORE} more rows counted: {after[0]:.0f}",
+                  flush=True)
+        finally:
+            for p in procs:
+                kill(p)
+    return {"restart_s": restart_s, "acked": acked[0],
+            "in_flight": got == tuple(flight)}
+
+
+# tools/drive_rf2.py: two datanode processes holding both shards at
+# replica factor 2; one is SIGKILLed and the broker answers from the other
+RF2_NS = "rf2"
+RF2_SHARDS = 2
+RF2_SHARD_ROWS = 1 << 20
+RF2_GROUPS = 16
+RF2_FAILOVER_S = 30.0
+RF2_QUERIES = [{"table": "t", "measures": [{"sqlExpression": m}],
+                "dimensions": [{"sqlExpression": f"id % {RF2_GROUPS}"}]}
+               for m in ("count(*)", "sum(v)")]
+
+
+def rf2_answers(port: int, now: int) -> tuple:
+    """(answers, errors) of RF2_QUERIES through the broker at port, each
+    its own request."""
+    out, errors = [], []
+    for q in RF2_QUERIES:
+        resp = http(port, "query/aql", {"queries": [dict(q, now=now)]})
+        errors += [e for e in resp.get("errors") or [] if e]
+        out.append({k: float(v) for k, v in
+                    ((resp.get("results") or [{}])[0] or {}).items()})
+    return out, errors
+
+
+def phase_rf2(seed: int, device=None, shard_rows: int = RF2_SHARD_ROWS,
+              timeout: float = 600) -> dict:
+    """tools/drive_rf2.py on the port: the controller and a broker in this
+    process, two datanodes as processes of their own (`cmd.aresd
+    --controller`, on `device`, their clocks the wall's); the drive's
+    table t at RF2_SHARDS shards and replica factor 2, each shard's
+    shard_rows rows written to both replicas through
+    Connector.insert_columns; count(*) and sum(v) by id % RF2_GROUPS
+    through the broker equal to the oracle; then dn0 SIGKILLed, and the
+    broker's answers must equal the oracle again within RF2_FAILOVER_S.
+    A datanode that does not serve within `timeout` s fails the phase;
+    every process is killed at the end. Returns {"failover_s"}."""
+    from aresdb_tpu_torch.broker.server import BrokerServer
+    from aresdb_tpu_torch.broker.validator import BrokerSchemaView
+    from aresdb_tpu_torch.client import Connector
+    from aresdb_tpu_torch.cluster.topology import DynamicTopology
+    from aresdb_tpu_torch.controller.server import ControllerServer
+    from aresdb_tpu_torch.controller.state import ControllerState
+    from aresdb_tpu_torch.utils.torch_env import resolve_device
+
+    dev = resolve_device(device)
+    ns = RF2_NS
+    rng = np.random.RandomState(seed + 2)
+    stack = []
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            ctrl = ControllerServer(ControllerState(f"{root}/ctrl"))
+            cport = ctrl.start_background()
+            stack.append(ctrl.stop)
+            caddr = f"localhost:{cport}"
+            http(cport, "namespaces", {"namespace": ns})
+            http(cport, f"schema/{ns}/tables", CRASH_SCHEMA_JSON)
+            # both datanodes start at once: each takes seconds to its card
+            starts = [None, None]
+
+            def start(i):
+                starts[i] = start_daemon(
+                    ["--controller", caddr, "--namespace", ns, "--instance",
+                     f"dn{i}", "--port", "0", "--root-path", f"{root}/dn{i}",
+                     "--device", dev.type], f"dn{i} to serve", timeout)
+
+            threads = [threading.Thread(target=start, args=(i,))
+                       for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            for s in starts:
+                if s is not None:
+                    stack.append(lambda p=s[0]: kill(p))
+            if None in starts:
+                raise AssertionError("rf2: a datanode did not start")
+            (p0, port0, log0, _), (p1, port1, log1, _) = starts
+            http(cport, f"placement/{ns}/datanode",
+                 {"numShards": RF2_SHARDS, "replicaFactor": 2,
+                  "instances": ["dn0", "dn1"]})
+
+            def placement():
+                return http(cport, f"placement/{ns}/datanode")["shards"]
+
+            wait_for(lambda: all(
+                sd["instances"] == {"dn0": "Available", "dn1": "Available"}
+                for sd in placement()), "both replicas Available", 120)
+            topology = DynamicTopology(caddr, ns, poll_seconds=0.5)
+            topology.start()
+            stack.append(topology.stop)
+            view = BrokerSchemaView(caddr, ns, poll_seconds=1.0)
+            view.start()
+            stack.append(view.stop)
+            broker = BrokerServer(topology, schema_view=view)
+            bport = broker.start_background()
+            stack.append(broker.stop)
+
+            now = int(time.time())
+            ids, vs = [], []
+            t0 = time.perf_counter()
+            for sid in range(RF2_SHARDS):
+                cols = {"ts": np.full(shard_rows, now - 30, np.uint32),
+                        "id": np.arange(sid * shard_rows,
+                                        (sid + 1) * shard_rows,
+                                        dtype=np.uint32),
+                        "v": rng.randint(0, 16, shard_rows)
+                        .astype(np.float32)}
+                for port in (port0, port1):
+                    stats = Connector("localhost", port).insert_columns(
+                        "t", dict(cols), shard_id=sid)
+                    if stats["inserted"] != shard_rows:
+                        raise AssertionError(f"rf2: shard {sid} on :{port}: "
+                                             f"{stats}")
+                ids.append(cols["id"])
+                vs.append(cols["v"])
+            load_s = time.perf_counter() - t0
+            group = np.concatenate(ids).astype(np.int64) % RF2_GROUPS
+            values = np.concatenate(vs).astype(np.float64)
+            want = [{str(g): float(n) for g, n in enumerate(
+                        np.bincount(group, minlength=RF2_GROUPS))},
+                    {str(g): float(s) for g, s in enumerate(
+                        np.bincount(group, values, RF2_GROUPS))}]
+            got, errors = rf2_answers(bport, now)
+            if errors or got != want:
+                raise AssertionError(f"rf2: the broker answers {got} "
+                                     f"{errors}, the oracle {want}")
+            print(f"rf2: {RF2_SHARDS} shards of {shard_rows} rows written to "
+                  f"both replicas (dn0 and dn1, processes on {dev.type}) in "
+                  f"{load_s:.3f} s; count(*) and sum(v) by id % "
+                  f"{RF2_GROUPS} through the broker equal the oracle",
+                  flush=True)
+            t0 = time.perf_counter()
+            kill(p0)
+            tries = 0
+            while True:
+                tries += 1
+                try:
+                    got, errors = rf2_answers(bport, now)
+                except Exception as e:  # noqa: BLE001 — tried again
+                    got, errors = None, [repr(e)]
+                failover_s = time.perf_counter() - t0
+                if not errors and got == want:
+                    break
+                if failover_s > RF2_FAILOVER_S:
+                    raise AssertionError(f"rf2: {failover_s:.1f} s after "
+                                         f"dn0's kill the broker answers "
+                                         f"{got} {errors}")
+                time.sleep(0.2)
+            if p1.poll() is not None:
+                raise AssertionError(f"rf2: dn1 exited:\n{''.join(log1)}")
+            print(f"rf2: dn0 SIGKILLed; the broker's answers equal the "
+                  f"oracle again {failover_s:.3f} s after the kill, on try "
+                  f"{tries}", flush=True)
+        finally:
+            for stop in reversed(stack):
+                try:
+                    stop()
+                except Exception as e:  # noqa: BLE001 — stop the rest
+                    print(f"rf2: stopping: {e!r}", file=sys.stderr)
+    return {"failover_s": failover_s}
+
+
+# tools/drive_migrate_live.py: a shard moved while its source ingests and
+# archives, three times over
+MIGRATE_NS = "mig"
+MIGRATE_SHARDS = 2
+MIGRATE_BATCH = 2000
+MIGRATE_CHURN_S = 0.3
+MIGRATE_SCHEMA_JSON = {
+    "name": "trips",
+    "columns": [{"name": "request_at", "type": "Uint32"},
+                {"name": "id", "type": "Uint32"},
+                {"name": "fare", "type": "Float32"}],
+    "primaryKeyColumns": [1], "isFactTable": True,
+    "config": {"batchSize": 4096, "recordRetentionInDays": 3}}
+# the moves: dn1 joins and a rebalance moves a shard to it; dn1's shard
+# goes back to dn0 (a replace); a rebalance moves one to dn1 again
+MIGRATE_MOVES = ("rebalance", ("dn1", "dn0"), "rebalance")
+
+
+def migrate_counts(node, sid: int, counters: dict) -> tuple:
+    """(rows below the shard's archiving cutoff, rows at or above it,
+    the cutoff) of trips shard sid on an in-process datanode, through its
+    HTTP query route with shards: [sid]: a count by `request_at >=
+    cutoff`, and a count by hour whose groups add up to the same rows,
+    its K1 launches held to the shard's batches and chunks of at least
+    FD_MIN_ROWS padded rows."""
+    from aresdb_tpu_torch.query import executor as X
+    from aresdb_tpu_torch.query import fused_dense as FD
+
+    shard = node.memstore.get_table_shard("trips", sid)
+    cutoff = shard.archive_store.get_current_version().archiving_cutoff
+    layout = atrips_layout(shard, X.ShardExecutor.ARCHIVE_CHUNK_ROWS)
+    split, hours = ({"table": "trips", "shards": [sid],
+                     "measures": [{"sqlExpression": "count(*)"}],
+                     "dimensions": [dim]}
+                    for dim in ({"sqlExpression": f"request_at >= {cutoff}"},
+                                {"sqlExpression": "request_at",
+                                 "timeBucketizer": "hour"}))
+    resp = http(node.port, "query/aql", {"queries": [split]})
+    for c in counters.values():
+        c.launches = 0
+    by_hour = http(node.port, "query/aql", {"queries": [hours]})
+    got = {k: c.launches for k, c in counters.items()}
+    for r in (resp, by_hour):
+        if "errors" in r:
+            raise AssertionError(f"migrate: shard {sid} count: "
+                                 f"{r['errors']}")
+    k1 = sum(n >= FD.FD_MIN_ROWS
+             for n in layout["live"] + layout["chunks"])
+    if got["K1"] != k1 or got["K3"]:
+        raise AssertionError(f"migrate: shard {sid}'s count by hour "
+                             f"launched {got}, K1 expected {k1}")
+    r = resp["results"][0]
+    below, above = int(r.get("0", 0)), int(r.get("1", 0))
+    total = sum(flatten(by_hour["results"][0]).values())
+    if total != below + above:
+        raise AssertionError(f"migrate: shard {sid}: {below} + {above} "
+                             f"rows, by hour {total}")
+    return below, above, cutoff, got
+
+
+def phase_migrate_live(seed: int, device=None, moves=MIGRATE_MOVES,
+                       settle_s: float = 2.0) -> dict:
+    """tools/drive_migrate_live.py on the port, in this process: the
+    controller; dn0 (a DataNode over a root of its own, its scheduler on,
+    the wall's clock) owning both shards of the drive's trips; a writer
+    thread upserting MIGRATE_BATCH new ids at a time to every current
+    owner of a shard (consistency-all, each owner with retries), half of
+    them timed a day back (archivable at once) and half in the last hour;
+    and a thread running archiving on every owned shard every
+    MIGRATE_CHURN_S. Each move of `moves` runs under that traffic: a
+    rebalance (dn1 started first) or a replace (leaving, joining),
+    waited to every shard Available. Before and after each move the
+    writer and the archiver pause, every owner drains (backfill, then
+    archiving) and each shard is counted below and at or above its cutoff
+    on its owner (migrate_counts, K1 asserted): a moved shard's rows on
+    its new owner equal those on its old one with the rows acked to it
+    during the move, and the broker's count(*) equals the acked ids
+    exactly and its sum(fare) the acked fares' (whole eighths, so
+    exact). Returns {"moves": [seconds of each move], "acked": rows}."""
+    from aresdb_tpu_torch.broker.server import BrokerServer
+    from aresdb_tpu_torch.cluster.topology import DynamicTopology
+    from aresdb_tpu_torch.common import data_types as mdt
+    from aresdb_tpu_torch.common.upsert_batch import build_columnar_upsert
+    from aresdb_tpu_torch.controller.server import ControllerServer
+    from aresdb_tpu_torch.controller.state import ControllerState
+    from aresdb_tpu_torch.datanode.datanode import DataNode
+    from aresdb_tpu_torch.diskstore.local_diskstore import LocalDiskStore
+    from aresdb_tpu_torch.memstore.memstore import MemStore
+    from aresdb_tpu_torch.memstore.scheduler import Scheduler
+    from aresdb_tpu_torch.metastore.disk_metastore import DiskMetaStore
+    from aresdb_tpu_torch.utils.torch_env import resolve_device
+
+    dev = resolve_device(device)
+    ns = MIGRATE_NS
+    counters = kernel_counters()
+    now = int(time.time())
+    stack = []
+    nodes = {}
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            ctrl = ControllerServer(ControllerState(f"{root}/ctrl"))
+            cport = ctrl.start_background()
+            stack.append(ctrl.stop)
+            caddr = f"localhost:{cport}"
+            http(cport, "namespaces", {"namespace": ns})
+            http(cport, f"schema/{ns}/tables", MIGRATE_SCHEMA_JSON)
+
+            def start_node(name):
+                ms = MemStore(DiskMetaStore(f"{root}/{name}"),
+                              LocalDiskStore(f"{root}/{name}"))
+                node = DataNode(ms, Scheduler(ms), controller_address=caddr,
+                                namespace=ns, instance_name=name,
+                                heartbeat_seconds=0.4, poll_seconds=0.25,
+                                device=dev)
+                node.open()
+                stack.append(lambda n=node: (n.close(),
+                                             close_memstore(n.memstore)))
+                node.serve()
+                nodes[name] = node
+
+            def placement():
+                return http(cport, f"placement/{ns}/datanode")["shards"]
+
+            def owners() -> dict:
+                return {sd["shardId"]: sorted(sd["instances"])
+                        for sd in placement()}
+
+            def converged() -> bool:
+                return all(set(sd["instances"].values()) == {"Available"}
+                           for sd in placement())
+
+            start_node("dn0")
+            http(cport, f"placement/{ns}/datanode",
+                 {"numShards": MIGRATE_SHARDS, "replicaFactor": 1,
+                  "instances": ["dn0"]})
+            wait_for(converged, "the placement", 60)
+
+            stop, paused = threading.Event(), threading.Event()
+            idle = [threading.Event(), threading.Event()]
+            acked_by_shard = dict.fromkeys(range(MIGRATE_SHARDS), 0)
+            fare_sum = [0.0]
+            archive_runs, errors = [0], []
+
+            def writer():
+                rng = np.random.RandomState(seed + 4)
+                next_id, nbatch = 1, 0
+                try:
+                    while not stop.is_set():
+                        if paused.is_set():
+                            idle[0].set()
+                            time.sleep(0.01)
+                            continue
+                        idle[0].clear()
+                        sid = nbatch % MIGRATE_SHARDS
+                        nbatch += 1
+                        ids = np.arange(next_id, next_id + MIGRATE_BATCH,
+                                        dtype=np.uint32)
+                        back = np.where(ids % 2 == 0, DAY, 0)
+                        ts = (now - back - rng.randint(1, 3600, MIGRATE_BATCH)
+                              ).astype(np.uint32)
+                        fare = (rng.randint(0, 128, MIGRATE_BATCH) / 8
+                                ).astype(np.float32)
+                        payload = build_columnar_upsert(
+                            [(0, mdt.Uint32, ts, None, 0),
+                             (1, mdt.Uint32, ids, None, 0),
+                             (2, mdt.Float32, fare, None, 0)], MIGRATE_BATCH)
+                        ok = True
+                        for name in owners()[sid]:
+                            for _ in range(200):
+                                try:
+                                    http(nodes[name].port, f"data/trips/{sid}",
+                                         payload)
+                                    break
+                                except Exception:  # noqa: BLE001 — retried
+                                    time.sleep(0.05)
+                            else:
+                                ok = False
+                        if ok:
+                            acked_by_shard[sid] += MIGRATE_BATCH
+                            fare_sum[0] += float(fare.astype(np.float64).sum())
+                            next_id += MIGRATE_BATCH
+                        time.sleep(0.01)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(f"writer: {e!r}")
+
+            def churner():
+                while not stop.is_set():
+                    if paused.is_set():
+                        idle[1].set()
+                        time.sleep(0.01)
+                        continue
+                    idle[1].clear()
+                    for node in list(nodes.values()):
+                        for sid in sorted(node.owned_shards):
+                            try:
+                                node.scheduler.run_job("trips", sid,
+                                                       "archiving")
+                                archive_runs[0] += 1
+                            except KeyError:
+                                pass   # the shard left the node meanwhile
+                            except Exception as e:  # noqa: BLE001
+                                errors.append(f"archiving {sid}: {e!r}")
+                    time.sleep(MIGRATE_CHURN_S)
+
+            def pause() -> None:
+                for e in idle:
+                    e.clear()
+                paused.set()
+                for e in idle:
+                    if not e.wait(120):
+                        raise AssertionError("migrate: traffic did not pause")
+                for node in nodes.values():
+                    for sid in sorted(node.owned_shards):
+                        for job in ("backfill", "archiving"):
+                            node.scheduler.run_job("trips", sid, job)
+
+            topology = DynamicTopology(caddr, ns, poll_seconds=0.25)
+            topology.start()
+            stack.append(topology.stop)
+            broker = BrokerServer(topology)
+            bport = broker.start_background()
+            stack.append(broker.stop)
+
+            def check(stage: str) -> dict:
+                """Each shard counted on its owner; the broker's count and
+                sum against the acks."""
+                topology.refresh()
+                counts = {}
+                for sid, names in sorted(owners().items()):
+                    (name,) = names
+                    counts[sid] = (name,) + migrate_counts(
+                        nodes[name], sid, counters)[:3]
+                    below, above = counts[sid][1:3]
+                    if below + above != acked_by_shard[sid]:
+                        raise AssertionError(
+                            f"migrate {stage}: shard {sid} on {name} holds "
+                            f"{below} + {above} rows, "
+                            f"{acked_by_shard[sid]} acked")
+                resp = http(bport, "query/aql", {"queries": [
+                    {"table": "trips", "now": now,
+                     "measures": [{"sqlExpression": m}],
+                     "timeFilter": {"column": "request_at",
+                                    "from": "30 days ago"}}
+                    for m in ("count(*)", "sum(fare)")]})
+                if resp.get("errors") and any(resp["errors"]):
+                    raise AssertionError(f"migrate {stage}: the broker: "
+                                         f"{resp['errors']}")
+                got = [float(r.get("", 0.0) or 0.0) for r in resp["results"]]
+                acked = sum(acked_by_shard.values())
+                if got != [float(acked), fare_sum[0]]:
+                    raise AssertionError(
+                        f"migrate {stage}: the broker answers count, sum "
+                        f"{got}; acked {acked} rows, their fares "
+                        f"{fare_sum[0]}")
+                print(f"migrate {stage}: " + "; ".join(
+                    f"shard {sid} on {c[0]}: {c[1]} rows below the cutoff "
+                    f"{c[3]}, {c[2]} at or above" for sid, c in
+                    counts.items()) + f"; the broker's count {got[0]:.0f} "
+                    f"equals the acked ids and its sum {got[1]} the acked "
+                    "fares'", flush=True)
+                return counts
+
+            threads = [threading.Thread(target=writer, daemon=True),
+                       threading.Thread(target=churner, daemon=True)]
+            for t in threads:
+                t.start()
+            seconds = []
+            try:
+                time.sleep(settle_s)
+                for i, move in enumerate(moves):
+                    pause()
+                    before = check(f"before move {i + 1}")
+                    during = dict(acked_by_shard)
+                    if move == "rebalance" and "dn1" not in nodes:
+                        start_node("dn1")
+                        wait_for(lambda: "dn1" in http(
+                            cport, f"membership/{ns}/instances"),
+                            "dn1's heartbeat", 30)
+                    paused.clear()
+                    t0 = time.perf_counter()
+                    if move == "rebalance":
+                        r = http(cport,
+                                 f"placement/{ns}/datanode/rebalance", {})
+                        if r.get("moves", 0) < 1:
+                            raise AssertionError(f"migrate: rebalance {r}")
+                    else:
+                        http(cport, f"placement/{ns}/datanode/replace",
+                             {"leaving": move[0], "joining": move[1]})
+                    wait_for(lambda: converged() and all(
+                        len(v) == 1 for v in owners().values()),
+                        f"move {i + 1} to converge", 180)
+                    seconds.append(time.perf_counter() - t0)
+                    time.sleep(settle_s)
+                    pause()
+                    after = check(f"after move {i + 1}")
+                    moved = [s for s in after if after[s][0] != before[s][0]]
+                    if not moved:
+                        raise AssertionError(f"migrate: move {i + 1} moved "
+                                             f"no shard: {after}")
+                    for sid in moved:
+                        grown = acked_by_shard[sid] - during[sid]
+                        if sum(after[sid][1:3]) != \
+                                sum(before[sid][1:3]) + grown:
+                            raise AssertionError(
+                                f"migrate: shard {sid} held "
+                                f"{before[sid]} before, {after[sid]} after, "
+                                f"with {grown} rows acked between")
+                    print(f"migrate move {i + 1} ({move}): shard(s) {moved} "
+                          f"moved in {seconds[-1]:.3f} s under ingest and "
+                          f"archiving; each counted on its old owner before "
+                          f"and its new owner after, equal with the rows "
+                          f"acked between", flush=True)
+                    paused.clear()
+            finally:
+                stop.set()
+                for t in threads:
+                    t.join(timeout=60)
+            if errors:
+                raise AssertionError(f"migrate: {errors[:3]}")
+            acked = sum(acked_by_shard.values())
+            print(f"migrate: {len(moves)} moves in "
+                  + ", ".join(f"{s:.3f}" for s in seconds)
+                  + f" s; {acked} rows acked, {archive_runs[0]} archiving "
+                  f"runs; no row lost or duplicated", flush=True)
+        finally:
+            for stop_fn in reversed(stack):
+                try:
+                    stop_fn()
+                except Exception as e:  # noqa: BLE001 — stop the rest
+                    print(f"migrate: stopping: {e!r}", file=sys.stderr)
+    return {"moves": seconds, "acked": acked}
+
+
+# tools/drive_soak.py: writes, re-upserts of old ids, queries and the
+# archiving, backfill and snapshot jobs at once against one daemon
+SOAK_NOW = 1_600_000_000
+SOAK_SECONDS = 60.0
+SOAK_CHUNK = 4096
+SOAK_CITIES = 8
+SOAK_TRIPS_JSON = {
+    "name": "trips",
+    "columns": [{"name": "request_at", "type": "Uint32"},
+                {"name": "id", "type": "Uint32"},
+                {"name": "city_id", "type": "Uint16"},
+                {"name": "status", "type": "SmallEnum"},
+                {"name": "fare", "type": "Float32"}],
+    "primaryKeyColumns": [1], "isFactTable": True,
+    # small batches and a short delay: archiving has work every cycle
+    "config": {"batchSize": SOAK_CHUNK, "recordRetentionInDays": 0,
+               "archivingDelayMinutes": 1, "archivingIntervalMinutes": 1}}
+SOAK_CITIES_JSON = {
+    "name": "cities",
+    "columns": [{"name": "id", "type": "Uint16"},
+                {"name": "name", "type": "BigEnum"}],
+    "primaryKeyColumns": [0], "isFactTable": False}
+SOAK_WINDOW = {"column": "request_at", "from": f"{SOAK_NOW - 3 * DAY}",
+               "to": f"{SOAK_NOW + 60}"}
+
+
+def soak_queries() -> dict:
+    """The drive's shapes (tools/drive_soak.py:184-191): count(*), the
+    completed sum(fare) joined to cities by name, and sum(fare)."""
+    base = {"table": "trips", "now": SOAK_NOW, "timeFilter": SOAK_WINDOW}
+    return {
+        "count": dict(base, measures=[{"sqlExpression": "count(*)"}]),
+        "join": dict(base, joins=[{"table": "cities", "alias": "c",
+                                   "conditions": ["c.id = city_id"]}],
+                     dimensions=[{"sqlExpression": "c.name"}],
+                     measures=[{"sqlExpression": "sum(fare)",
+                                "rowFilters": ["status='completed'"]}]),
+        "sum": dict(base, measures=[{"sqlExpression": "sum(fare)"}]),
+    }
+
+
+def phase_soak(seed: int, device=None, seconds: float = SOAK_SECONDS
+               ) -> dict:
+    """tools/drive_soak.py on the port: an ApiServer on `device` over a
+    MemStore in a temporary directory (its scheduler not started, the
+    port's clock frozen at SOAK_NOW), the drive's trips and 8 cities
+    created through the Connector; for `seconds`, at once: a writer
+    inserting SOAK_CHUNK rows at a time through Connector.insert, three
+    quarters new ids and a quarter re-upserts of acked ids with fresh
+    fares (half the ids timed in the last half hour, half a day and more
+    back, a pure function of the id), a last-write-wins oracle kept under
+    the ack; a count(*) thread (never below a count it saw, nor below the
+    ids acked before it asked less the rows the daemon had put in its
+    backfill queue by its answer and not yet backfilled before it asked:
+    a row timed behind the archiving cutoff stays out of sight until the
+    backfill applies it) and a thread of the join by city name with its
+    status filter (never an error); a job
+    thread cycling archiving, backfill and snapshot through /dbg. Then
+    the jobs drained and the drive's checks: count(*) equal to the unique
+    acked ids, sum(fare) and each city's completed sum to the oracle
+    (the drive's tolerances), the join's K1 launches held to the batches
+    and chunks of at least FD_MIN_ROWS padded rows. Prints the rows
+    backfilled and the column cache's stats. Returns {"rows",
+    "backfilled", "cache"}."""
+    import urllib.error
+
+    from aresdb_tpu_torch.api.server import ApiServer
+    from aresdb_tpu_torch.client import Connector
+    from aresdb_tpu_torch.diskstore.local_diskstore import LocalDiskStore
+    from aresdb_tpu_torch.memstore.memstore import MemStore
+    from aresdb_tpu_torch.memstore.scheduler import Scheduler
+    from aresdb_tpu_torch.metastore.disk_metastore import DiskMetaStore
+    from aresdb_tpu_torch.query import executor as X
+    from aresdb_tpu_torch.query import fused_dense as FD
+    from aresdb_tpu_torch.utils import clock
+
+    queries = soak_queries()
+    counters = kernel_counters()
+    clock.set_current_time(SOAK_NOW)
+    server = ms = None
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            ms = MemStore(DiskMetaStore(root), LocalDiskStore(root))
+            ms.fetch_schema()
+            server = ApiServer(ms, Scheduler(ms), port=0, device=device)
+            port = server.start_background()
+            conn = Connector("localhost", port)
+            conn.create_table(SOAK_TRIPS_JSON)
+            conn.create_table(SOAK_CITIES_JSON)
+            conn.insert("cities", ["id", "name"],
+                        [(c, f"city{c}") for c in range(SOAK_CITIES)])
+
+            stop = threading.Event()
+            errors = []
+            oracle, olock = {}, threading.Lock()
+            acked = [0]
+            counts = {"count": 0, "join": 0, "jobs": 0, "lowest": None}
+            # rows the daemon queued for backfill (each upsert's answer)
+            # and rows the backfill jobs applied
+            queued, backfilled = [0], [0]
+
+            def writer():
+                w = Connector("localhost", port)
+                rng = np.random.RandomState(seed + 7)
+                next_id = 0
+                try:
+                    while not stop.is_set():
+                        n_new = SOAK_CHUNK * 3 // 4
+                        new = np.arange(next_id, next_id + n_new,
+                                        dtype=np.uint32)
+                        old = rng.randint(0, max(1, next_id),
+                                          SOAK_CHUNK - n_new).astype(np.uint32)
+                        ids = np.concatenate([new, old])
+                        mix = (ids.astype(np.uint64) * 2654435761) % (1 << 32)
+                        ts = np.where(mix % 2 == 0, SOAK_NOW - mix % 1800,
+                                      SOAK_NOW - DAY - mix % DAY
+                                      ).astype(np.uint32)
+                        city = rng.randint(0, SOAK_CITIES, SOAK_CHUNK)
+                        status = [STATUSES[i]
+                                  for i in rng.randint(0, 3, SOAK_CHUNK)]
+                        fare = rng.rand(SOAK_CHUNK).astype(np.float32).round(2)
+                        rows = list(zip(ts.tolist(), ids.tolist(),
+                                        city.tolist(), status, fare.tolist()))
+                        stats = w.insert("trips", ["request_at", "id",
+                                                   "city_id", "status",
+                                                   "fare"], rows)
+                        with olock:
+                            for r in rows:   # later rows of a batch win
+                                oracle[r[1]] = r
+                            acked[0] = len(oracle)
+                            queued[0] += stats["backfilled"]
+                        next_id += n_new
+                        time.sleep(0.01)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(f"writer: {e!r}")
+
+            def querier(name):
+                q = Connector("localhost", port)
+                last = -1.0
+                try:
+                    while not stop.is_set():
+                        with olock:
+                            floor, applied = acked[0], backfilled[0]
+                        resp = q.query_aql(queries[name])
+                        with olock:
+                            waiting = queued[0] - applied
+                        if resp.get("errors") and any(resp["errors"]):
+                            errors.append(f"{name}: {resp['errors']}")
+                            return
+                        counts[name] += 1
+                        if name == "count":
+                            cnt = float(resp["results"][0].get("", 0.0)
+                                        or 0.0)
+                            if cnt < last:
+                                errors.append(f"count fell {last} -> {cnt}")
+                                return
+                            if cnt < floor - waiting:
+                                errors.append(f"count {cnt} below the acked "
+                                              f"floor {floor} less the "
+                                              f"{waiting} rows awaiting "
+                                              "backfill")
+                                return
+                            low = floor - cnt
+                            if counts["lowest"] is None or \
+                                    low > counts["lowest"]:
+                                counts["lowest"] = low
+                            last = max(last, cnt)
+                        time.sleep(0.002)
+                except Exception as e:  # noqa: BLE001
+                    errors.append(f"{name}: {e!r}")
+
+            def job(kind: str) -> dict:
+                out = http(port, f"dbg/trips/0/{kind}", {})
+                if kind == "backfill" and out.get("result"):
+                    with olock:
+                        backfilled[0] += out["result"]["rowsBackfilled"]
+                return out
+
+            def jobs():
+                cycle = ("archiving", "backfill", "snapshot")
+                i = 0
+                try:
+                    while not stop.is_set():
+                        job(cycle[i % len(cycle)])
+                        counts["jobs"] += 1
+                        i += 1
+                        time.sleep(0.25)
+                except urllib.error.HTTPError as e:
+                    errors.append(f"job {cycle[i % 3]}: {e.code} "
+                                  f"{e.read()[:200]!r}")
+                except Exception as e:  # noqa: BLE001
+                    errors.append(f"jobs: {e!r}")
+
+            threads = [threading.Thread(target=writer),
+                       threading.Thread(target=querier, args=("count",)),
+                       threading.Thread(target=querier, args=("join",)),
+                       threading.Thread(target=jobs)]
+            t0 = time.time()
+            for t in threads:
+                t.start()
+            while time.time() - t0 < seconds and not errors:
+                time.sleep(0.2)
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+            if errors:
+                raise AssertionError(f"soak: {errors[:3]}")
+            for kind in ("archiving", "backfill", "archiving"):
+                job(kind)
+
+            with olock:
+                rows = list(oracle.values())
+            want_count = float(len(rows))
+            fares = np.array([r[4] for r in rows], np.float32)
+            want_sum = float(fares.astype(np.float64).sum())
+            city_sums = {}
+            for r in rows:
+                if r[3] == "completed":
+                    k = f"city{r[2]}"
+                    city_sums[k] = city_sums.get(k, 0.0) + float(
+                        np.float32(r[4]))
+            shard = ms.get_table_shard("trips")
+            layout = atrips_layout(shard, X.ShardExecutor.ARCHIVE_CHUNK_ROWS)
+            for c in counters.values():
+                c.launches = 0
+            final = {name: conn.query_aql(q) for name, q in queries.items()}
+            got = {k: c.launches for k, c in counters.items()}
+            for name, resp in final.items():
+                if resp.get("errors") and any(resp["errors"]):
+                    raise AssertionError(f"soak final {name}: "
+                                         f"{resp['errors']}")
+            k1 = sum(n >= FD.FD_MIN_ROWS
+                     for n in layout["live"] + layout["chunks"])
+            if got["K1"] != k1 or got["K3"]:
+                raise AssertionError(f"soak: the final queries launched "
+                                     f"{got}, K1 expected {k1}")
+            count = final["count"]["results"][0][""]
+            total = final["sum"]["results"][0][""]
+            join = final["join"]["results"][0]
+            if count != want_count:
+                raise AssertionError(f"soak: count {count}, the acked ids "
+                                     f"{want_count}")
+            if abs(total - want_sum) >= max(1.0, 1e-4 * abs(want_sum)):
+                raise AssertionError(f"soak: sum(fare) {total}, the oracle "
+                                     f"{want_sum}")
+            for k, v in city_sums.items():
+                if abs(join.get(k, 0.0) - v) >= max(1.0, 1e-3 * abs(v)):
+                    raise AssertionError(f"soak: {k} {join.get(k)}, the "
+                                         f"oracle {v}")
+            cache = http(port, "dbg/device-cache")
+            print(f"soak: {seconds:.0f} s of writes (re-upserts of old ids "
+                  f"among them), {counts['count']} counts, {counts['join']} "
+                  f"joins and {counts['jobs']} jobs at once, no error; the "
+                  f"count trailed the acks by at most "
+                  f"{counts['lowest']} rows and never fell; "
+                  f"{backfilled[0]} rows backfilled; final count "
+                  f"{count:.0f} equals the unique acked ids, sum(fare) "
+                  f"{total:.2f} the oracle's {want_sum:.2f}, the join's "
+                  f"{len(city_sums)} cities the oracle's; the final queries "
+                  f"launched " + " ".join(f"{k}={v}" for k, v in got.items())
+                  + f" over {len(layout['live'])} live batches and "
+                  f"{len(layout['chunks'])} archive chunks; column cache "
+                  f"{cache_line(cache)}", flush=True)
+        finally:
+            if server is not None:
+                server.stop()
+            if ms is not None:
+                close_memstore(ms)
+            clock.reset_clock()
+    return {"rows": int(want_count), "backfilled": backfilled[0],
+            "cache": cache}
+
+
+# the deployments of tools/drive_*.py, in the order main runs them
+DRIVES = ("hundredm", "crash", "rf2", "migrate", "soak")
+
+
 MEASURED = ("max_abs_err", "ms", "kernel_ms", "wall_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
 
@@ -4306,7 +5659,7 @@ def kernel_row(name, source, replaces, launches, measured, in_situ,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=8 * BATCH_ROWS)
+    ap.add_argument("--rows", type=int, default=4 * BATCH_ROWS)
     ap.add_argument("--atrips-rows", type=int, default=ATRIPS_ROWS)
     ap.add_argument("--events-rows", type=int, default=EVENTS_ROWS)
     ap.add_argument("--server-rows", type=int, default=SERVER_ROWS)
@@ -4315,7 +5668,19 @@ def main(argv=None) -> int:
                          "phase_server's answers where equal to "
                          "--server-rows")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--hundredm-rows", type=int, default=HUNDREDM_ROWS,
+                    help="phase_hundredm's rows (tools/drive_100m.py's 100M)")
+    ap.add_argument("--hundredm-cache-bytes", type=int, default=None,
+                    help="phase_hundredm's column cache budget (default: "
+                         "the card's share, admission.device_cache_budget)")
+    ap.add_argument("--only", default=None,
+                    help="run only these drive phases, comma-separated, of "
+                         + ", ".join(DRIVES) + " (no kernel phase and no "
+                         "kernels line)")
     args = ap.parse_args(argv)
+    only = None if args.only is None else args.only.split(",")
+    if only is not None and not set(only) <= set(DRIVES):
+        ap.error(f"--only: phases of {', '.join(DRIVES)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4342,6 +5707,36 @@ def main(argv=None) -> int:
         print(f"{phase.__name__} took {time.perf_counter() - t0:.3f} s",
               flush=True)
         return out
+
+    def drives(names) -> tuple:
+        """The deployments of tools/drive_*.py, in order: each kernel's
+        launches and in-situ ms in them, and their figures."""
+        launches = dict.fromkeys(kernel_counters(), 0)
+        in_situ = {k: {} for k in launches}
+        figures = {}
+        for name in names:
+            if name != "hundredm":
+                figures[name] = timed(
+                    {"crash": phase_crash, "rf2": phase_rf2,
+                     "migrate": phase_migrate_live,
+                     "soak": phase_soak}[name], args.seed)
+                continue
+            got, ms_, _ = timed(phase_hundredm, args.hundredm_rows,
+                                HUNDREDM_SEED,
+                                cache_bytes=args.hundredm_cache_bytes)
+            figures[name] = {"rows": args.hundredm_rows}
+            for k in launches:
+                launches[k] += got[k]
+                in_situ[k].update(ms_[k])
+        return launches, in_situ, figures
+
+    if only is not None:
+        _, _, figures = drives(only)
+        print(json.dumps({"drives": figures}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}, "only": only}), flush=True)
+        return 0
 
     build = timed(phase_build, demo, FD, columns_from_numpy, plan_dense,
                   cuda_build, device, args.seed)
@@ -4378,6 +5773,8 @@ def main(argv=None) -> int:
         phase_cluster, args.cluster_rows, args.seed,
         single if args.cluster_rows == args.server_rows else None),
         timed(phase_stream, args.server_rows, args.seed)]
+    *drive_counts, figures = drives(DRIVES)
+    phases.append(drive_counts)
     for phase_launches, phase_in_situ in phases:
         for k in launches:
             launches[k] += phase_launches[k]
@@ -4408,6 +5805,7 @@ def main(argv=None) -> int:
     if sorted(WINDOW) != ["A6", "B1 raised range", "Q1"]:
         raise AssertionError(f"window: runs of {sorted(WINDOW)}")
     print(json.dumps({"window": WINDOW}), flush=True)
+    print(json.dumps({"drives": figures}), flush=True)
     print(json.dumps({"build": {**build, "built": cuda_build.built,
                                 "seconds": cuda_build.build_seconds}}),
           flush=True)

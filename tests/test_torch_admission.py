@@ -298,3 +298,45 @@ def test_device_memory_budget(monkeypatch):
     assert A.DeviceMemoryManager(device="cpu").budget == int(
         (1 << 30) * 0.95)
     assert A.device_memory_budget(1.5, "cpu") == int((1 << 30) * 0.95)
+
+
+def test_a_cards_memory_splits_between_the_column_cache_and_admission(
+        monkeypatch):
+    """On a CUDA device the column cache takes DEVICE_CACHE_SHARE of the
+    card's total memory (torch.cuda.mem_get_info, as the admission budget
+    reads it) and the admission budget the rest of its 0.95, so that the
+    two together stay within the card; each cached device holds its own
+    budget, least recently used entries out first; `cpu` keeps 4 GiB."""
+    import torch
+
+    from aresdb_tpu_torch.query import executor as X
+
+    total = 80 << 30
+    monkeypatch.delenv("ARES_DEVICE_MEMORY", raising=False)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (total // 2, total))
+    card = torch.device("cuda", 0)
+    assert A.DEVICE_CACHE_SHARE == 0.25
+    assert A.device_cache_budget(card) == total // 4
+    assert A.device_cache_budget("cpu") == 4 << 30
+    assert A._per_device_budget(card, 0.95, 0) == \
+        int(total * 0.95) - total // 4
+    assert A._per_device_budget(card, 0.95, 0) + \
+        A.device_cache_budget(card) <= total
+    cache = X.DeviceColumnCache()
+    assert cache.budget(card) == total // 4
+    assert cache.budget(torch.device("cpu")) == 4 << 30
+    # a budget of two entries' bytes on the card: the third staged evicts
+    # the least recently used, and the cpu's entries are not the card's
+    monkeypatch.setattr(A, "DEVICE_CACHE_SHARE", 2 * 4096 / total)
+    cache = X.DeviceColumnCache()
+    one = lambda: (torch.zeros(1024, dtype=torch.float32),)  # noqa: E731
+    for key in ("a", "b"):
+        cache.get_or_stage(card, (key,), one)
+    cache.get_or_stage(torch.device("cpu"), ("c",), one)
+    cache.get_or_stage(card, ("a",), one)      # a hit: "b" is now oldest
+    cache.get_or_stage(card, ("d",), one)
+    assert sorted(cache._entries) == [("cpu", "c"), ("cuda:0", "a"),
+                                      ("cuda:0", "d")]
+    assert cache.stats() == {"entries": 3, "bytes": 3 * 4096, "hits": 1,
+                             "misses": 4}
