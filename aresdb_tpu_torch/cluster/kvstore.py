@@ -10,7 +10,9 @@ lock with TTL-based stale-lock breaking, atomic rename writes). The real
 etcd adapter is cluster/etcd_kvstore.py (v3 gRPC-JSON gateway over HTTP,
 cas -> value-compare Txn); MemoryKVStore is the in-process fake the
 election/failover tests run against. All three pass the shared contract
-suite in tests/test_etcd_kvstore.py.
+suite in tests/test_etcd_kvstore.py. The file store also lends the lock
+its cas takes (`locked`), which the controller's write fence holds while
+it checks the lease and writes its snapshot.
 
 Substrate caveat (documented, VERDICT-r2 weak #8): FileKVStore's O_EXCL +
 rename atomicity holds on local POSIX filesystems; on NFS-class shared
@@ -19,10 +21,11 @@ stores O_EXCL may not be atomic — deploy an etcd/consul adapter there.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 
 class KVStore:
@@ -44,6 +47,13 @@ class KVStore:
         raise NotImplementedError
 
     def cas(self, key: str, expected: Optional[str], new: str) -> bool:
+        raise NotImplementedError
+
+    def locked(self, key: str,
+               timeout: float) -> contextlib.AbstractContextManager:
+        """Hold the lock that serializes cas on `key`: no cas of the key
+        lands while it is held. Raises TimeoutError where the lock is not
+        taken within `timeout` seconds."""
         raise NotImplementedError
 
 
@@ -138,5 +148,17 @@ class FileKVStore(KVStore):
                 return False
             self.put(key, new)
             return True
+        finally:
+            self._unlock(key)
+
+    @contextlib.contextmanager
+    def locked(self, key, timeout) -> Iterator[None]:
+        deadline = time.monotonic() + timeout
+        while not self._try_lock(key):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"lock of {key!r} busy")
+            time.sleep(0.002)
+        try:
+            yield
         finally:
             self._unlock(key)

@@ -16,6 +16,14 @@ Protocol (pure CAS, substrate-independent):
   lease with epoch+1 — the monotonically increasing epoch is the fencing
   token: an old leader that wakes from a pause sees a lease it no longer
   owns (name/epoch mismatch) and steps down.
+
+Unlike the JAX package's copy, a leader serves only while its lease is
+unexpired by its own clock (`is_leader`: the last successful acquire or
+renew plus ttl, on time.monotonic()), so a leader that wakes from a pause
+refuses requests before its elector's next tick; and `fenced` runs a
+write only while the lease still names this elector and epoch, checked
+under the KV store's lock, so that a request paused between the check
+and its write cannot overwrite a successor's state (NotLeader).
 """
 
 from __future__ import annotations
@@ -31,6 +39,10 @@ from aresdb_tpu_torch.cluster.kvstore import FileKVStore, KVStore
 log = logging.getLogger("aresdb.election")
 
 LEASE_KEY = "leader.lease"
+
+
+class NotLeader(RuntimeError):
+    """A write refused: the lease no longer names this elector and epoch."""
 
 
 class LeaderElector:
@@ -52,6 +64,7 @@ class LeaderElector:
         self.on_revoked = on_revoked
         self._is_leader = False
         self._epoch = -1
+        self._valid_until = 0.0   # time.monotonic() the lease held lapses at
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -59,7 +72,8 @@ class LeaderElector:
 
     @property
     def is_leader(self) -> bool:
-        return self._is_leader
+        """Elected, and the lease unexpired by this elector's own clock."""
+        return self._is_leader and time.monotonic() < self._valid_until
 
     @property
     def epoch(self) -> int:
@@ -71,6 +85,22 @@ class LeaderElector:
         if lease and lease["expires"] > time.time():
             return lease
         return None
+
+    def fenced(self, write: Callable[[], None]) -> None:
+        """write() while the lease names this elector and its epoch, under
+        the KV store's lock of the lease, so that no candidate takes the
+        lease between the check and the write. Raises NotLeader where the
+        lease names another elector or epoch, or its lock stays busy."""
+        try:
+            with self.kv.locked(LEASE_KEY, timeout=self.ttl):
+                lease = self._read_lease()[1]
+                if not lease or lease.get("name") != self.name or \
+                        lease.get("epoch") != self._epoch:
+                    raise NotLeader(f"the lease is {lease}, not "
+                                    f"{self.name}'s of epoch {self._epoch}")
+                write()
+        except TimeoutError as e:
+            raise NotLeader(str(e)) from e
 
     def start(self) -> None:
         self._thread = threading.Thread(target=self._run, daemon=True,
@@ -115,18 +145,28 @@ class LeaderElector:
         if lease and lease["expires"] > time.time():
             return False
         epoch = (lease["epoch"] + 1) if lease else 0
+        t0 = time.monotonic()
         if not self.kv.cas(LEASE_KEY, raw, self._lease_json(epoch)):
             return False
         self._epoch = epoch
+        self._valid_until = t0 + self.ttl
         return True
 
     def _set_leader(self, val: bool) -> None:
+        """On election on_elected runs before the first request is served
+        (the promoted state is loaded), on_revoked after the last."""
         if val == self._is_leader:
             return
+        if val:
+            self._callback(self.on_elected)
         self._is_leader = val
         log.info("controller %s %s leadership (epoch %d)", self.name,
                  "gained" if val else "lost", self._epoch)
-        cb = self.on_elected if val else self.on_revoked
+        if not val:
+            self._callback(self.on_revoked)
+
+    @staticmethod
+    def _callback(cb) -> None:
         if cb is not None:
             try:
                 cb()
@@ -144,7 +184,9 @@ class LeaderElector:
         if (lease and lease.get("name") == self.name
                 and lease.get("epoch") == self._epoch
                 and lease.get("expires", 0) > time.time()):
-            self.kv.cas(LEASE_KEY, raw, self._lease_json(self._epoch))
+            t0 = time.monotonic()
+            if self.kv.cas(LEASE_KEY, raw, self._lease_json(self._epoch)):
+                self._valid_until = t0 + self.ttl
         else:
             self._set_leader(False)
 

@@ -8,9 +8,11 @@ Port of `aresdb_tpu/controller/server.py` on `http.server`
 (api/httpbase.py): every route of the JAX package's `make_app` in its
 order, with its status codes and JSON bodies. A follower of an HA
 election answers 503 with the leader's address, except on /leader and
-/ui; a KeyError in a handler is a 404, a ValueError a 400, a malformed
-body tornado's 400 page. The handlers run one at a time, under one lock,
-as the JAX package's run on its IOLoop.
+/ui; so does a leader whose lease lapsed by its own clock, or whose
+snapshot write the lease's fence refused (election.NotLeader), where the
+JAX package's serves and writes; a KeyError in a handler is a 404, a
+ValueError a 400, a malformed body tornado's 400 page. The handlers run
+one at a time, under one lock, as the JAX package's run on its IOLoop.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Optional
 from aresdb_tpu_torch.api.httpbase import (HTTPError, Handler, Service,
                                            compile_routes)
 from aresdb_tpu_torch.common.schema import Table
+from aresdb_tpu_torch.controller.election import NotLeader
 from aresdb_tpu_torch.controller.state import (ControllerState, Instance,
                                                JobConfig)
 
@@ -48,10 +51,12 @@ class _Base(Handler):
         # the leader's address so FailoverSession retries there (reference
         # leader_elector.go — only the elected controller runs tasks)
         if self.elector is not None and not self.elector.is_leader:
-            lease = self.elector.current_leader()
-            self.write_json(
-                {"message": "not leader",
-                 "leader": lease["address"] if lease else None}, 503)
+            self.not_leader()
+
+    def not_leader(self):
+        lease = self.elector.current_leader()
+        self.write_json({"message": "not leader",
+                         "leader": lease["address"] if lease else None}, 503)
 
     def body(self):
         try:
@@ -66,6 +71,8 @@ class _Base(Handler):
             self.write_json({"message": str(e)}, 404)
         except ValueError as e:
             self.write_json({"message": str(e)}, 400)
+        except NotLeader:
+            self.not_leader()
 
 
 class NamespacesHandler(_Base):
@@ -546,6 +553,7 @@ class ControllerServer(Service):
             self.elector = LeaderElector(
                 self.state.root_path, instance_name or advertise, advertise,
                 ttl=lease_ttl, on_elected=self.state.reload)
+            self.state.fence = self.elector.fenced
         super().__init__(ControllerContext(self.state, self.elector),
                          _COMPILED, port, name="ares-controller")
 

@@ -9,6 +9,13 @@ replacing the etcd quorum).
 
 Schema changes bump a hash so clients (SchemaFetchJob) can short-circuit
 (reference: controller hash-based change detection).
+
+Two departures from the JAX package's copy, for controllers in an HA
+election: `reload` (a promotion) counts each persisted instance's
+heartbeat timeout from the promotion, since heartbeats are not persisted;
+and `_persist` writes through `fence` where one is set (the elector's
+`fenced`), so that a controller that lost its lease cannot overwrite its
+successor's snapshot.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ import os
 import threading
 import time
 from dataclasses import asdict, dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from aresdb_tpu_torch.common.schema import Table
 from aresdb_tpu_torch.metastore.validator import validate_table
@@ -94,17 +101,26 @@ class ControllerState:
         self.namespaces: Dict[str, Namespace] = {}
         self.root_path = root_path
         self.heartbeat_timeout = heartbeat_timeout
+        # runs each snapshot write (None: written as is)
+        self.fence: Optional[Callable[[Callable[[], None]], None]] = None
         if root_path:
             self._load()
 
     def reload(self) -> None:
         """Re-read the disk snapshot, replacing in-memory state — called
         when a follower is promoted to leader so it serves the previous
-        leader's persisted mutations."""
+        leader's persisted mutations. Heartbeats are not persisted, so
+        each persisted instance is stamped alive at the promotion: a live
+        one is never dropped between two leaders, and a dead one drops
+        out heartbeat_timeout later, as on the old leader."""
         with self.lock:
             if self.root_path:
                 self.namespaces = {}
                 self._load()
+                now = time.time()
+                for n in self.namespaces.values():
+                    for inst in n.instances.values():
+                        inst.last_heartbeat = now
 
     # -- namespaces --
 
@@ -424,10 +440,17 @@ class ControllerState:
                 },
                 "jobs": {k: asdict(v) for k, v in n.jobs.items()},
             }
-        tmp = os.path.join(self.root_path, "state.json.tmp")
-        with open(tmp, "w") as f:
-            json.dump(doc, f)
-        os.replace(tmp, os.path.join(self.root_path, "state.json"))
+
+        def write():
+            tmp = os.path.join(self.root_path, "state.json.tmp")
+            with open(tmp, "w") as f:
+                json.dump(doc, f)
+            os.replace(tmp, os.path.join(self.root_path, "state.json"))
+
+        if self.fence is None:
+            write()
+        else:
+            self.fence(write)
 
     def _load(self) -> None:
         path = os.path.join(self.root_path, "state.json")

@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--rows N] [--atrips-rows M] [--events-rows E]
                           [--server-rows R] [--cluster-rows C] [--seed S]
                           [--hundredm-rows H] [--hundredm-cache-bytes B]
-                          [--only hundredm,crash,rf2,migrate,soak]
+                          [--only hundredm,crash,rf2,migrate,soak,
+                                  controller_ha]
 
 First `phase_build`, on a fresh temporary build directory: K1's launcher
 library (`csrc/fused_dense_launch.cu`, host code, built once by nvcc),
@@ -227,6 +228,19 @@ and the kernels line):
       writer (new ids and re-upserts of old ones), a count and a join
       thread and the archiving, backfill and snapshot jobs through /dbg;
       the drive's final oracle checks, the join's K1 launches asserted.
+  phase_controller_ha (drive_controller_ha.py): two `cmd.controller
+      --elect --lease-ttl 1.5` processes on one root, dn0 and dn1 in this
+      process on `cuda`, a broker, each given both controllers'
+      addresses; 2 shards of 1,048,576 rows of the drive's trips; a
+      querier thread sends count(*) and sum(v) by id % 16 through the
+      broker, each answer held to the oracle of the acked rows, while
+      the leader is SIGKILLed, the cities table is created, 131,072 rows
+      go to each shard, the killed controller restarts as a follower,
+      the other is SIGSTOPped for 6 s and the restarted one takes over,
+      during_pause is created, and the paused controller, SIGCONTed,
+      must answer a write 503; no querier error and no wrong answer,
+      K1's launches asserted before and after; both failover times and
+      the querier's p50, p99 and longest gap printed.
 
 The moving window (`phase_window`), inside the phases that hold its
 stores: Q1 again at DEMO_NOW + 900 s (its window ends at "this
@@ -254,7 +268,8 @@ Kernels and what they replace:
 Prints the card's name and power limit, per-phase results, one
 `{"window": ...}` line, one `{"drives": ...}` line (the drive phases'
 figures: the restart's and the failover's seconds, each move's
-seconds, the soak's rows, backfilled rows and cache stats), one
+seconds, the soak's rows, backfilled rows and cache stats, the two
+controller failovers' seconds and the querier's figures), one
 `{"build": ...}` line (phase_build's seconds,
 the all-at-once build's, and the builds and seconds of the whole run),
 one `{"kernels": [...]}` line (each kernel's registers and local memory:
@@ -280,6 +295,7 @@ import contextlib
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -4703,15 +4719,17 @@ def hundredm_report(name: str, rec: dict, n_rows: int, layout: dict) -> None:
           f"{rec['misses']}", flush=True)
 
 
-def start_daemon(args, what: str, timeout: float = 600) -> tuple:
-    """`python -m aresdb_tpu_torch.cmd.aresd ARGS` as a process of its own
+def start_daemon(args, what: str, timeout: float = 600,
+                 module: str = "aresdb_tpu_torch.cmd.aresd") -> tuple:
+    """`python -m MODULE ARGS` (the daemon, or another of the port's
+    commands whose start-up line names its port) as a process of its own
     from the repository's root, its standard error read into a list by a
     thread; waits for its start-up line. Returns (process, port, the
     lines of its standard error, seconds to the line)."""
     log = []
     t0 = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, "-m", "aresdb_tpu_torch.cmd.aresd", *args],
+        [sys.executable, "-m", module, *args],
         cwd=str(Path(__file__).resolve().parent),
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     threading.Thread(target=lambda: log.extend(proc.stderr),
@@ -5635,8 +5653,465 @@ def phase_soak(seed: int, device=None, seconds: float = SOAK_SECONDS
             "cache": cache}
 
 
+# tools/drive_controller_ha.py: two controllers in a lease election over a
+# shared root, every client given both addresses; the leader SIGKILLed,
+# then the restarted one promoted while the other is SIGSTOPped
+HA_NS = "prod"
+HA_TTL = 1.5                     # the drive's --lease-ttl
+HA_PAUSE = 4 * HA_TTL            # the SIGSTOP's least length
+HA_MORE_SHARE = 8                # step 5 adds shard_rows / 8 to each shard
+HA_RUNS = 3                      # the asserted rounds: one cold, two warm
+HA_CONVERGE_S = 60.0
+# the drive's trips at a batch size K1 takes: its 4,096-row batches stay
+# under FD_MIN_ROWS, where every query would reduce through K2
+HA_SCHEMA_JSON = dict(CRASH_SCHEMA_JSON, name="trips",
+                      config={"batchSize": 1 << 18,
+                              "recordRetentionInDays": 0})
+HA_CITIES_JSON = {"name": "cities", "columns": [{"name": "id",
+                                                  "type": "Uint16"}],
+                  "primaryKeyColumns": [0], "isFactTable": False,
+                  "config": {"batchSize": 64}}
+# the drive's count(*), and sum(v) by id % RF2_GROUPS
+HA_QUERIES = [{"table": "trips", "measures": [{"sqlExpression": "count(*)"}]},
+              dict(RF2_QUERIES[1], table="trips")]
+
+
+def ha_answers(port: int, now: int) -> list:
+    """HA_QUERIES through the broker at port, back to back, each its own
+    request: [(status, answer or None)]; a status other than 200, a
+    refused or cut request or an error in the answer stands as it came."""
+    import urllib.error
+
+    out = []
+    for q in HA_QUERIES:
+        try:
+            resp = http(port, "query/aql", {"queries": [dict(q, now=now)]})
+        except urllib.error.HTTPError as e:
+            out.append((e.code, None))
+            continue
+        except Exception as e:  # noqa: BLE001 — counted as an error
+            out.append((repr(e), None))
+            continue
+        if any(resp.get("errors") or []):
+            out.append((f"200 {resp['errors']}", None))
+            continue
+        out.append((200, {k: float(v) for k, v in
+                          ((resp.get("results") or [{}])[0] or {}).items()}))
+    return out
+
+
+def ha_oracle(parts) -> list:
+    """The two answers over the rows of `parts`, (ids, v) pairs."""
+    group = np.concatenate([i for i, _ in parts]).astype(np.int64) \
+        % RF2_GROUPS
+    values = np.concatenate([v for _, v in parts]).astype(np.float64)
+    return [{"": float(len(group))},
+            {str(g): float(x) for g, x in enumerate(
+                np.bincount(group, values, RF2_GROUPS))}]
+
+
+def ha_launches(nodes, runs: int) -> dict:
+    """Each kernel's launches over `runs` runs of HA_QUERIES on the
+    shards the nodes own: count(*), with no dimension, is one slot and
+    reduced with no kernel; the sum by id % RF2_GROUPS takes K1 on a live
+    batch of at least FD_MIN_ROWS padded rows and K2 (the unfused dense
+    kernel) on a smaller one."""
+    from aresdb_tpu_torch.query import fused_dense as FD
+
+    layout = shards_layout(nodes)
+    fused = sum(n >= FD.FD_MIN_ROWS for n in layout["live"])
+    return {"K1": runs * fused, "K2": runs * (len(layout["live"]) - fused),
+            "K3": 0}
+
+
+def phase_controller_ha(seed: int, device=None,
+                        shard_rows: int = RF2_SHARD_ROWS,
+                        timeout: float = 600) -> dict:
+    """tools/drive_controller_ha.py on the port. Two controllers as
+    processes of their own (`cmd.controller --elect --lease-ttl HA_TTL`
+    on one root); dn0 and dn1 in this process on `device` and a broker
+    over DynamicTopology, each of them, the broker's schema view and the
+    phase's FailoverSession given both controllers' addresses. The
+    drive's trips (ts, id, v), 2 shards at replica factor 1, shard_rows
+    rows a shard through Connector.insert_columns to its owner; the
+    drive's count(*) and sum(v) by id % RF2_GROUPS through the broker
+    against a numpy oracle, K1's launches held to ha_launches over
+    HA_RUNS runs. Then a querier thread sends both queries back to back
+    until the end, holding each answer to the oracle of the rows acked
+    before it was sent (or of those with an upsert that was in flight by
+    its answer) while: the leader is SIGKILLed and the other controller
+    takes over; the drive's cities is created through the session and
+    the tables listed; shard_rows / HA_MORE_SHARE more rows go to each
+    shard; the killed controller restarts on its port and root as a
+    follower; the leader is SIGSTOPped for at least HA_PAUSE s and the
+    restarted one takes over; during_pause is created through the
+    session; the paused controller is SIGCONTed and at once asked for
+    stale_write with no failover: 503, and the new leader lists cities,
+    during_pause and trips, as does the snapshot on the root. The querier
+    must count no error and no wrong answer. Every process is killed at
+    the end. Returns {"failover_s": [kill, pause], "querier": {...},
+    "launches", "in_situ"}."""
+    from aresdb_tpu_torch.broker.server import BrokerServer
+    from aresdb_tpu_torch.broker.validator import BrokerSchemaView
+    from aresdb_tpu_torch.client import Connector
+    from aresdb_tpu_torch.cluster.failover import FailoverSession
+    from aresdb_tpu_torch.cluster.topology import DynamicTopology
+    from aresdb_tpu_torch.datanode.datanode import DataNode
+    from aresdb_tpu_torch.diskstore.local_diskstore import LocalDiskStore
+    from aresdb_tpu_torch.memstore.memstore import MemStore
+    from aresdb_tpu_torch.memstore.scheduler import Scheduler
+    from aresdb_tpu_torch.metastore.disk_metastore import DiskMetaStore
+    from aresdb_tpu_torch.utils import http_client
+    from aresdb_tpu_torch.utils.torch_env import resolve_device
+
+    dev = resolve_device(device)
+    ns = HA_NS
+    rng = np.random.RandomState(seed + 17)
+    counters = kernel_counters()
+    now = int(time.time())
+    more_rows = shard_rows // HA_MORE_SHARE
+    plain = http_client.Session()
+    stack, ctl, nodes = [], {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        ctl_root = f"{root}/ctl"
+
+        def start_controller(i: int, port: int = 0) -> int:
+            proc, bound, _, _ = start_daemon(
+                ["--port", str(port), "--root-path", ctl_root, "--elect",
+                 "--lease-ttl", str(HA_TTL), "--instance", f"ctl{i}"],
+                f"ctl{i} to serve", timeout,
+                module="aresdb_tpu_torch.cmd.controller")
+            ctl[i] = proc
+            stack.append(lambda: kill(proc))
+            return bound
+
+        def leader_flag(port: int):
+            """The controller's isLeader, or None where it does not
+            answer."""
+            try:
+                return plain.get(f"http://localhost:{port}/leader",
+                                 timeout=1).json().get("isLeader")
+            except (http_client.RequestException, ValueError):
+                return None
+
+        def leads(port: int) -> bool:
+            return leader_flag(port) is True
+
+        def tables(r) -> list:
+            if r.status_code != 200:
+                raise AssertionError(f"controller_ha: the table list "
+                                     f"answers {r.status_code}")
+            return sorted(t["name"] for t in r.json())
+
+        try:
+            ports = [start_controller(i) for i in range(2)]
+            addrs = [f"localhost:{p}" for p in ports]
+            ctl_list = ",".join(addrs)
+            wait_for(lambda: any(leads(p) for p in ports), "a leader", 30)
+            fs = FailoverSession(addrs)
+            base = f"http://{addrs[0]}"
+            for path, body in (("namespaces", {"namespace": ns}),
+                               (f"schema/{ns}/tables", HA_SCHEMA_JSON)):
+                r = fs.post(f"{base}/{path}", json=body)
+                if r.status_code != 200:
+                    raise AssertionError(f"controller_ha: {path}: "
+                                         f"{r.status_code} {r.text}")
+            for name in ("dn0", "dn1"):
+                ms = MemStore(DiskMetaStore(f"{root}/{name}"),
+                              LocalDiskStore(f"{root}/{name}"))
+                node = DataNode(ms, Scheduler(ms),
+                                controller_address=ctl_list, namespace=ns,
+                                instance_name=name, poll_seconds=0.5,
+                                device=dev)
+                node.open()
+                stack.append(lambda n=node: (n.close(),
+                                             close_memstore(n.memstore)))
+                node.serve()
+                nodes[name] = node
+            r = fs.post(f"{base}/placement/{ns}/datanode", json={
+                "numShards": 2, "replicaFactor": 1,
+                "instances": ["dn0", "dn1"]})
+            if r.status_code != 200:
+                raise AssertionError(f"controller_ha: placement {r.text}")
+
+            def placement() -> list:
+                r = fs.get(f"{base}/placement/{ns}/datanode", timeout=2)
+                return r.json()["shards"] if r.status_code == 200 else []
+
+            def converged() -> bool:
+                shards = placement()
+                return bool(shards) and all(
+                    set(sd["instances"].values()) == {"Available"}
+                    for sd in shards)
+
+            wait_for(converged, "the placement to turn Available",
+                     HA_CONVERGE_S)
+            owner = {sd["shardId"]: next(iter(sd["instances"]))
+                     for sd in placement()}
+            topology = DynamicTopology(ctl_list, ns, poll_seconds=0.5)
+            topology.start()
+            stack.append(topology.stop)
+            view = BrokerSchemaView(addrs[0], ns, poll_seconds=1.0,
+                                    session=FailoverSession(addrs))
+            view.start()
+            stack.append(view.stop)
+            broker = BrokerServer(topology, schema_view=view)
+            bport = broker.start_background()
+            stack.append(broker.stop)
+
+            # the oracle: each shard's upserts in order; acked[sid] of them
+            # acked, seen[sid] possibly visible (acked, or in flight)
+            upserts = {sid: [] for sid in range(2)}
+            acked, seen = [0, 0], [0, 0]
+            lock = threading.Lock()
+
+            def ingest(sid: int, n: int) -> None:
+                lo = sum(len(i) for i, _ in upserts[sid]) + sid * (1 << 30)
+                cols = {"ts": np.full(n, now - 60, np.uint32),
+                        "id": np.arange(lo, lo + n, dtype=np.uint32),
+                        "v": rng.randint(0, 16, n).astype(np.float32)}
+                with lock:
+                    upserts[sid].append((cols["id"], cols["v"]))
+                    seen[sid] += 1
+                port = nodes[owner[sid]].port
+                stats = Connector("localhost", port).insert_columns(
+                    "trips", dict(cols), shard_id=sid)
+                if stats["inserted"] != n:
+                    raise AssertionError(f"controller_ha: shard {sid}: "
+                                         f"{stats}")
+                with lock:
+                    acked[sid] += 1
+
+            def wants(lo, hi) -> list:
+                return [ha_oracle(upserts[0][:a] + upserts[1][:b])
+                        for a in range(lo[0], hi[0] + 1)
+                        for b in range(lo[1], hi[1] + 1)]
+
+            def answers_right(got, *options) -> bool:
+                """Each answer 200 and equal to its query's answer in one
+                of the oracles `options` (the two requests of a pair may
+                see an upsert land between them)."""
+                return all(status == 200 and any(a == w[i] for w in options)
+                           for i, (status, a) in enumerate(got))
+
+            t0 = time.perf_counter()
+            for sid in range(2):
+                ingest(sid, shard_rows)
+            load_s = time.perf_counter() - t0
+            want = wants(acked, acked)[0]
+            for c in counters.values():
+                c.launches = 0
+            for _ in range(HA_RUNS):
+                got = ha_answers(bport, now)
+                if not answers_right(got, want):
+                    raise AssertionError(f"controller_ha: the broker answers "
+                                         f"{got}, the oracle {want}")
+            launches = {k: c.launches for k, c in counters.items()}
+            expected = ha_launches(nodes.values(), HA_RUNS)
+            if launches != expected:
+                raise AssertionError(f"controller_ha: launches {launches}, "
+                                     f"expected {expected}")
+            totals = dict(launches)
+            print(f"controller_ha: ctl0 and ctl1 in an election (ttl "
+                  f"{HA_TTL} s), dn0 and dn1 on {dev.type}; 2 shards of "
+                  f"{shard_rows} rows in {load_s:.3f} s; count(*) and "
+                  f"sum(v) by id % {RF2_GROUPS} through the broker equal the "
+                  f"oracle over {HA_RUNS} runs, launches "
+                  + " ".join(f"{k}={v}" for k, v in launches.items()),
+                  flush=True)
+
+            # the querier, from before the kill to the end
+            stop = threading.Event()
+            record = []      # (end, ms, statuses, right)
+
+            def querier():
+                while not stop.is_set():
+                    with lock:
+                        lo = list(acked)
+                    t_send = time.perf_counter()
+                    got = ha_answers(bport, now)
+                    t_end = time.perf_counter()
+                    with lock:
+                        hi = list(seen)
+                    right = answers_right(got, *wants(lo, hi))
+                    record.append((t_end, 1e3 * (t_end - t_send),
+                                   [s_ for s_, _ in got], right))
+
+            for c in counters.values():
+                c.launches = 0
+            q_thread = threading.Thread(target=querier, daemon=True)
+            q_start = time.perf_counter()
+            q_thread.start()
+            try:
+                time.sleep(1.0)
+                # 3: SIGKILL the leader
+                lead = next(i for i, p in enumerate(ports) if leads(p))
+                other = 1 - lead
+                t0 = time.perf_counter()
+                kill(ctl[lead])
+                wait_for(lambda: leads(ports[other]),
+                         f"ctl{other} to take over", 30)
+                kill_s = time.perf_counter() - t0
+                print(f"controller_ha: ctl{lead}, the leader, SIGKILLed; "
+                      f"ctl{other} reports isLeader {kill_s:.3f} s after",
+                      flush=True)
+                # 4: cities through the same session; the table list
+                r = fs.post(f"{base}/schema/{ns}/tables", json=HA_CITIES_JSON)
+                if r.status_code != 200:
+                    raise AssertionError(f"controller_ha: cities: "
+                                         f"{r.status_code} {r.text}")
+                listed = tables(fs.get(f"{base}/schema/{ns}/tables"))
+                if listed != ["cities", "trips"]:
+                    raise AssertionError(f"controller_ha: tables {listed}")
+                # 5: more rows to each shard; the broker catches up
+                for sid in range(2):
+                    ingest(sid, more_rows)
+                want = wants(acked, acked)[0]
+                wait_for(lambda: answers_right(ha_answers(bport, now), want),
+                         "the broker to count the new rows", 30)
+                print(f"controller_ha: cities created and listed through "
+                      f"the failover session; {more_rows} more rows to each "
+                      f"shard, counted by the broker", flush=True)
+                # 6: the killed controller restarts as a follower
+                start_controller(lead, ports[lead])
+                wait_for(lambda: leader_flag(ports[lead]) is False,
+                         f"ctl{lead} to follow", 30)
+                # 7: SIGSTOP the leader; the restarted one takes over
+                paused = ctl[other]
+                t0 = time.perf_counter()
+                paused.send_signal(signal.SIGSTOP)
+                try:
+                    wait_for(lambda: leads(ports[lead]),
+                             f"ctl{lead} to take over", 30)
+                    pause_s = time.perf_counter() - t0
+                    # 8: a table while the old leader is paused
+                    r = fs.post(f"{base}/schema/{ns}/tables", timeout=2,
+                                json=dict(HA_CITIES_JSON,
+                                          name="during_pause"))
+                    if r.status_code != 200:
+                        raise AssertionError(f"controller_ha: during_pause: "
+                                             f"{r.status_code} {r.text}")
+                    time.sleep(max(0.0, HA_PAUSE
+                                   - (time.perf_counter() - t0)))
+                finally:
+                    paused.send_signal(signal.SIGCONT)
+                # 9: the paused controller, at once, with no failover
+                r = plain.post(f"http://{addrs[other]}/schema/{ns}/tables",
+                               json=dict(HA_CITIES_JSON, name="stale_write"),
+                               timeout=10)
+                if r.status_code != 503 or \
+                        r.json().get("leader") != addrs[lead]:
+                    raise AssertionError(
+                        f"controller_ha: the paused controller answers "
+                        f"stale_write {r.status_code} {r.text}")
+                listed = tables(plain.get(
+                    f"http://{addrs[lead]}/schema/{ns}/tables", timeout=5))
+                with open(f"{ctl_root}/state.json") as f:
+                    on_disk = sorted(json.load(f)[ns]["tables"])
+                three = ["cities", "during_pause", "trips"]
+                if listed != three or on_disk != three:
+                    raise AssertionError(f"controller_ha: the leader lists "
+                                         f"{listed}, the snapshot holds "
+                                         f"{on_disk}")
+                print(f"controller_ha: ctl{lead} restarted as a follower; "
+                      f"ctl{other} SIGSTOPped for "
+                      f"{time.perf_counter() - t0:.3f} s, ctl{lead} reports "
+                      f"isLeader {pause_s:.3f} s after the stop; "
+                      f"during_pause created through the session; ctl{other}"
+                      f" SIGCONTed answers stale_write 503 with ctl{lead}'s "
+                      f"address; the leader and the snapshot hold {three}",
+                      flush=True)
+                time.sleep(1.0)
+            finally:
+                stop.set()
+                q_thread.join(timeout=60)
+            q_launches = {k: c.launches for k, c in counters.items()}
+            for k in totals:
+                totals[k] += q_launches[k]
+            q_s = time.perf_counter() - q_start
+            errors = [r for r in record if any(s_ != 200 for s_ in r[2])]
+            wrong = [r for r in record if not r[3] and r not in errors]
+            ms_ = np.array([r[1] for r in record])
+            ends = [q_start] + [r[0] for r in record if r[3]]
+            gap_ms = 1e3 * max((b - a for a, b in zip(ends, ends[1:])),
+                               default=float("inf"))
+            querier_figures = {
+                "pairs": len(record), "errors": len(errors),
+                "wrong": len(wrong), "p50_ms": float(np.percentile(ms_, 50)),
+                "p99_ms": float(np.percentile(ms_, 99)),
+                "longest_gap_ms": gap_ms}
+            print(f"controller_ha: the querier sent {len(record)} pairs in "
+                  f"{q_s:.3f} s: {len(errors)} errors, {len(wrong)} wrong "
+                  f"answers; p50 {querier_figures['p50_ms']:.3f} ms, p99 "
+                  f"{querier_figures['p99_ms']:.3f} ms a pair, the longest "
+                  f"gap between two right answers {gap_ms:.3f} ms; launches "
+                  "in its run " + " ".join(f"{k}={v}"
+                                           for k, v in q_launches.items()),
+                  flush=True)
+            if errors or wrong or not record:
+                raise AssertionError(
+                    f"controller_ha: the querier's {len(record)} pairs hold "
+                    f"{len(errors)} errors ({errors[:3]}) and {len(wrong)} "
+                    f"wrong answers ({wrong[:3]})")
+            if expected["K1"] and not q_launches["K1"]:
+                raise AssertionError("controller_ha: the querier's run "
+                                     "launched no K1")
+
+            # the same two queries after the failovers, launches held again
+            for c in counters.values():
+                c.launches = 0
+            for _ in range(HA_RUNS):
+                got = ha_answers(bport, now)
+                if not answers_right(got, want):
+                    raise AssertionError(f"controller_ha: after the "
+                                         f"failovers the broker answers "
+                                         f"{got}, the oracle {want}")
+            launches = {k: c.launches for k, c in counters.items()}
+            expected = ha_launches(nodes.values(), HA_RUNS)
+            if launches != expected:
+                raise AssertionError(f"controller_ha: launches after the "
+                                     f"failovers {launches}, expected "
+                                     f"{expected}")
+            for k in totals:
+                totals[k] += launches[k]
+            in_situ = {k: {} for k in counters}
+            if dev.type == "cuda" and expected["K1"]:
+                def profiled_run():
+                    for c in counters.values():
+                        c.launches = 0
+                    ha_answers(bport, now)
+
+                events = counted_events(
+                    profiled_run, 1, "K1", expected["K1"] // HA_RUNS)
+                k1 = kernel_events(events, "K1")
+                if k1 and len(k1) == expected["K1"] // HA_RUNS:
+                    in_situ["K1"]["controller_ha count and sum"] = \
+                        sum(k1) / 1e3 / len(k1)
+                smi = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=name,power.limit",
+                     "--format=csv,noheader"], capture_output=True,
+                    text=True).stdout.strip()
+                k1_ms = in_situ["K1"].get("controller_ha count and sum")
+                print(f"controller_ha: {smi}; K1 in situ "
+                      + (f"{k1_ms:.4f} ms a launch" if k1_ms is not None
+                         else "not recorded"), flush=True)
+            print(f"controller_ha: after both failovers the two queries "
+                  f"equal the oracle over {HA_RUNS} runs, launches "
+                  + " ".join(f"{k}={v}" for k, v in launches.items())
+                  + "; the phase's K1 launches "
+                  f"{totals['K1']}", flush=True)
+        finally:
+            for stop_fn in reversed(stack):
+                try:
+                    stop_fn()
+                except Exception as e:  # noqa: BLE001 — stop the rest
+                    print(f"controller_ha: stopping: {e!r}", file=sys.stderr)
+    return {"failover_s": [kill_s, pause_s], "querier": querier_figures,
+            "launches": totals, "in_situ": in_situ}
+
+
 # the deployments of tools/drive_*.py, in the order main runs them
-DRIVES = ("hundredm", "crash", "rf2", "migrate", "soak")
+DRIVES = ("hundredm", "crash", "rf2", "migrate", "soak", "controller_ha")
 
 
 MEASURED = ("max_abs_err", "ms", "kernel_ms", "wall_ms", "plain_ms",
@@ -5718,8 +6193,12 @@ def main(argv=None) -> int:
             if name != "hundredm":
                 figures[name] = timed(
                     {"crash": phase_crash, "rf2": phase_rf2,
-                     "migrate": phase_migrate_live,
-                     "soak": phase_soak}[name], args.seed)
+                     "migrate": phase_migrate_live, "soak": phase_soak,
+                     "controller_ha": phase_controller_ha}[name], args.seed)
+                for k, n in figures[name].pop("launches", {}).items():
+                    launches[k] += n
+                for k, ms_ in figures[name].pop("in_situ", {}).items():
+                    in_situ[k].update(ms_)
                 continue
             got, ms_, _ = timed(phase_hundredm, args.hundredm_rows,
                                 HUNDREDM_SEED,

@@ -7,6 +7,13 @@ test_etcd_kvstore.py's contract against its fake etcd gateway), the HA
 controllers with their failover session, the broker's shard assignment,
 the controller's skew-aware rebalance and the consistent-hash ring: the
 port's answer must equal the JAX package's on the same inputs.
+
+Two controller-failover faults the port repairs and the JAX package keeps
+(ROADMAP section 3): a promoted controller lists no live instance until
+each one's next heartbeat, and a leader that lost its lease still takes a
+write and its snapshot erases its successor's. Their tests run the same
+scenario through both packages' controllers and hold each to its own
+answer.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from aresdb_tpu.broker import executor as jax_executor
 from aresdb_tpu.broker import validator as jax_validator
 from aresdb_tpu.cluster import topology as jax_topology
 from aresdb_tpu.controller import state as jax_state
+from aresdb_tpu.controller.server import \
+    ControllerServer as JaxControllerServer
 from aresdb_tpu.utils import consistent_hashing as jax_hashing
 from aresdb_tpu_torch.broker import executor as X
 from aresdb_tpu_torch.broker import validator as V
@@ -276,6 +285,97 @@ def test_failover_session_follows_the_leader(ha_pair):
     assert r.status_code == 200
     assert [t["name"] for t in r.json()] == ["trips"]
     assert parse_addresses("a:1, b:2 ,c:3") == ["a:1", "b:2", "c:3"]
+
+
+# -- the two failover faults --------------------------------------------------
+
+def _paused_leader(pkg, root):
+    """Two controllers of `pkg` ("jax" or "torch") on one root, the
+    namespace prod and the instance dn0 taken by the leader; then the
+    leader's elector stopped without resigning (a pause) and the other
+    promoted. Returns (old leader, new leader, session); the caller stops
+    both servers."""
+    server, state = ((JaxControllerServer, jax_state.ControllerState)
+                     if pkg == "jax" else (ControllerServer,
+                                           S.ControllerState))
+    servers = [server(state(root), instance_name=name, elect=True,
+                      lease_ttl=TTL) for name in ("c1", "c2")]
+    for srv in servers:
+        srv.start_background()
+    s = Session()
+    assert wait_for(lambda: sum(x.elector.is_leader for x in servers) == 1)
+    old = _leader(servers)
+    new = _leader(servers, False)
+    base = f"http://localhost:{old.port}"
+    assert s.post(f"{base}/namespaces",
+                  json={"namespace": "prod"}).status_code == 200
+    assert s.post(f"{base}/membership/prod/instances", json={
+        "name": "dn0", "host": "localhost", "port": 1}).status_code == 200
+    assert s.get(f"{base}/membership/prod/instances").json() == {
+        "dn0": {"host": "localhost", "port": 1}}
+    old.elector._stop.set()
+    old.elector._thread.join()
+    assert wait_for(lambda: new.elector.is_leader, timeout=TTL * 8)
+    return old, new, s
+
+
+def _stop_all(*servers):
+    for srv in servers:
+        srv.stop()
+
+
+@pytest.mark.parametrize("pkg", ("jax", "torch"))
+def test_a_promoted_controller_lists_the_live_instances(pkg, tmp_path):
+    """The leader pauses and the other controller is promoted: the JAX
+    package's lists no instance until each one's next heartbeat (its
+    reload rebuilds every instance with no heartbeat), the port's lists
+    dn0, alive for a heartbeat timeout from the promotion."""
+    old, new, s = _paused_leader(pkg, str(tmp_path))
+    try:
+        got = s.get(f"http://localhost:{new.port}/membership/prod/instances")
+        assert got.status_code == 200
+        want = {} if pkg == "jax" else {
+            "dn0": {"host": "localhost", "port": 1}}
+        assert got.json() == want
+    finally:
+        _stop_all(old, new)
+
+
+@pytest.mark.parametrize("pause", ("before the request",
+                                   "between the check and the write"))
+@pytest.mark.parametrize("pkg", ("jax", "torch"))
+def test_a_stale_leader_cannot_overwrite_its_successor(pkg, pause, tmp_path):
+    """After the promotion the new leader takes table t_new, then the old
+    one is asked for t_stale. The JAX package's old leader still reads as
+    leader and takes it, and its snapshot erases t_new. The port's answers
+    503 with the new leader's address: its lease lapsed by its own clock
+    (a pause before the request), or, where the request passed that check
+    (a pause between the check and the write), the lease's fence refuses
+    the snapshot; state.json keeps t_new."""
+    old, new, s = _paused_leader(pkg, str(tmp_path))
+    try:
+        if pause != "before the request" and pkg == "torch":
+            old.elector._valid_until = time.monotonic() + 60
+            assert old.elector.is_leader
+        table = {"columns": [{"name": "id", "type": "Uint32"}],
+                 "primaryKeyColumns": [0], "isFactTable": False,
+                 "config": {"batchSize": 64}}
+        assert s.post(f"http://localhost:{new.port}/schema/prod/tables",
+                      json=dict(table, name="t_new")).status_code == 200
+        r = s.post(f"http://localhost:{old.port}/schema/prod/tables",
+                   json=dict(table, name="t_stale"))
+        with open(tmp_path / "state.json") as f:
+            on_disk = sorted(json.load(f)["prod"]["tables"])
+        if pkg == "jax":
+            assert r.status_code == 200
+            assert on_disk == ["t_stale"]
+        else:
+            assert r.status_code == 503
+            assert r.json() == {"message": "not leader",
+                                "leader": f"localhost:{new.port}"}
+            assert on_disk == ["t_new"]
+    finally:
+        _stop_all(old, new)
 
 
 # -- placement ---------------------------------------------------------------

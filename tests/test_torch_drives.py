@@ -5,8 +5,10 @@ on the card as phases of its own: phase_hundredm (drive_100m: a
 MemStore under a host budget that evicts), phase_crash (drive_crash: a
 SIGKILLed daemon), phase_rf2 (drive_rf2: replica factor 2, a node
 killed), phase_migrate_live (drive_migrate_live: a shard moved under
-ingest and archiving) and phase_soak (drive_soak: writes, re-upserts,
-queries and jobs at once). Each runs here at a small size on `cpu`, its
+ingest and archiving), phase_soak (drive_soak: writes, re-upserts,
+queries and jobs at once) and phase_controller_ha (drive_controller_ha:
+the leader of two controller processes SIGKILLed, then the other
+SIGSTOPped, under a querier). Each runs here at a small size on `cpu`, its
 own checks asserting inside it, with the kernel wrappers counting their
 plain versions as launches (the `cpu_rehearsal` fixture of
 test_torch_chip_smoke.py, imported). phase_hundredm's seven answers are held
@@ -216,6 +218,26 @@ def test_phase_migrate_live_moves_a_shard_with_no_row_lost(cpu_rehearsal,
                   moves=S.MIGRATE_MOVES[:1], settle_s=1.0)
     assert len(got["moves"]) == 1 and got["acked"] > 0
     assert "no row lost or duplicated" in capsys.readouterr().out
+
+
+def test_phase_controller_ha_fails_over_with_no_row_lost(cpu_rehearsal,
+                                                         capsys):
+    """Two controller processes in an election, dn0 and dn1 in this
+    process on `cpu` (16,384 rows a shard): the querier counts no error
+    and no wrong answer while the leader is SIGKILLed, rows are added,
+    the killed one restarts and takes over from the other, SIGSTOPped;
+    the paused controller answers a write 503 on waking, and the new
+    leader lists the three tables. On the parent tree the promoted
+    controller listed no datanode, and the querier's answers failed."""
+    got = _within(150, S.phase_controller_ha, 0, device="cpu",
+                  shard_rows=1 << 14, timeout=60)
+    assert len(got["failover_s"]) == 2
+    assert all(0 < s <= 30 for s in got["failover_s"])
+    q = got["querier"]
+    assert q["pairs"] > 0 and q["errors"] == 0 and q["wrong"] == 0
+    out = capsys.readouterr().out
+    assert "answers stale_write 503" in out
+    assert "['cities', 'during_pause', 'trips']" in out
 
 
 def test_phase_soak_meets_the_oracle(cpu_rehearsal, capsys):
