@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional
 from urllib.parse import parse_qs, unquote, urlsplit
 
 from aresdb_tpu_torch.utils import metrics as M
+from aresdb_tpu_torch.utils import tracing
 
 _LOG = logging.getLogger("aresdb_tpu_torch.api")
 _CONTROL_CHARS = re.compile(r"[\x00-\x08\x0e-\x1f]")
@@ -115,7 +116,8 @@ class Handler:
     def write_json(self, obj, status: int = 200):
         self.set_status(status)
         self.set_header("Content-Type", "application/json")
-        self.finish(json.dumps(obj, default=str))
+        with tracing.span("respond"):
+            self.finish(json.dumps(obj, default=str))
 
     def write_error_json(self, status: int, message: str):
         self.write_json({"message": message}, status=status)
@@ -194,17 +196,28 @@ class _HTTPHandler(BaseHTTPRequestHandler):
     disable_nagle_algorithm = True
 
     def _serve(self):
-        n = int(self.headers.get("Content-Length") or 0)
-        body = self.rfile.read(n) if n > 0 else b""
-        request = Request(self.command, self.path, self.headers, body)
-        handler = dispatch(self.server.ctx, request, self.server.routes)
-        self.send_response(handler.status, handler.reason)
-        for k, v in handler.headers.items():
-            self.send_header(k, v)
-        self.send_header("Content-Length", str(len(handler.out)))
-        self.end_headers()
-        if self.command != "HEAD":
-            self.wfile.write(handler.out)
+        """One request, in an `http` span from the body's read to the
+        answer's write (the root of the request's trace, its id the
+        `X-Request-ID` header where one is sent), the write a `respond`
+        span."""
+        with tracing.span("http") as span:
+            if span is not None:
+                span.trace = self.headers.get("X-Request-ID") or span.trace
+            n = int(self.headers.get("Content-Length") or 0)
+            body = self.rfile.read(n) if n > 0 else b""
+            request = Request(self.command, self.path, self.headers, body)
+            handler = dispatch(self.server.ctx, request, self.server.routes)
+            with tracing.span("respond"):
+                self.send_response(handler.status, handler.reason)
+                for k, v in handler.headers.items():
+                    self.send_header(k, v)
+                self.send_header("Content-Length", str(len(handler.out)))
+                self.end_headers()
+                if self.command != "HEAD":
+                    self.wfile.write(handler.out)
+            if span is not None:
+                span.attrs.update(handler=type(handler).__name__,
+                                  status=handler.status)
 
     do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = do_PATCH = \
         do_OPTIONS = _serve

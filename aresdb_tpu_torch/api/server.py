@@ -19,6 +19,7 @@ the JAX package runs them one at a time on its IOLoop.
 
 from __future__ import annotations
 
+import contextvars
 import json
 import os
 import tempfile
@@ -37,6 +38,7 @@ from aresdb_tpu_torch.query.admission import (DeviceMemoryManager,
                                               DevicePool)
 from aresdb_tpu_torch.query.service import QueryService
 from aresdb_tpu_torch.utils import metrics as M
+from aresdb_tpu_torch.utils import tracing
 from aresdb_tpu_torch.utils.torch_env import resolve_device
 
 QUERY_WORKERS = 8
@@ -56,8 +58,20 @@ class _Base(Handler):
         return self.json_body()
 
     def run_query(self, fn, *args):
-        """fn(*args) on the query pool, waited for."""
-        return self.ctx.query_pool.submit(fn, *args).result()
+        """fn(*args) on the query pool, waited for. While tracing, its
+        wait for a worker is a `queue` span and the call a `service` span,
+        both under this request's: the worker runs in a copy of this
+        thread's context, which a pool thread does not inherit."""
+        if not tracing.active:
+            return self.ctx.query_pool.submit(fn, *args).result()
+        queued = tracing.begin("queue")
+
+        def call():
+            tracing.finish(queued)
+            with tracing.span("service"):
+                return fn(*args)
+        return self.ctx.query_pool.submit(
+            contextvars.copy_context().run, call).result()
 
 
 class ServerContext:
@@ -99,6 +113,7 @@ class ServerContext:
         self.profiler_thread = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="ares-profiler")
         self.profiler = None
+        self.trace_dir = None   # where /dbg/trace/stop writes
         self.lock = threading.Lock()
         self.metrics = M.root()
 
@@ -733,6 +748,37 @@ class BootstrapRetryHandler(_Base):
         self.write_json({"retried": retried})
 
 
+class TraceHandler(_Base):
+    """The daemon's own spans (`utils/tracing.py`), each request's from
+    the HTTP read to the card's wait: start records them; stop writes them
+    as a Chrome trace JSON, in CLOCK_MONOTONIC microseconds, into the
+    directory start was given. Starting twice, stopping with none started,
+    or a directory that cannot be made is a 400, before any span is
+    spent."""
+
+    serialized = True
+
+    def post(self, action: str):
+        if action == "start":
+            d = self.json_body().get(
+                "dir", os.path.join(tempfile.gettempdir(), "ares-spans"))
+            try:
+                os.makedirs(d, exist_ok=True)
+                tracing.start(tracing.DEFAULT_CAPACITY)
+            except (OSError, RuntimeError) as e:
+                return self.write_error_json(400, str(e))
+            self.ctx.trace_dir = d
+            return self.write_json({"message": f"spans to {d}"})
+        try:
+            spans = tracing.stop()
+        except RuntimeError as e:
+            return self.write_error_json(400, str(e))
+        path = tracing.write_chrome_trace(spans, self.ctx.trace_dir,
+                                          tracing.dropped())
+        self.write_json({"message": "spans written", "path": path,
+                         "spans": len(spans), "dropped": tracing.dropped()})
+
+
 class ProfilerHandler(_Base):
     """torch.profiler capture (parity: cudaProfilerStart/Stop via
     /dbg/profiler, reference cgoutils/memory.go:160 + debug_handler): start
@@ -1047,6 +1093,8 @@ def _openapi_spec() -> dict:
                 "look up a primary key (?key=v1,v2)")},
             "/dbg/profiler/{action}": {"post": op(
                 "start|stop a torch profiler trace")},
+            "/dbg/trace/{action}": {"post": op(
+                "start|stop recording the daemon's spans")},
             "/health/{onOrOff}": {"post": op(
                 "drain switch for the liveness probe")},
             "/dbg/{table}/{shard}/batches/{batch}": {"get": op(
@@ -1232,6 +1280,7 @@ ROUTES = (
     (r"/dbg/device-cache", DeviceCacheDebugHandler),
     (r"/dbg/bootstrap/retry", BootstrapRetryHandler),
     (r"/dbg/profiler/(start|stop)", ProfilerHandler),
+    (r"/dbg/trace/(start|stop)", TraceHandler),
     (r"/dbg/?", DebugUIHandler),
     (r"/swagger.json", SwaggerHandler),
     (r"/dbg/([^/]+)/(\d+)", ShardDebugHandler),

@@ -12,7 +12,7 @@ import traceback
 from typing import Dict, List, Optional
 
 from aresdb_tpu_torch.memstore.archiving import Archiver
-from aresdb_tpu_torch.utils import clock
+from aresdb_tpu_torch.utils import clock, tracing
 
 JOB_TYPES = ("archiving", "backfill", "snapshot", "purge")
 
@@ -122,7 +122,15 @@ class Scheduler:
 
     def run_job(self, table: str, shard_id: int, jobtype: str,
                 now: Optional[int] = None):
-        """Execute one job immediately (also the debug-endpoint entry)."""
+        """Execute one job immediately (also the debug-endpoint entry), in
+        a `job` span with its kind, table and shard."""
+        with tracing.span("job") as span:
+            if span is not None:
+                span.attrs.update(kind=jobtype, table=table, shard=shard_id)
+            return self._run_job(table, shard_id, jobtype, now)
+
+    def _run_job(self, table: str, shard_id: int, jobtype: str,
+                 now: Optional[int]):
         now = now or clock.now_unix()
         shard = self.memstore.get_table_shard(table, shard_id)
         archiver = Archiver(shard, self.memstore.metastore,

@@ -13,6 +13,7 @@ dict, not per-value interpretation.
 
 from __future__ import annotations
 
+import contextvars
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -35,7 +36,7 @@ from aresdb_tpu_torch.memstore.primary_key import (
     build_keys,
     key_columns_from_batch_columns,
 )
-from aresdb_tpu_torch.utils import clock
+from aresdb_tpu_torch.utils import clock, tracing
 
 
 class IngestionStats:
@@ -167,6 +168,18 @@ class TableShard:
                           recovery: bool = False,
                           redo_file: int = 0, batch_offset: int = 0
                           ) -> IngestionStats:
+        """Apply one upsert batch (and, unless recovering, append it to
+        the redo log), in a `saveUpsertBatch` span over `redoLogAppend`
+        and `applyUpsertBatch`."""
+        with tracing.span("saveUpsertBatch") as span:
+            if span is not None:
+                span.attrs.update(rows=batch.num_rows, recovery=recovery)
+            return self._save_upsert_batch(batch, recovery, redo_file,
+                                           batch_offset)
+
+    def _save_upsert_batch(self, batch: UpsertBatch, recovery: bool,
+                           redo_file: int, batch_offset: int
+                           ) -> IngestionStats:
         from aresdb_tpu_torch.utils import metrics as M
 
         t_lock = clock.now()
@@ -190,13 +203,16 @@ class TableShard:
 
                 def _append():
                     try:
-                        wal_out.append(self.redolog_manager.append(
-                            batch.buffer, max_et))
+                        with tracing.span("redoLogAppend"):
+                            wal_out.append(self.redolog_manager.append(
+                                batch.buffer, max_et))
                     except BaseException as e:  # noqa: BLE001
                         wal_out.append(e)
 
-                wal_thread = _threading.Thread(target=_append,
-                                               name="wal-append")
+                # the append's span lies under this batch's
+                wal_thread = _threading.Thread(
+                    target=contextvars.copy_context().run, args=(_append,),
+                    name="wal-append")
                 wal_thread.start()
 
             def redo_pos():
@@ -209,10 +225,10 @@ class TableShard:
                 return redo_file, batch_offset
 
             try:
-                stats = self.apply_upsert_batch(batch, recovery=recovery,
-                                                redo_file=redo_file,
-                                                batch_offset=batch_offset,
-                                                redo_pos=redo_pos)
+                with tracing.span("applyUpsertBatch"):
+                    stats = self.apply_upsert_batch(
+                        batch, recovery=recovery, redo_file=redo_file,
+                        batch_offset=batch_offset, redo_pos=redo_pos)
             except Exception:
                 if wal_thread is not None:
                     wal_thread.join()

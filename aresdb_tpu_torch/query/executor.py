@@ -78,6 +78,7 @@ from aresdb_tpu_torch.query.kernels import (
     dense_signature, np_pack_dim_keys, pack_modes, plan_signature,
     round_up_pow2)
 from aresdb_tpu_torch.utils import metrics as M
+from aresdb_tpu_torch.utils import tracing
 from aresdb_tpu_torch.utils.torch_env import fetch_to_host
 
 DEFAULT_GROUP_CAPACITY = 4096
@@ -144,6 +145,8 @@ class DeviceColumnCache:
                 self._entries.move_to_end(key)
                 self.hits += 1
                 return hit
+        if tracing.active:
+            tracing.add("cacheMisses")
         entry = stage_fn()
         nbytes = self._entry_bytes(entry)
         with self._lock:
@@ -168,6 +171,12 @@ class DeviceColumnCache:
         with self._lock:
             return {"entries": len(self._entries), "bytes": self._bytes,
                     "hits": self.hits, "misses": self.misses}
+
+
+def _nbytes(columns) -> int:
+    """The bytes of a batch's staged (values, validity) column pairs."""
+    return sum(t.numel() * t.element_size()
+               for pair in columns.values() for t in pair)
 
 
 GLOBAL_DEVICE_CACHE = DeviceColumnCache()
@@ -438,19 +447,7 @@ class ShardExecutor:
                       "peakBatchStagedBytes": 0, "overflowReruns": 0,
                       "ladderReruns": 0}
         fetches0 = fetch_to_host.calls
-
-        class _Stage:
-            def __init__(self, name):
-                self.name = name
-
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-
-            def __exit__(self, *a):
-                plan.stats[self.name] = plan.stats.get(self.name, 0.0) + (
-                    time.perf_counter() - self.t0)
-
-        with _Stage("foreignTransfer"):
+        with tracing.stage(plan.stats, "foreignTransfer"):
             foreign = self._stage_foreign_tables(plan)
             plan._exec_geo = self._stage_geo(plan)
         plan.stats["stagedBytes"] = sum(
@@ -471,28 +468,37 @@ class ShardExecutor:
         plan._exec_dense_dev = {}
         plan._exec_sort_pending = []
         plan._exec_hll_pending = []
+        # one span a batch for each while tracing; the last `transfer`
+        # of a shard ends its batches
+        transfer = tracing.stage(plan.stats, "transfer")
+        batch_exec = tracing.stage(plan.stats, "batchExec")
         for shard_id in shards:
             shard = self.memstore.get_table_shard(
                 plan.main_schema.table.name, shard_id)
             it = self._iter_batches(plan, shard, stat_keys)
             while True:
-                with _Stage("transfer"):
+                with transfer as span:
                     try:
                         (batch_cols, n_valid, n_padded, stats, cutoff,
                          runinfo) = next(it)
                     except StopIteration:
                         break
-                with _Stage("batchExec"):
-                    self._run_agg_batch(plan, foreign, batch_cols, n_valid,
-                                        n_padded, stats, cutoff, runinfo)
+                    if span is not None:
+                        span.attrs.update(rows=n_valid,
+                                          stagedBytes=_nbytes(batch_cols))
+                with batch_exec as span:
+                    route = self._run_agg_batch(plan, foreign, batch_cols,
+                                                n_valid, n_padded, stats,
+                                                cutoff, runinfo)
+                    if span is not None:
+                        span.attrs["route"] = route
                 plan.stats["batches"] += 1
                 plan.stats["rows_scanned"] += n_valid
-                nb = sum(t.numel() * t.element_size()
-                         for pair in batch_cols.values() for t in pair)
+                nb = _nbytes(batch_cols)
                 plan.stats["stagedBytes"] += nb
                 plan.stats["peakBatchStagedBytes"] = max(
                     plan.stats["peakBatchStagedBytes"], nb)
-        with _Stage("resultFetch"):
+        with tracing.stage(plan.stats, "resultFetch"):
             self._resolve_pending(plan, table)
             self._resolve_sort_pending(plan, table)
             self._resolve_hll_pending(plan, table)
@@ -566,6 +572,8 @@ class ShardExecutor:
                                             stat_keys)
             M.root().count(M.QUERY_LIVE_BATCH_PROCESSED, 1)
             M.root().count(M.QUERY_LIVE_RECORDS_PROCESSED, staged[1])
+            if tracing.active:
+                tracing.note(store="live")
             yield staged + (live_cutoff, None)
 
         # archive batches (fact tables), day-ranged by the time filter only
@@ -586,6 +594,8 @@ class ShardExecutor:
                                                     stat_keys, plan):
                 M.root().count(M.QUERY_ARCHIVE_BATCH_PROCESSED, 1)
                 M.root().count(M.QUERY_ARCHIVE_RECORDS_PROCESSED, staged[1])
+                if tracing.active:
+                    tracing.note(store="archive")
                 yield staged[:4] + (0, staged[4])
 
     @staticmethod
@@ -891,29 +901,31 @@ class ShardExecutor:
         return columns, tuple(probe for probe, _ in foreign)
 
     def _run_agg_batch(self, plan, foreign, batch_cols, n_valid, n_padded,
-                       batch_stats=None, live_cutoff=0, runinfo=None):
+                       batch_stats=None, live_cutoff=0, runinfo=None) -> str:
+        """Run one batch; the route it took: hll, runlen, mesh, sort or
+        dense."""
         columns, foreign_idx = self._with_foreign(plan, foreign, batch_cols)
         if plan.measure.agg == "hll":
             self._run_hll_batch(plan, columns, foreign_idx, n_valid,
                                 n_padded, live_cutoff)
-            return
+            return "hll"
         if runinfo is not None:
             self._run_runlen_batch(plan, columns, foreign_idx, n_valid,
                                    n_padded, runinfo)
-            return
+            return "runlen"
         # mesh batches (ARES_MESH=1): the batch's rows over every mesh
         # device, their partial group tables merged on the first; geo
         # shapes and joined tables go whole, array stagings split by rows
         if os.environ.get("ARES_MESH") == "1" and self._mesh_batch(
                 self._run_mesh_batch, plan, columns, foreign_idx, n_valid,
                 n_padded, live_cutoff):
-            return
+            return "mesh"
         # dense slot aggregation when every dim is bounded, else the sort
         dense_plan = plan_dense(plan, batch_stats)
         if dense_plan is None:
             self._run_sort_batch(plan, columns, foreign_idx, n_valid,
                                  n_padded, live_cutoff)
-            return
+            return "sort"
         kernel = self.kernel_cache.dense_agg_kernel(plan, n_padded,
                                                     dense_plan, self.device)
         dense_sig = dense_signature(dense_plan)
@@ -926,6 +938,7 @@ class ShardExecutor:
         plan._exec_dense_dev[dense_sig] = (dense_plan, folded)
         plan._exec_pending.append(
             (overflow, columns, foreign_idx, n_valid, n_padded, live_cutoff))
+        return "dense"
 
     def _mesh_batch(self, run, *args) -> bool:
         """Run one batch on the mesh (`run` is _run_mesh_batch or
@@ -958,10 +971,8 @@ class ShardExecutor:
         rows_per_device = n_padded // len(devs)
         key = (make_kernel.__name__, plan_signature(plan), rows_per_device,
                k_groups, tuple(str(d) for d in devs))
-        fn = self.kernel_cache._cache.get(key)
-        if fn is None:
-            fn = make_kernel(plan, rows_per_device, k_groups, devs)
-            self.kernel_cache._cache[key] = fn
+        fn = self.kernel_cache.get(key, make_kernel, plan, rows_per_device,
+                                   k_groups, devs)
         out = fn(columns, foreign_idx,
                  S.per_shard_valid(int(n_valid), len(devs), rows_per_device),
                  live_cutoff)

@@ -694,9 +694,10 @@ def _launcher() -> ctypes.CDLL:
 def structure_kernel(spec: FusedSpec, device: torch.device) -> int:
     """The loaded kernel (a cudaKernel_t) of this plan structure: its cubin
     built if needed (the launcher too, both at once, where neither is
-    built yet) and loaded once a process; every window and column range of
-    the structure shares it. Raises where a build, the load or the check
-    of its parameters fails."""
+    built yet) and loaded once a process, a `kernelBuild` of kind
+    "nvrtc"; every window and column range of the structure shares it.
+    Raises where a build, the load or the check of its parameters
+    fails."""
     def load():
         cuda_build.build_all([launcher_item(), build_item(spec.source)])
         image = cuda_build.load_cubin(*build_item(spec.source)[:2])
@@ -713,7 +714,8 @@ def structure_kernel(spec: FusedSpec, device: torch.device) -> int:
             raise RuntimeError(f"fused_dense: loading the cubin failed: CUDA "
                                f"error {rc}")
         return handle.value
-    return cuda_build.cached(("fused_dense kernel", spec.source), load)
+    return cuda_build.cached(("fused_dense kernel", spec.source),
+                             lambda: K.build_kernel("nvrtc", load))
 
 
 def kernel_usage(kernel: int, device: torch.device) -> dict:

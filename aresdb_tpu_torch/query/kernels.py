@@ -45,6 +45,8 @@ from aresdb_tpu_torch.query import geo as G
 from aresdb_tpu_torch.query import hll as H
 from aresdb_tpu_torch.query import pallas_ops as P
 from aresdb_tpu_torch.query.compiler import CompiledQuery, QueryError
+from aresdb_tpu_torch.utils import metrics as M
+from aresdb_tpu_torch.utils import tracing
 from aresdb_tpu_torch.utils.torch_env import fetch_to_host
 
 _F32_MAX = float(np.finfo(np.float32).max)
@@ -1843,57 +1845,60 @@ def dense_signature(dense_plan) -> tuple:
         for d in dense_plan.domains)
 
 
+def build_kernel(kind: str, make, *args):
+    """make(*args), a kernel built in a `kernelBuild` span, counted in
+    `query.kernel_builds` and timed in `query.kernel_build` (tag: kind)."""
+    tags = {"kind": kind}
+    with M.root().timer(M.QUERY_KERNEL_BUILD, tags), \
+            tracing.span("kernelBuild", kind=kind):
+        fn = make(*args)
+    M.root().count(M.QUERY_KERNEL_BUILDS, tags=tags)
+    return fn
+
+
 class KernelCache:
     def __init__(self):
         self._cache: Dict[Tuple, object] = {}
 
-    def dense_agg_kernel(self, plan: CompiledQuery, n_rows: int, dense_plan,
-                         device: torch.device):
-        key = ("dense", plan_signature(plan), n_rows,
-               dense_signature(dense_plan), str(device))
+    def get(self, key: Tuple, make, *args):
+        """The kernel under key (its kind first), built by make(*args) on
+        a miss."""
         fn = self._cache.get(key)
         if fn is None:
-            fn = make_dense_agg_kernel(plan, n_rows, dense_plan, device)
-            self._cache[key] = fn
+            fn = self._cache[key] = build_kernel(key[0], make, *args)
         return fn
+
+    def dense_agg_kernel(self, plan: CompiledQuery, n_rows: int, dense_plan,
+                         device: torch.device):
+        return self.get(("dense", plan_signature(plan), n_rows,
+                         dense_signature(dense_plan), str(device)),
+                        make_dense_agg_kernel, plan, n_rows, dense_plan,
+                        device)
 
     def agg_kernel(self, plan: CompiledQuery, n_rows: int, k_groups: int,
                    device: torch.device):
-        key = ("agg", plan_signature(plan), n_rows, k_groups, str(device))
-        fn = self._cache.get(key)
-        if fn is None:
-            fn = make_agg_kernel(plan, n_rows, k_groups, device)
-            self._cache[key] = fn
-        return fn
+        return self.get(("agg", plan_signature(plan), n_rows, k_groups,
+                         str(device)),
+                        make_agg_kernel, plan, n_rows, k_groups, device)
 
     def select_kernel(self, plan: CompiledQuery, n_rows: int, top_l: int,
                       device: torch.device):
-        key = ("sel", plan_signature(plan), n_rows, top_l, str(device))
-        fn = self._cache.get(key)
-        if fn is None:
-            fn = make_select_kernel(plan, n_rows, top_l, device)
-            self._cache[key] = fn
-        return fn
+        return self.get(("sel", plan_signature(plan), n_rows, top_l,
+                         str(device)),
+                        make_select_kernel, plan, n_rows, top_l, device)
 
     def hll_kernel(self, plan: CompiledQuery, n_rows: int, k_groups: int,
                    device: torch.device):
-        key = ("hll", plan_signature(plan), n_rows, k_groups, str(device))
-        fn = self._cache.get(key)
-        if fn is None:
-            fn = make_hll_kernel(plan, n_rows, k_groups, device)
-            self._cache[key] = fn
-        return fn
+        return self.get(("hll", plan_signature(plan), n_rows, k_groups,
+                         str(device)),
+                        make_hll_kernel, plan, n_rows, k_groups, device)
 
     def runlen_kernel(self, plan: CompiledQuery, n_rows: int, n_runs: int,
                       k_groups: int, spec, device: torch.device):
-        key = ("runlen", plan_signature(plan), n_rows, n_runs, k_groups,
-               spec.key(), str(device))
-        fn = self._cache.get(key)
-        if fn is None:
-            fn = make_runlen_agg_kernel(plan, n_rows, n_runs, k_groups, spec,
-                                        device)
-            self._cache[key] = fn
-        return fn
+        return self.get(("runlen", plan_signature(plan), n_rows, n_runs,
+                         k_groups, spec.key(), str(device)),
+                        make_runlen_agg_kernel, plan, n_rows, n_runs,
+                        k_groups, spec, device)
 
 
 def round_up_pow2(n: int, minimum: int = 1024) -> int:

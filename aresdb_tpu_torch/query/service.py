@@ -37,6 +37,7 @@ from aresdb_tpu_torch.query.executor import ShardExecutor
 from aresdb_tpu_torch.query.postprocess import (build_agg_result,
                                                 build_non_agg_result)
 from aresdb_tpu_torch.query.sql import SQLParseError, parse_sql
+from aresdb_tpu_torch.utils import tracing
 from aresdb_tpu_torch.utils.torch_env import resolve_device
 
 
@@ -202,15 +203,16 @@ class QueryService:
             plan.deadline = time.time() + self.query_timeout
         if self.device_pool is None and self.device_manager is None:
             return contextlib.nullcontext()
-        reserved = estimate_query_memory(plan, self.memstore)
-        plan.memory_required = reserved
-        if timeout is None or timeout <= 0:
-            timeout = self.admission_timeout
-        if self.device_pool is not None:
-            return self.device_pool.acquire(
-                reserved, timeout=timeout,
-                preferred=device if device >= 0 else None)
-        self.device_manager.reserve(reserved, timeout=timeout)
+        with tracing.span("admission"):
+            reserved = estimate_query_memory(plan, self.memstore)
+            plan.memory_required = reserved
+            if timeout is None or timeout <= 0:
+                timeout = self.admission_timeout
+            if self.device_pool is not None:
+                return self.device_pool.acquire(
+                    reserved, timeout=timeout,
+                    preferred=device if device >= 0 else None)
+            self.device_manager.reserve(reserved, timeout=timeout)
 
         @contextlib.contextmanager
         def _held():
@@ -237,19 +239,18 @@ class QueryService:
              admission_timeout: Optional[float] = None):
         compiler = Compiler(self.memstore.get_schemas(),
                             timezone_table=self.timezone_table)
-        t0 = time.perf_counter()
-        plan = compiler.compile(q)
-        plan.data_only = data_only
-        compile_s = time.perf_counter() - t0
+        compiled = {}   # the executor starts plan.stats afresh
+        with tracing.stage(compiled, "compile"):
+            plan = compiler.compile(q)
+            plan.data_only = data_only
         table, rows = self._execute(plan, device=device,
                                     timeout=admission_timeout)
-        plan.stats["compile"] = compile_s
+        plan.stats["compile"] = compiled["compile"]
         if getattr(plan, "memory_required", None) is not None:
             plan.stats["memoryRequired"] = plan.memory_required
-        t0 = time.perf_counter()
-        if plan.is_non_agg:
-            result = build_non_agg_result(plan, rows)
-        else:
-            result = build_agg_result(plan, table)
-        plan.stats["postprocess"] = time.perf_counter() - t0
+        with tracing.stage(plan.stats, "postprocess"):
+            if plan.is_non_agg:
+                result = build_non_agg_result(plan, rows)
+            else:
+                result = build_agg_result(plan, table)
         return result, plan

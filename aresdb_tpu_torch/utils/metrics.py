@@ -158,6 +158,11 @@ TIME_SER_DE_DATA_NODE_RESPONSE = _d("TimeSerDeDataNodeResponse", "time_serde_res
 # back-compat aliases (round-1/2 call sites)
 QUERY_WAIT_FOR_MEMORY = QUERY_WAIT_FOR_MEMORY_DURATION
 
+# the port's own series, outside the reference's catalog: a kernel built
+# on a kernel-cache miss or a plan structure's NVRTC compile (tag: kind)
+QUERY_KERNEL_BUILDS = "query.kernel_builds"
+QUERY_KERNEL_BUILD = "query.kernel_build"
+
 
 class _Timer:
     def __init__(self, registry: "MetricsRegistry", name: str, tags):

@@ -13,15 +13,21 @@ from typing import List
 import numpy as np
 import torch
 
+from aresdb_tpu_torch.utils import tracing
+
 
 def fetch_to_host(tensors: List[torch.Tensor]) -> List[np.ndarray]:
     """Every tensor's values on the host through ONE device-to-host copy:
     the tensors' bytes are packed into one buffer on their device.
-    `fetch_to_host.calls` counts the copies."""
+    `fetch_to_host.calls` counts the copies. The copy waits for the card
+    to finish the kernels queued before it: a `deviceWait` span."""
     if not tensors:
         return []
     flat = [t.detach().contiguous().reshape(-1) for t in tensors]
-    packed = torch.cat([t.view(torch.uint8) for t in flat]).cpu().numpy()
+    packed = torch.cat([t.view(torch.uint8) for t in flat])
+    with tracing.span("deviceWait"):
+        packed = packed.cpu()
+    packed = packed.numpy()
     fetch_to_host.calls += 1
     out, off = [], 0
     for t, f in zip(tensors, flat):

@@ -17,7 +17,8 @@ and not on the server, are named by each case's `drop`:
   /dbg/device-cache values (cache bytes, hits and misses of the process)
   /dbg/device       budgetBytes (16 GiB on the port's CPU, the JAX
                     backend's limit on its own)
-  /swagger.json     the two summaries that name the JAX or torch runtime
+  /swagger.json     the two summaries that name the JAX or torch runtime,
+                    and the port's own /dbg/trace
   /dbg              the page (its labels name the runtime)
 The tables are named srvd_* so that no other test file's table of one
 name shares a JAX kernel with them (ROADMAP section 3).
@@ -190,6 +191,7 @@ def _drop_budget(body):
 def _drop_runtime_labels(body):
     body["paths"]["/dbg/devices"]["get"].pop("summary")
     body["paths"]["/dbg/profiler/{action}"]["post"].pop("summary")
+    body["paths"].pop("/dbg/trace/{action}", None)
     return body
 
 
@@ -213,16 +215,18 @@ def _first_upsert_rows(body):
 
 
 def _case(name, method, path, body=None, headers=None, drop=None,
-          capture=None, compare=True, reference_fault=None):
+          capture=None, compare=True, reference_fault=None, port_only=None):
     """One scripted request. body: a dict or list (sent as JSON), bytes or
     None. drop: body -> body with the environment's fields left out.
     capture: body -> {name: value}, formatted into this server's later
     paths. compare: False compares the status and Content-Type only.
     reference_fault: a check of the port's JSON answer where the JAX
-    server answers 500 (a fault of the reference)."""
+    server answers 500 (a fault of the reference). port_only: the port's
+    status on a route of its own, which the JAX server answers 404."""
     return {"name": name, "method": method, "path": path, "body": body,
             "headers": headers or {}, "drop": drop, "capture": capture,
-            "compare": compare, "reference_fault": reference_fault}
+            "compare": compare, "reference_fault": reference_fault,
+            "port_only": port_only}
 
 
 def _cases(upserts, cities):
@@ -360,6 +364,7 @@ def _cases(upserts, cities):
               "/peer/session/{session}/keepalive"),
         _case("bootstrap retry", post, "/dbg/bootstrap/retry"),
         _case("profiler stop idle", post, "/dbg/profiler/stop"),
+        _case("trace stop idle", post, "/dbg/trace/stop", port_only=400),
         _case("drain off", post, "/health/off"),
         _case("drained health", get, "/health"),
         _case("drain on", post, "/health/on"),
@@ -481,6 +486,9 @@ def test_the_script_covers_every_route():
 @pytest.mark.parametrize("name", CASE_NAMES)
 def test_request_answers_alike(replay, name):
     case, ((jstatus, jtype, jbody), (status, ctype, body)) = replay[name]
+    if case["port_only"] is not None:
+        assert (jstatus, status) == (404, case["port_only"]), name
+        return
     if case["reference_fault"] is not None:
         assert jstatus == 500 and status == 200, (jstatus, status)
         case["reference_fault"](json.loads(body))
