@@ -11,7 +11,9 @@
 // the launch with block_hist.cuh's hist_plan on the handle and launches it
 // with the cluster attribute (hist_launch_args). The launch itself is the
 // one the per-plan libraries made: the same policy, grid, cluster and
-// parameters.
+// parameters. ares_fused_dense_batches makes a query's launches of one
+// structure and literal block in one call: one launch a batch, each into
+// its own slice of one output table.
 //
 // It holds no device code, so it is compiled as C++ by the host compiler
 // (cuda_build's "host" kind: nvcc -x c++), with the CUDA runtime linked in.
@@ -170,4 +172,33 @@ extern "C" int ares_fused_dense(const void* kernel, int ni, int nf,
   err = hist_launch_args(kernel, h, (cudaStream_t)stream, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// A query's K1 batches of one plan structure and literal block, in one
+// call: batch b is launched as ares_fused_dense launches it, with
+// vals/valids[b * n_cols, (b + 1) * n_cols), ns[b] rows, n_valids[b],
+// tcols[b] and cutoffs[b], into slice b of out (float32 [n_batches, 3,
+// n_slots]) and entry b of ovf (int32 [n_batches]), both zeroed by the
+// caller. The launches go on `stream` in batch order. Returns 0, or the
+// first failing launch's cudaError_t; the batches after it are not
+// launched.
+extern "C" int ares_fused_dense_batches(
+    const void* kernel, int ni, int nf, int n_batches,
+    const void* const* vals, const void* const* valids, int n_cols,
+    const int* lits_i, const float* lits_f, const long long* ns,
+    const long long* n_valids, const void* const* tcols,
+    const long long* cutoffs, int n_slots, void* out, void* ovf, int device,
+    void* stream) {
+  if (n_batches < 0 || n_cols < 0 || n_slots <= 0)
+    return (int)cudaErrorInvalidValue;
+  for (int b = 0; b < n_batches; ++b) {
+    const size_t at = (size_t)b * (size_t)n_cols;
+    const int rc = ares_fused_dense(
+        kernel, ni, nf, vals + at, valids + at, n_cols, lits_i, lits_f,
+        ns[b], n_valids[b], tcols[b], cutoffs[b], n_slots,
+        (float*)out + (size_t)b * 3 * (size_t)n_slots, (int*)ovf + b, device,
+        stream);
+    if (rc != 0) return rc;
+  }
+  return 0;
 }

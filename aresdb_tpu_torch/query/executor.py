@@ -14,10 +14,17 @@ of `aresdb_tpu/query/executor.py`, with joins to dimension tables:
   path's merge.
 - A batch whose dimensions all have a bounded domain runs one dense
   kernel (K1, or the unfused kernel over K2, K3 or a scatter) whose
-  per-slot table folds into a device-resident float64 accumulator. After
-  the last batch ONE device-to-host copy brings back every batch's
-  overflow count and every accumulator (`_resolve_pending`); a batch that
-  overflowed its planned domain reruns on the sort path.
+  per-slot table folds into a device-resident float64 accumulator. A K1
+  batch is recorded, not launched (`_record_k1`): after the last batch
+  the query's K1 batches of one structure, literal block and dense plan
+  go out in ONE launcher call and fold at once (`_launch_k1`; a kernel
+  that gathers joined lanes takes `fused_dense.launch_calls`' few
+  batches a call). A query plans a batch's dense domains once for each
+  batch shape and stats, and looks its kernel up once for each dense
+  plan (`_dense_route`). After that ONE device-to-host copy brings back
+  every batch's overflow count and every accumulator
+  (`_resolve_pending`); a batch that overflowed its planned domain
+  reruns on the sort path.
 - Any other batch runs the keyed kernel (`kernels.make_agg_kernel`) at a
   group capacity K from the per-plan hint. `_resolve_sort_pending`
   fetches the group counts, reruns batches whose groups outgrew K on the
@@ -66,6 +73,7 @@ import torch
 from aresdb_tpu_torch.common import data_types as mdt
 from aresdb_tpu_torch.parallel import sharded as S
 from aresdb_tpu_torch.query import expr as E
+from aresdb_tpu_torch.query import fused_dense as FD
 from aresdb_tpu_torch.query import geo as G
 from aresdb_tpu_torch.query import hll as H
 from aresdb_tpu_torch.query import kernels as K
@@ -463,9 +471,31 @@ class ShardExecutor:
             return None, rows
 
         table = GroupTable(plan)
+        try:
+            self._aggregate(plan, foreign, shards, table)
+        finally:
+            # the query's batches go with it: a cached kernel keeps its
+            # plan (FusedDenseKernel.plan), so nothing staged may stay on
+            # it, an error's included
+            plan._exec_pending, plan._exec_dense_dev = [], {}
+            plan._exec_dense_routes, plan._exec_k1 = {}, {}
+            plan._exec_sort_pending, plan._exec_hll_pending = [], []
+        plan.stats["hostFetches"] = fetch_to_host.calls - fetches0
+        M.root().count(M.QUERY_ROWS_RETURNED, table.n_groups)
+        M.root().record_timer(M.QUERY_BATCH_TRANSFER_TIME,
+                              plan.stats.get("transfer", 0.0))
+        return table, None
+
+    def _aggregate(self, plan: CompiledQuery, foreign, shards,
+                   table: GroupTable) -> None:
+        """The batch loop of an aggregate query, then its K1 groups'
+        launcher calls, then the one fetch that resolves every batch into
+        `table`."""
         stat_keys = self._dense_stat_keys(plan)
         plan._exec_pending = []
         plan._exec_dense_dev = {}
+        plan._exec_dense_routes = {}
+        plan._exec_k1 = {}
         plan._exec_sort_pending = []
         plan._exec_hll_pending = []
         # one span a batch for each while tracing; the last `transfer`
@@ -498,16 +528,20 @@ class ShardExecutor:
                 plan.stats["stagedBytes"] += nb
                 plan.stats["peakBatchStagedBytes"] = max(
                     plan.stats["peakBatchStagedBytes"], nb)
+        groups, plan._exec_k1 = plan._exec_k1, {}
+        plan._exec_dense_routes = {}
+        for dense_sig, dense_plan, batches in groups.values():
+            for call in FD.launch_calls(batches):
+                with batch_exec as span:
+                    self._launch_k1(plan, dense_sig, dense_plan, call)
+                    if span is not None:
+                        span.attrs.update(route="dense_batches",
+                                          batches=len(call))
         with tracing.stage(plan.stats, "resultFetch"):
             self._resolve_pending(plan, table)
             self._resolve_sort_pending(plan, table)
             self._resolve_hll_pending(plan, table)
             table.finalize()
-        plan.stats["hostFetches"] = fetch_to_host.calls - fetches0
-        M.root().count(M.QUERY_ROWS_RETURNED, table.n_groups)
-        M.root().record_timer(M.QUERY_BATCH_TRANSFER_TIME,
-                              plan.stats.get("transfer", 0.0))
-        return table, None
 
     @staticmethod
     def _dense_stat_keys(plan: CompiledQuery):
@@ -921,14 +955,16 @@ class ShardExecutor:
                 n_padded, live_cutoff):
             return "mesh"
         # dense slot aggregation when every dim is bounded, else the sort
-        dense_plan = plan_dense(plan, batch_stats)
+        dense_plan, dense_sig, kernel = self._dense_route(plan, batch_stats,
+                                                          n_padded)
         if dense_plan is None:
             self._run_sort_batch(plan, columns, foreign_idx, n_valid,
                                  n_padded, live_cutoff)
             return "sort"
-        kernel = self.kernel_cache.dense_agg_kernel(plan, n_padded,
-                                                    dense_plan, self.device)
-        dense_sig = dense_signature(dense_plan)
+        if self._collects(kernel):
+            self._record_k1(plan, kernel, dense_plan, dense_sig, columns,
+                            foreign_idx, n_valid, live_cutoff)
+            return "dense"
         # device-resident running aggregate, folded in place by the kernel
         acc = plan._exec_dense_dev.get(dense_sig)
         acc_arrays = acc[1] if acc is not None else dense_acc_init(
@@ -937,8 +973,72 @@ class ShardExecutor:
                                   foreign_idx)
         plan._exec_dense_dev[dense_sig] = (dense_plan, folded)
         plan._exec_pending.append(
-            (overflow, columns, foreign_idx, n_valid, n_padded, live_cutoff))
+            (overflow.reshape(1),
+             [(columns, foreign_idx, n_valid, n_padded, live_cutoff)]))
         return "dense"
+
+    def _dense_route(self, plan, batch_stats, n_padded):
+        """(dense plan, its signature, dense kernel) of a batch, or (None,
+        None, None) where a dimension has no bounded domain. `plan_dense`
+        and `dense_signature` run on the query's first batch of these
+        stats and padded size; the kernel cache's lookup (and its plan
+        signature) on its first batch of this dense plan and size. Both
+        are reused on a match: a time column's stats move every batch,
+        while the domains they give mostly do not."""
+        routes = plan._exec_dense_routes
+        key = ("stats", n_padded,
+               tuple(sorted((batch_stats or {}).items())))
+        route = routes.get(key)
+        if route is None:
+            dense_plan = plan_dense(plan, batch_stats)
+            route = (None, None, None)
+            if dense_plan is not None:
+                dense_sig = dense_signature(dense_plan)
+                kernel = routes.get(("kernel", n_padded, dense_sig))
+                if kernel is None:
+                    kernel = routes[("kernel", n_padded, dense_sig)] = \
+                        self.kernel_cache.dense_agg_kernel(
+                            plan, n_padded, dense_plan, self.device)
+                route = (dense_plan, dense_sig, kernel)
+            routes[key] = route
+        return route
+
+    @staticmethod
+    def _collects(kernel) -> bool:
+        """Whether the query collects this dense kernel's batches for one
+        launcher call (K1) rather than launching each."""
+        return isinstance(kernel, FD.FusedDenseKernel)
+
+    @staticmethod
+    def _record_k1(plan, kernel, dense_plan, dense_sig, columns,
+                   foreign_idx, n_valid, live_cutoff) -> None:
+        """Add a K1 batch to its query's launch list, under its structure
+        and literal block and its dense plan's signature."""
+        key = (kernel.group_key, dense_sig)
+        group = plan._exec_k1.get(key)
+        if group is None:
+            group = plan._exec_k1[key] = (dense_sig, dense_plan, [])
+        group[2].append(kernel.record(columns, n_valid, live_cutoff,
+                                      foreign_idx))
+
+    def _launch_k1(self, plan, dense_sig, dense_plan, batches) -> None:
+        """One launcher call for K1 batches of one group, their tables
+        folded at once into the accumulator of their dense plan; the
+        overflow vector joins the pending fetch, each batch with what its
+        rerun on the sort path needs."""
+        tables, overflow = FD.reduce_batches(batches)
+        acc = plan._exec_dense_dev.get(dense_sig)
+        plan._exec_dense_dev[dense_sig] = (dense_plan, K.dense_fold_batches(
+            None if acc is None else acc[1], tables, overflow))
+        plan._exec_pending.append(
+            (overflow, [(b.columns, b.foreign, b.n_valid, b.kernel.n_rows,
+                         b.live_cutoff) for b in batches]))
+        plan.stats["denseLaunchCalls"] = \
+            plan.stats.get("denseLaunchCalls", 0) + 1
+        plan.stats["denseBatchesLaunched"] = \
+            plan.stats.get("denseBatchesLaunched", 0) + len(batches)
+        M.root().count(M.QUERY_DENSE_LAUNCH_CALLS)
+        M.root().count(M.QUERY_DENSE_BATCHES_LAUNCHED, len(batches))
 
     def _mesh_batch(self, run, *args) -> bool:
         """Run one batch on the mesh (`run` is _run_mesh_batch or
@@ -1033,25 +1133,25 @@ class ShardExecutor:
             (k, out, columns, foreign_idx, n_valid, n_padded, 0, runinfo))
 
     def _resolve_pending(self, plan, table: GroupTable) -> None:
-        """ONE host fetch for every batch's overflow count and every
-        accumulated dense table; overflowed batches (a domain understated
-        by stale stats, folded as identity) rerun on the sort ladder."""
+        """ONE host fetch for every dense batch's overflow count (a vector
+        for each K1 launcher call, one count for each other batch) and
+        every accumulated dense table; overflowed batches (a domain
+        understated by stale stats, folded as identity) rerun on the sort
+        ladder."""
         pending, plan._exec_pending = plan._exec_pending, []
         accs, plan._exec_dense_dev = plan._exec_dense_dev, {}
         if not pending and not accs:
             return
         sigs = list(accs.keys())
-        tensors = [entry[0].reshape(1) for entry in pending]
+        tensors = [overflow for overflow, _ in pending]
         for s in sigs:
             tensors.extend(accs[s][1])
         host = fetch_to_host(tensors)
-        for entry, overflow in zip(pending, host[:len(pending)]):
-            if int(overflow[0]) > 0:
-                _, columns, foreign_idx, n_valid, n_padded, live_cutoff = \
-                    entry
-                self._run_sort_batch(plan, columns, foreign_idx, n_valid,
-                                     n_padded, live_cutoff)
-                plan.stats["overflowReruns"] += 1
+        for (_, reruns), overflow in zip(pending, host[:len(pending)]):
+            for count, rerun in zip(overflow.tolist(), reruns):
+                if count > 0:
+                    self._run_sort_batch(plan, *rerun)
+                    plan.stats["overflowReruns"] += 1
         tables = host[len(pending):]
         for j, sig in enumerate(sigs):
             aggv, cnt, rows = tables[3 * j:3 * j + 3]

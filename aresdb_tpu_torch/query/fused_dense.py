@@ -49,6 +49,7 @@ from aresdb_tpu_torch.common import data_types as mdt
 from aresdb_tpu_torch.query import expr as E
 from aresdb_tpu_torch.query import kernels as K
 from aresdb_tpu_torch.query import pallas_ops as P
+from aresdb_tpu_torch.query.admission import PIPELINE_FACTOR
 from aresdb_tpu_torch.query.compiler import CompiledQuery, QueryError
 from aresdb_tpu_torch.utils import cuda_build
 
@@ -547,7 +548,9 @@ def _row_body(plan: CompiledQuery, dense_plan, spec: FusedSpec,
 class FusedDenseKernel:
     """K1 for one plan, dense plan and padded batch size. Called with the
     unfused dense kernel's ABI: fn(columns, n_valid, live_cutoff, acc,
-    foreign=()) -> ((agg, cnt, rows) folded into acc, overflow)."""
+    foreign=()) -> ((agg, cnt, rows) folded into acc, overflow). The
+    executor records its batches instead (`record`) and launches a
+    query's batches of one structure together (`reduce_batches`)."""
 
     launches = 0  # kernel launches, all instances
 
@@ -559,6 +562,9 @@ class FusedDenseKernel:
         self.spec = spec
         self.device = device
         self._kernel = None   # the structure's loaded kernel, at first launch
+        # batches of one structure and literal block share a launcher call
+        self.group_key = (spec.source, tuple(spec.lits_i),
+                          tuple(spec.lits_f))
         # the literal block's host arrays, copied into the kernel's
         # parameters at each launch
         self._lits = ((ctypes.c_int * max(len(spec.lits_i), 1))(
@@ -572,17 +578,23 @@ class FusedDenseKernel:
 
     def _lanes(self, columns, foreign=()):
         """The kernel's inputs in V[]/B[] order: each main column as
-        staged, then each joined column gathered into an [n] lane (one
-        probe of the joined table per batch; the JAX package's prologue,
+        staged, then each joined column gathered into an [n] lane."""
+        return self._main_lanes(columns) + self._joined_lanes(columns,
+                                                              foreign)
+
+    def _main_lanes(self, columns):
+        return [columns[(0, cid)] for cid in self.spec.col_ids]
+
+    def _joined_lanes(self, columns, foreign=()):
+        """Each joined column gathered into an [n] lane (one probe of the
+        joined table per batch; the JAX package's prologue,
         fused_dense.py:516-537)."""
-        lanes = [columns[(0, cid)] for cid in self.spec.col_ids]
-        if self.spec.fkeys:
-            ctx = K._EvalCtx(columns, self.n_rows, self._device(columns),
-                             foreign)
-            for t, c, _ in self.spec.fkeys:
-                lanes.append(ctx.foreign_column(t, c, self.plan,
-                                                *columns[(t, c)]))
-        return lanes
+        if not self.spec.fkeys:
+            return []
+        ctx = K._EvalCtx(columns, self.n_rows, self._device(columns),
+                         foreign)
+        return [ctx.foreign_column(t, c, self.plan, *columns[(t, c)])
+                for t, c, _ in self.spec.fkeys]
 
     def reduce_plain(self, columns, n_valid: int, live_cutoff, foreign=()):
         """Plain PyTorch version: (out float32 [3, n_slots], overflow)."""
@@ -601,24 +613,17 @@ class FusedDenseKernel:
         out = P.segment_sum_plain(dropped, stacked, self.spec.n_slots)
         return out.t().contiguous(), (mask & bad).sum(dtype=torch.int32)
 
-    def reduce(self, columns, n_valid: int, live_cutoff, foreign=()):
-        """K1: (out float32 [3, n_slots], overflow int32 scalar tensor).
-        CPU tensors take the plain version; CUDA tensors launch the kernel
-        or raise."""
+    def _checked(self, columns, live_cutoff, foreign=(), joined=True):
+        """(device, lanes, time column pointer or None) of one CUDA
+        launch: the lanes' device, contiguity and length and the time
+        column's type checked, else ValueError. With joined False, the
+        main columns' lanes alone."""
         device = self._device(columns)
-        if device.type == "cpu":
-            return self.reduce_plain(columns, n_valid, live_cutoff, foreign)
         if device.type != "cuda":
             raise ValueError(f"fused_dense: unsupported device {device}")
-        lanes = self._lanes(columns, foreign)
-        for values, validity in lanes:
-            for t in (values, validity):
-                if t.device != device or not t.is_contiguous() or \
-                        t.shape[0] != self.n_rows:
-                    raise ValueError(
-                        f"fused_dense: lane {tuple(t.shape)} on {t.device} "
-                        f"(contiguous={t.is_contiguous()}) does not match "
-                        f"[{self.n_rows}] on {device}")
+        lanes = self._lanes(columns, foreign) if joined else \
+            self._main_lanes(columns)
+        self._check_lanes(device, lanes)
         tptr = None
         schema = self.plan.main_schema.table
         if (live_cutoff is not None and schema.is_fact_table
@@ -628,6 +633,25 @@ class FusedDenseKernel:
                 raise ValueError("fused_dense: the time column must be a "
                                  f"staged Uint32 lane on {device}")
             tptr = tvals.data_ptr()
+        return device, lanes, tptr
+
+    def _check_lanes(self, device, lanes) -> None:
+        for values, validity in lanes:
+            for t in (values, validity):
+                if t.device != device or not t.is_contiguous() or \
+                        t.shape[0] != self.n_rows:
+                    raise ValueError(
+                        f"fused_dense: lane {tuple(t.shape)} on {t.device} "
+                        f"(contiguous={t.is_contiguous()}) does not match "
+                        f"[{self.n_rows}] on {device}")
+
+    def reduce(self, columns, n_valid: int, live_cutoff, foreign=()):
+        """K1: (out float32 [3, n_slots], overflow int32 scalar tensor).
+        CPU tensors take the plain version; CUDA tensors launch the kernel
+        or raise."""
+        if self._device(columns).type == "cpu":
+            return self.reduce_plain(columns, n_valid, live_cutoff, foreign)
+        device, lanes, tptr = self._checked(columns, live_cutoff, foreign)
         n_slots = self.spec.n_slots
         out = torch.zeros((3, n_slots), dtype=torch.float32, device=device)
         ovf = torch.zeros(1, dtype=torch.int32, device=device)
@@ -650,10 +674,105 @@ class FusedDenseKernel:
         FusedDenseKernel.launches += 1
         return out, ovf[0]
 
+    def record(self, columns, n_valid: int, live_cutoff, foreign=()
+               ) -> "K1Batch":
+        """One batch's launch, recorded for its query's launcher call
+        (reduce_batches) in place of launching it. On CUDA its main lanes
+        and time column are checked here, as `reduce` checks them, so an
+        error raises at the batch that has it; its joined lanes are
+        gathered at the launch (launch_lanes), so that a recorded batch
+        holds no more of the card than its staged columns."""
+        tptr = None
+        if self._device(columns).type != "cpu":
+            _, _, tptr = self._checked(columns, live_cutoff, joined=False)
+        return K1Batch(self, columns, foreign, int(n_valid),
+                       int(live_cutoff or 0), tptr)
+
     def __call__(self, columns, n_valid: int, live_cutoff, acc, foreign=()):
         out, overflow = self.reduce(columns, n_valid, live_cutoff, foreign)
         return K.dense_fold_epilogue(self.plan.measure.agg, acc, out[0],
                                      out[1], out[2], overflow)
+
+
+@dataclass
+class K1Batch:
+    """A dense batch's K1 launch, recorded for its query's launcher call:
+    its kernel (of its padded size), staged columns and joined tables'
+    probes, row count and cutoff and, on CUDA, its time column's
+    pointer."""
+    kernel: FusedDenseKernel
+    columns: dict
+    foreign: tuple
+    n_valid: int
+    live_cutoff: int
+    tptr: Optional[int] = None
+
+
+def launch_calls(batches: List[K1Batch]) -> List[List[K1Batch]]:
+    """A group's batches cut into launcher calls: one call for them all,
+    or where the kernel reads joined lanes, which each call gathers for
+    its batches (launch_lanes), PIPELINE_FACTOR batches a call: no more
+    batches' gathered lanes at once than admission's estimate holds in
+    flight."""
+    step = PIPELINE_FACTOR if batches[0].kernel.spec.fkeys else len(batches)
+    return [batches[at:at + step] for at in range(0, len(batches), step)]
+
+
+def launch_lanes(rec: K1Batch) -> list:
+    """A recorded batch's lanes in V[]/B[] order at its launch: its main
+    columns as staged, its joined columns gathered now, those checked as
+    `reduce` checks them."""
+    kern = rec.kernel
+    joined = kern._joined_lanes(rec.columns, rec.foreign)
+    kern._check_lanes(kern._device(rec.columns), joined)
+    return kern._main_lanes(rec.columns) + joined
+
+
+def reduce_batches(batches: List[K1Batch]):
+    """K1 over a query's batches of one structure and literal block:
+    (out float32 [N, 3, n_slots], overflow int32 [N]), batch b's table and
+    overflow count at b. On CUDA, ONE launcher call
+    (ares_fused_dense_batches) makes one launch a batch into its slice;
+    on the CPU each batch runs its kernel's `reduce` (the plain version)
+    into its slice."""
+    first = batches[0]
+    kern = first.kernel
+    n, n_slots = len(batches), kern.spec.n_slots
+    device = kern._device(first.columns)
+    if device.type == "cpu":
+        out = torch.zeros((n, 3, n_slots), dtype=torch.float32)
+        ovf = torch.zeros(n, dtype=torch.int32)
+        for b, rec in enumerate(batches):
+            out[b], ovf[b] = rec.kernel.reduce(rec.columns, rec.n_valid,
+                                               rec.live_cutoff, rec.foreign)
+        return out, ovf
+    out = torch.zeros((n, 3, n_slots), dtype=torch.float32, device=device)
+    ovf = torch.zeros(n, dtype=torch.int32, device=device)
+    # the gathered lanes stay referenced until the call has enqueued
+    # their launches on the stream
+    lanes = [launch_lanes(rec) for rec in batches]
+    n_cols = len(lanes[0])
+    ptrs = [t.data_ptr() for ls in lanes for t, _ in ls]
+    vptrs = [t.data_ptr() for ls in lanes for _, t in ls]
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    if kern._kernel is None:
+        kern._kernel = structure_kernel(kern.spec, device)
+    stream = torch.cuda.current_stream(device)
+    rc = _launcher().ares_fused_dense_batches(
+        kern._kernel, len(kern.spec.lits_i), len(kern.spec.lits_f), n,
+        (p * max(len(ptrs), 1))(*ptrs), (p * max(len(vptrs), 1))(*vptrs),
+        n_cols, *kern._lits,
+        (ll * n)(*[rec.kernel.n_rows for rec in batches]),
+        (ll * n)(*[rec.n_valid for rec in batches]),
+        (p * n)(*[rec.tptr for rec in batches]),
+        (ll * n)(*[rec.live_cutoff for rec in batches]),
+        n_slots, out.data_ptr(), ovf.data_ptr(), device.index or 0,
+        stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_dense batches' launch failed: CUDA error "
+                           f"{rc}")
+    FusedDenseKernel.launches += n
+    return out, ovf
 
 
 LAUNCH_SOURCE = "fused_dense_launch.cu"
@@ -683,9 +802,11 @@ def _launcher() -> ctypes.CDLL:
         lib.ares_fused_dense_usage.argtypes = [p, i, ctypes.POINTER(i),
                                                ctypes.POINTER(i)]
         lib.ares_fused_dense_plan.argtypes = [p, i, ll, i]
+        lib.ares_fused_dense_batches.argtypes = [p, i, i, i, p, p, i, p, p,
+                                                 p, p, p, p, i, p, p, i, p]
         for fn in (lib.ares_fused_dense_load, lib.ares_fused_dense_cluster,
                    lib.ares_fused_dense, lib.ares_fused_dense_usage,
-                   lib.ares_fused_dense_plan):
+                   lib.ares_fused_dense_plan, lib.ares_fused_dense_batches):
             fn.restype = i
         return lib
     return cuda_build.cached(("fused_dense launcher",), load)

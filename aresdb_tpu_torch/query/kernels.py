@@ -977,6 +977,23 @@ def dense_fold_epilogue(kind: str, acc, aggv, cnt, rows, overflow):
     return (a_agg, a_cnt, a_rows), overflow
 
 
+def dense_fold_batches(acc, tables, overflow):
+    """Fold a query's K1 batch tables (float32 [N, 3, n_slots],
+    fused_dense.reduce_batches) into the running float64 accumulator, IN
+    PLACE, in a fixed handful of ops: an overflowed batch folds as
+    identity (its slice zeroed), the others sum over the batch axis in
+    float64, as dense_fold_epilogue adds them one at a time. K1 reduces
+    sums, averages and counts only, so each channel adds, and with no
+    accumulator yet (acc None) the sums are the accumulator."""
+    tables.masked_fill_((overflow != 0).view(-1, 1, 1), 0)
+    sums = tables.sum(0, dtype=torch.float64).unbind(0)
+    if acc is None:
+        return sums
+    for a, s in zip(acc, sums):
+        a.add_(s)
+    return acc
+
+
 def make_dense_agg_kernel(plan: CompiledQuery, n_rows: int, dense_plan,
                           device: torch.device):
     """Dense slot-indexed aggregation over one padded batch of n_rows.

@@ -162,6 +162,10 @@ QUERY_WAIT_FOR_MEMORY = QUERY_WAIT_FOR_MEMORY_DURATION
 # on a kernel-cache miss or a plan structure's NVRTC compile (tag: kind)
 QUERY_KERNEL_BUILDS = "query.kernel_builds"
 QUERY_KERNEL_BUILD = "query.kernel_build"
+# K1's launcher calls, one a query's group of batches of one structure,
+# literal block and dense plan, and the batches launched in them
+QUERY_DENSE_LAUNCH_CALLS = "query.dense_launch_calls"
+QUERY_DENSE_BATCHES_LAUNCHED = "query.dense_batches_launched"
 
 
 class _Timer:

@@ -1103,7 +1103,9 @@ def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
     histogram. J1's joined lane is gathered through the cities table's
     probe, as the executor's batches gather it. Each plan's kernel has
     no local memory, so no stack frame and no spill (FD.kernel_usage of
-    its loaded image)."""
+    its loaded image). Then A1's live and archive shapes in a query's
+    launcher calls against one call a batch, without and with J1's
+    joined lane (k1_batches)."""
     n = BATCH_ROWS
     results = {}
     for name, (query, city_max) in k1_cases(demo, seed).items():
@@ -1153,7 +1155,114 @@ def phase_k1(demo, FD, columns_from_numpy, plan_dense, cuda_build,
               f"ms={kernel_ms:.4f} (per call "
               f"{call_ms:.4f}) plain_ms={plain_ms:.4f} "
               f"bound_ms={b_ms:.4f}", flush=True)
+    k1_batches(demo, FD, columns_from_numpy, plan_dense, device)
+    k1_batches(demo, FD, columns_from_numpy, plan_dense, device, join=True,
+               seed=seed)
     return results
+
+
+def k1_batch_shapes(demo, n: int = BATCH_ROWS,
+                    chunk: int = 1 << 22) -> list:
+    """A1's batches, as (padded rows, valid rows, cutoff): a live batch of
+    n rows (777 of them padding; the cutoff 15 h back), an archive chunk
+    of `chunk` rows (ShardExecutor.ARCHIVE_CHUNK_ROWS) and one of
+    3/4 of it padded to `chunk` (no cutoff: 0), and another live batch."""
+    cutoff = demo.DEMO_NOW - 15 * 3600
+    return [(n, n - 777, cutoff), (chunk, chunk, 0),
+            (chunk, 3 * chunk // 4, 0), (n, n - 777, cutoff)]
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Mean host milliseconds to enqueue fn() over iters calls, after a
+    warm-up: the caller's own cost, not the card's."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / iters
+
+
+def k1_batches(demo, FD, columns_from_numpy, plan_dense, device,
+               shapes=None, join: bool = False, seed: int = 0) -> dict:
+    """A query's launcher calls over A1's live and archive shapes against
+    one call a batch: sum(fare) by city, or with join J1's shape (Q1
+    joined to the cities table, filtered on the population), a kernel a
+    padded size, one structure and literal block. FD.reduce_batches over
+    each of FD.launch_calls' calls (ares_fused_dense_batches; one call
+    for the four batches, or with a joined lane, which each call gathers,
+    two) against each batch's `reduce` (ares_fused_dense): the overflow
+    counts, the valid-measure and row counts exact, the sums within
+    check_close's tolerance (the atomics add in another order); one
+    launch a batch either way. On the card, the host ms of each way."""
+    if join:
+        query = joined(demo.DEMO_QUERY, seed)
+    else:
+        query = json.loads(json.dumps(demo.DEMO_QUERY))
+        query["measures"] = [{"sqlExpression": "sum(fare)"}]
+        query["dimensions"] = [{"sqlExpression": "city_id"}]
+    plan, dp, spec = k1_spec(demo, FD, plan_dense, query, 300)
+    if bool(spec.fkeys) != join:
+        raise AssertionError(f"K1 batches: joined lanes {spec.fkeys}")
+    shapes = shapes or k1_batch_shapes(demo)
+    batches = []
+    for i, (n, n_valid, cutoff) in enumerate(shapes):
+        cols_np, _ = demo.demo_columns(plan, n, seed=20 + i)
+        columns, foreign = columns_from_numpy(cols_np, n, device), ()
+        if join:
+            fcols, foreign = city_columns(plan, seed, device)
+            columns.update(fcols)
+        batches.append((FD.FusedDenseKernel(plan, n, dp, spec, device),
+                        columns, n_valid, cutoff, foreign))
+    if len({kern.group_key for kern, *_ in batches}) != 1:
+        raise AssertionError("K1 batches: the kernels' structures differ")
+
+    def one_by_one():
+        return [kern.reduce(cols, n_valid, cutoff, foreign)
+                for kern, cols, n_valid, cutoff, foreign in batches]
+
+    def grouped():
+        calls = FD.launch_calls([kern.record(cols, n_valid, cutoff, foreign)
+                                 for kern, cols, n_valid, cutoff, foreign
+                                 in batches])
+        outs = [FD.reduce_batches(call) for call in calls]
+        return (torch.cat([o for o, _ in outs]),
+                torch.cat([v for _, v in outs]), len(calls))
+
+    launches = FD.FusedDenseKernel.launches
+    want = one_by_one()
+    got, got_ovf, n_calls = grouped()
+    launches = FD.FusedDenseKernel.launches - launches
+    if launches != 2 * len(batches):
+        raise AssertionError(f"K1 batches: {launches} launches, not 2 x "
+                             f"{len(batches)}")
+    want_calls = -(-len(batches) // FD.PIPELINE_FACTOR) if join else 1
+    if n_calls != want_calls:
+        raise AssertionError(f"K1 batches: {n_calls} launcher calls, not "
+                             f"{want_calls}")
+    err = 0.0
+    for b, (out, ovf) in enumerate(want):
+        if int(got_ovf[b]) != int(ovf):
+            raise AssertionError(f"K1 batches: batch {b} overflow "
+                                 f"{int(got_ovf[b])} vs {int(ovf)}")
+        err = max(err, check_close(f"K1 batches: batch {b}", got[b], out,
+                                   exact_rows=(1, 2)))
+    out = {"batches": len(batches), "calls": n_calls, "shapes": shapes,
+           "max_abs_err": err}
+    if device.type == "cuda":
+        out["one_by_one_host_ms"] = host_ms(one_by_one)
+        out["grouped_host_ms"] = host_ms(grouped)
+    print(f"K1 batches{' (J1, a joined lane)' if join else ''}: "
+          f"{len(batches)} batches of A1's shapes {shapes} in {n_calls} "
+          f"launcher call{'s' if n_calls > 1 else ''} match one call a "
+          f"batch, max_abs_err={err:.3g}; host ms a query: "
+          f"{out.get('grouped_host_ms', float('nan')):.4f} grouped, "
+          f"{out.get('one_by_one_host_ms', float('nan')):.4f} one by one",
+          flush=True)
+    return out
 
 
 class Store:

@@ -249,6 +249,31 @@ def test_phase_mesh_runs_g1_and_e1_in_their_phases(cpu_rehearsal,
         assert m and int(m.group(2)) == 4 * int(m.group(1)) > 0
 
 
+@pytest.mark.parametrize("join", [False, True], ids=["by_city", "j1"])
+def test_k1_batches_holds_one_launcher_call_against_one_call_a_batch(
+        cpu_rehearsal, capsys, join):
+    """The card check of the K1 phase at a small size: A1's live and
+    archive shapes (live batches of FD_MIN_ROWS rows, chunks of twice
+    that), one group, the grouped tables against one `reduce` a batch,
+    a launch a batch either way; with J1's joined lane, two batches a
+    launcher call."""
+    from aresdb_tpu_torch.query.dense import plan_dense
+    from aresdb_tpu_torch.query.executor import columns_from_numpy
+
+    shapes = S.k1_batch_shapes(demo, FD.FD_MIN_ROWS, 2 * FD.FD_MIN_ROWS)
+    assert [s[0] for s in shapes] == [FD.FD_MIN_ROWS, 2 * FD.FD_MIN_ROWS,
+                                      2 * FD.FD_MIN_ROWS, FD.FD_MIN_ROWS]
+    assert [s[2] > 0 for s in shapes] == [True, False, False, True]
+    out = S.k1_batches(demo, FD, columns_from_numpy, plan_dense,
+                       torch.device("cpu"), shapes, join=join)
+    assert out["batches"] == 4 and out["max_abs_err"] == 0.0
+    assert out["calls"] == (2 if join else 1)
+    text = capsys.readouterr().out
+    assert ("in 2 launcher calls match" if join else
+            "in 1 launcher call match one call a batch") in text
+    assert ("(J1, a joined lane)" in text) == join
+
+
 def test_cities_table_and_join_filter():
     store, _, data = S.ingest_trips(5000, 3, batch_rows=2048)
     assert [len(b["fare"]) for b in data] == [2048, 2048, 904]
