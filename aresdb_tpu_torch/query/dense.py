@@ -62,6 +62,21 @@ def _pow2_at_least(n: int, cap: int = DENSE_MAX_SLOTS) -> int:
     return min(c, cap)
 
 
+def _time_window(plan: CompiledQuery, tstats=None) -> Optional[tuple]:
+    """(lo, hi) of the time values a time dimension may see: the resolved
+    time filter, or — when the query has none — the batch's observed
+    time-column (min, max) stats; widened by the filter's offsets. None
+    without either."""
+    if plan.from_ts is not None and plan.to_ts is not None:
+        lo, hi = plan.from_ts, plan.to_ts
+    elif tstats is not None:
+        lo, hi = tstats
+    else:
+        return None
+    return (lo + min(plan.from_offset, plan.to_offset, 0),
+            hi + max(plan.from_offset, plan.to_offset, 0))
+
+
 def _time_bucket_domain(plan: CompiledQuery, width: int,
                         tstats=None) -> Optional[DimDomain]:
     """Bucket domain from the resolved time filter, or — when the query has
@@ -71,33 +86,32 @@ def _time_bucket_domain(plan: CompiledQuery, width: int,
         # per-row offsets make the bucket range data-dependent; the sort
         # path handles it (dense overflow guard would fire anyway)
         return None
-    if plan.from_ts is not None and plan.to_ts is not None:
-        lo, hi = plan.from_ts, plan.to_ts
-    elif tstats is not None:
-        lo, hi = tstats
-    else:
+    window = _time_window(plan, tstats)
+    if window is None:
         return None
-    lo_off = min(plan.from_offset, plan.to_offset, 0)
-    hi_off = max(plan.from_offset, plan.to_offset, 0)
-    vmin = ((lo + lo_off) // width) * width
-    vmax = ((hi + hi_off) // width) * width
+    lo, hi = window
+    vmin = (lo // width) * width
+    vmax = (hi // width) * width
     size = (vmax - vmin) // width + 1
     if size <= 0 or size > DENSE_MAX_SLOTS:
         return None
     return DimDomain(size=int(size), base=int(vmin), step=int(width))
 
 
-def _calendar_lookup_domain(plan: CompiledQuery, op: str) -> Optional[DimDomain]:
-    """Enumerate irregular bucket-start values inside the time window."""
-    if plan.from_ts is None or plan.to_ts is None:
+def _calendar_lookup_domain(plan: CompiledQuery, op: str,
+                            tstats=None) -> Optional[DimDomain]:
+    """Enumerate irregular bucket-start values inside the time window (as
+    _time_window gives it: the batch's time stats where the query has no
+    time filter)."""
+    window = _time_window(plan, tstats)
+    if window is None:
         return None
     import datetime as _dt
 
-    lo = plan.from_ts + min(plan.from_offset, plan.to_offset, 0) - 86400 * 370
-    hi = plan.to_ts + max(plan.from_offset, plan.to_offset, 0)
+    lo, hi = window
     # walk calendar starts; bounded by window size
     starts: List[int] = []
-    t = _dt.datetime.fromtimestamp(max(plan.from_ts - 86400 * 370, 0),
+    t = _dt.datetime.fromtimestamp(max(lo - 86400 * 370, 0),
                                    _dt.timezone.utc)
     unit = {"GET_WEEK_START": "w", "GET_MONTH_START": "M",
             "GET_QUARTER_START": "q", "GET_YEAR_START": "y"}[op]
@@ -112,6 +126,10 @@ def _calendar_lookup_domain(plan: CompiledQuery, op: str) -> Optional[DimDomain]
     return DimDomain(size=len(starts), kind="lookup",
                      values=np.asarray(starts, np.int64))
 
+
+# calendar bucketizers whose starts come from a lookup domain
+CALENDAR_STARTS = ("GET_WEEK_START", "GET_MONTH_START", "GET_QUARTER_START",
+                   "GET_YEAR_START")
 
 _CALENDAR_EXTRACT_SIZES = {
     "GET_DAY_OF_MONTH": 31,
@@ -130,6 +148,14 @@ def _underlying_column_key(ast) -> Optional[tuple]:
 
     E.walk(ast, visit)
     return found[0] if found else None
+
+
+def _column_stats(ast, stats) -> Optional[tuple]:
+    """The batch's (min, max) stats of the main-table column under ast."""
+    if stats is None:
+        return None
+    key = _underlying_column_key(ast)
+    return stats.get(key) if key is not None else None
 
 
 def dimension_domain(plan: CompiledQuery, dim: DimensionPlan,
@@ -173,12 +199,8 @@ def dimension_domain(plan: CompiledQuery, dim: DimensionPlan,
                 return DimDomain(size=bucket // base + 1, step=base)
         # regular: FLOOR(shifted_time, width) — bounded by the time filter
         # or, absent one, by the batch's time-column stats
-        tstats = None
-        if stats is not None:
-            key = _underlying_column_key(ast.lhs)
-            if key is not None:
-                tstats = stats.get(key)
-        return _time_bucket_domain(plan, ast.rhs.int_val, tstats)
+        return _time_bucket_domain(plan, ast.rhs.int_val,
+                                   _column_stats(ast.lhs, stats))
 
     # recurring with trailing division: (FLOOR(x % bucket, base)) / base
     if isinstance(ast, E.BinaryExpr) and ast.op == "/" and \
@@ -218,9 +240,9 @@ def dimension_domain(plan: CompiledQuery, dim: DimensionPlan,
     if isinstance(ast, E.UnaryExpr) and ast.op.startswith("GET_"):
         if ast.op in _CALENDAR_EXTRACT_SIZES:
             return DimDomain(size=_CALENDAR_EXTRACT_SIZES[ast.op])
-        if ast.op in ("GET_WEEK_START", "GET_MONTH_START",
-                      "GET_QUARTER_START", "GET_YEAR_START"):
-            return _calendar_lookup_domain(plan, ast.op)
+        if ast.op in CALENDAR_STARTS:
+            return _calendar_lookup_domain(plan, ast.op,
+                                           _column_stats(ast.expr, stats))
         return None
 
     return None

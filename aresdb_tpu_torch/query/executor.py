@@ -80,7 +80,8 @@ from aresdb_tpu_torch.query import kernels as K
 from aresdb_tpu_torch.query import runlen as RL
 from aresdb_tpu_torch.query.admission import device_cache_budget
 from aresdb_tpu_torch.query.compiler import CompiledQuery, QueryError
-from aresdb_tpu_torch.query.dense import _underlying_column_key, plan_dense
+from aresdb_tpu_torch.query.dense import (CALENDAR_STARTS,
+                                         _underlying_column_key, plan_dense)
 from aresdb_tpu_torch.query.kernels import (
     SENTINEL, SENTINEL64, KernelCache, _packing_type, dense_acc_init,
     dense_signature, np_pack_dim_keys, pack_modes, plan_signature,
@@ -445,15 +446,19 @@ class ShardExecutor:
         for a non-aggregate one. Per-stage seconds accumulate into
         plan.stats (reference: query/stats.go stage timers), beside the
         batches rerun on the sort path (`overflowReruns`), on a larger
-        group capacity (`ladderReruns`, HLL reruns included), and the
-        process's device-to-host copies during the query
+        group capacity (`ladderReruns`, HLL reruns included), the batches
+        that took the sort route (`sortBatches`, overflow reruns included)
+        with the host seconds of their work (`sortExec`) and of resolving
+        them (`sortMerge`), and the process's device-to-host copies during
+        the query
         (`hostFetches`), and the archive rows a prefilter skipped
         (`prefilterRowsSkipped`) and the run-length batches, runs and
         rows (`runlenBatches`, `runlenRuns`, `runlenRowsCompressed`) where
         there are any."""
         plan.stats = {"batches": 0, "rows_scanned": 0, "stagedBytes": 0,
                       "peakBatchStagedBytes": 0, "overflowReruns": 0,
-                      "ladderReruns": 0}
+                      "ladderReruns": 0, "sortBatches": 0, "sortExec": 0.0,
+                      "sortMerge": 0.0}
         fetches0 = fetch_to_host.calls
         with tracing.stage(plan.stats, "foreignTransfer"):
             foreign = self._stage_foreign_tables(plan)
@@ -539,29 +544,33 @@ class ShardExecutor:
                                           batches=len(call))
         with tracing.stage(plan.stats, "resultFetch"):
             self._resolve_pending(plan, table)
-            self._resolve_sort_pending(plan, table)
+            if plan._exec_sort_pending:
+                with tracing.stage(plan.stats, "sortMerge"):
+                    self._resolve_sort_pending(plan, table)
             self._resolve_hll_pending(plan, table)
             table.finalize()
 
     @staticmethod
     def _dense_stat_keys(plan: CompiledQuery):
         """Main-table columns whose (min, max) stats unlock dense mode:
-        raw integer dims, and the column under FLOOR time-bucket and
-        numeric-bucket dims."""
+        raw integer dims, and the column under FLOOR time-bucket,
+        calendar-start and numeric-bucket dims."""
         keys = set()
         for d in plan.dimensions:
             e = d.expr
+            under = None
             if isinstance(e, E.VarRef) and e.table_id == 0 and \
                     e.data_type in (mdt.Uint16, mdt.Uint32):
                 keys.add((0, e.column_id))
             elif isinstance(e, E.BinaryExpr) and e.op == "FLOOR":
-                key = _underlying_column_key(e.lhs)
-                if key is not None:
-                    keys.add(key)
+                under = e.lhs
+            elif isinstance(e, E.UnaryExpr) and e.op in CALENDAR_STARTS:
+                under = e.expr
             elif isinstance(e, E.Call) and e.name == "__numeric_bucket":
-                key = _underlying_column_key(e.args[0])
-                if key is not None:
-                    keys.add(key)
+                under = e.args[0]
+            key = None if under is None else _underlying_column_key(under)
+            if key is not None:
+                keys.add(key)
         return keys
 
     # -- batch iteration + staging --
@@ -958,7 +967,7 @@ class ShardExecutor:
         dense_plan, dense_sig, kernel = self._dense_route(plan, batch_stats,
                                                           n_padded)
         if dense_plan is None:
-            self._run_sort_batch(plan, columns, foreign_idx, n_valid,
+            self._run_sort_route(plan, columns, foreign_idx, n_valid,
                                  n_padded, live_cutoff)
             return "sort"
         if self._collects(kernel):
@@ -1103,6 +1112,16 @@ class ShardExecutor:
                 tuple(t.to(self.device) for t in dims),
                 tuple(t.to(self.device) for t in dvalids))
 
+    def _run_sort_route(self, plan, *batch) -> None:
+        """A batch that takes the sort route (no dense domain, or a dense
+        overflow's rerun): _run_sort_batch, timed in `sortExec` and
+        counted in `sortBatches` and `query.sort_batches`. Capacity
+        reruns are not counted here (`ladderReruns`)."""
+        with tracing.stage(plan.stats, "sortExec"):
+            self._run_sort_batch(plan, *batch)
+        plan.stats["sortBatches"] += 1
+        M.root().count(M.QUERY_SORT_BATCHES)
+
     def _run_sort_batch(self, plan, columns, foreign_idx, n_valid, n_padded,
                         live_cutoff=0, k: int = 0):
         """Keyed aggregation of one batch at group capacity k (default:
@@ -1150,7 +1169,7 @@ class ShardExecutor:
         for (_, reruns), overflow in zip(pending, host[:len(pending)]):
             for count, rerun in zip(overflow.tolist(), reruns):
                 if count > 0:
-                    self._run_sort_batch(plan, *rerun)
+                    self._run_sort_route(plan, *rerun)
                     plan.stats["overflowReruns"] += 1
         tables = host[len(pending):]
         for j, sig in enumerate(sigs):
@@ -1217,6 +1236,7 @@ class ShardExecutor:
                                              n_valid, n_padded, live_cutoff,
                                              k=k2)
                     plan.stats["ladderReruns"] += 1
+                    M.root().count(M.QUERY_LADDER_RERUNS)
                     continue
                 kg = min(round_up_pow2(max(ng, 1), 64), k)
                 gkeys, _, agg, cnt, _, dims, dvalids = out
@@ -1347,6 +1367,7 @@ class ShardExecutor:
                 self._run_hll_batch(plan, columns, foreign_idx, n_valid,
                                     n_padded, live_cutoff, k=k2)
                 plan.stats["ladderReruns"] += 1
+                M.root().count(M.QUERY_LADDER_RERUNS)
         if not sliced:
             return
         n_dims = len(sliced[0][4])

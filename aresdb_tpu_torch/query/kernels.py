@@ -777,8 +777,11 @@ def pack_dim_keys(dim_vals: List[_Val], dim_types: List[int],
 def unpack_dim_keys(gkeys: torch.Tensor, dim_vals: List[_Val],
                     dim_types: List[int], slot_used: torch.Tensor):
     """Invert pack_dim_keys' exact packing: per-slot dim (values, valids)
-    from the group keys, in each dim lane's dtype. Valid only when
-    pack_modes(...)[0]. Null dims unpack as (0, False)."""
+    from the group keys, in each dim lane's dtype, each its type's value:
+    sign-extended from the type's width where the type is signed,
+    zero-extended where it is unsigned (a Uint8 of 200 in an int32 lane
+    reads 200). Valid only when pack_modes(...)[0]. Null dims unpack as
+    (0, False)."""
     values, valids = [], []
     shift = 0
     for dv, t in zip(dim_vals, dim_types):
@@ -793,7 +796,7 @@ def unpack_dim_keys(gkeys: torch.Tensor, dim_vals: List[_Val],
             val = bits.to(torch.int32).view(torch.float32)
         elif tmpl == torch.bool:
             val = bits != 0
-        elif tmpl.is_signed:
+        elif tmpl.is_signed and not mdt.is_unsigned(t):
             sbit = 1 << (width - 1)
             val = ((bits ^ sbit) - sbit).to(tmpl)
         else:

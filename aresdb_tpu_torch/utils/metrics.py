@@ -166,6 +166,10 @@ QUERY_KERNEL_BUILD = "query.kernel_build"
 # literal block and dense plan, and the batches launched in them
 QUERY_DENSE_LAUNCH_CALLS = "query.dense_launch_calls"
 QUERY_DENSE_BATCHES_LAUNCHED = "query.dense_batches_launched"
+# batches that took the sort (keyed) route, and capacity-ladder reruns of
+# keyed and HLL batches
+QUERY_SORT_BATCHES = "query.sort_batches"
+QUERY_LADDER_RERUNS = "query.ladder_reruns"
 
 
 class _Timer:

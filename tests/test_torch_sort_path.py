@@ -4,8 +4,9 @@ The same numpy inputs, made from a seed, go through the JAX package (with
 ARES_FUSED=interp, so the runtime-dense branch's K2 runs its Pallas kernel
 in interpret mode) and through the port on the CPU, where K2's wrapper
 takes its plain version:
-- key packing: `pack_dim_keys` (exact and splitmix-hashed) and
-  `unpack_dim_keys`, bit for bit;
+- key packing: `pack_dim_keys` (exact and splitmix-hashed), bit for bit,
+  and `unpack_dim_keys`, value for value: the JAX package sign-extends an
+  unsigned type narrower than its lane, the port reads the type's value;
 - `reduce_by_key` for sum, count, avg, min, max and integer sums, with the
   runtime-dense branch on and off (tests/test_sorted_reduce.py:158-244),
   and its group-table semantics: the first k_groups keys in ascending
@@ -146,8 +147,8 @@ def test_unpack_dim_keys_matches_jax_and_repacks(name):
                                 _jnp().asarray(used))
     tv, tb = K.unpack_dim_keys(torch.from_numpy(gkeys.view(np.int64)),
                                _tvals(lanes), types, torch.from_numpy(used))
-    for a, b, c, d in zip(tv, jv, tb, jb):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for a, b, c, d, t in zip(tv, jv, tb, jb, types):
+        np.testing.assert_array_equal(a.numpy(), _typed(b, t))
         np.testing.assert_array_equal(c.numpy(), np.asarray(d))
     # the host packing of the unpacked dims gives the keys back
     repacked = K.np_pack_dim_keys([a.numpy() for a in tv],
@@ -174,7 +175,20 @@ def _port_reduce(keys, mval, mvalid, agg, out_float, kg, lanes=None,
                            dim_types=types, dim_strides=strides)
 
 
-def _assert_tables(got, want, exact_agg=False):
+def _typed(values, t):
+    """Unpacked dim values read as their type's value. The JAX package's
+    `unpack_dim_keys` sign-extends an unsigned type narrower than its
+    32-bit lane (a SmallEnum of 200 reads -56, an unused slot's all-ones
+    bits -1); the port's zero-extends it (200, 255)."""
+    v = np.asarray(values)
+    width = K._dim_bits(t)
+    if dt.is_unsigned(t) and v.dtype.kind == "i" and \
+            v.dtype.itemsize * 8 > width:
+        return v & ((1 << width) - 1)
+    return v
+
+
+def _assert_tables(got, want, exact_agg=False, types=None):
     np.testing.assert_array_equal(got[0].numpy().view(np.uint64),
                                   np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
@@ -186,7 +200,10 @@ def _assert_tables(got, want, exact_agg=False):
         np.testing.assert_array_equal(ga, wa)
     else:
         np.testing.assert_allclose(ga, wa, rtol=RTOL, atol=ATOL)
-    for a, b in zip(got[5] + got[6], tuple(want[5]) + tuple(want[6])):
+    for a, b, t in zip(got[5], want[5], types or [None] * len(got[5])):
+        np.testing.assert_array_equal(
+            a.numpy(), np.asarray(b) if t is None else _typed(b, t))
+    for a, b in zip(got[6], want[6]):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
@@ -393,7 +410,7 @@ def test_nan_poisons_only_its_group_and_inf_propagates(branch, monkeypatch):
     want = _jax_reduce(keys, mval, mvalid, "sum", True, 16, lanes, types)
     np.testing.assert_array_equal(np.isnan(aggv), np.isnan(np.asarray(
         want[2])))
-    _assert_tables(got, want)
+    _assert_tables(got, want, types=types)
 
 
 def _partials(seed, n_tables=3, k=64, n_keys=100):

@@ -42,9 +42,10 @@ TRIPS = {"name": "trc_trips",
                      {"name": "fare", "type": "Float32"}],
          "primaryKeyColumns": [1], "isFactTable": True,
          "config": {"batchSize": 128, "recordRetentionInDays": 0}}
-# the parent commit's verbose context of a live dense query, in order
+# the verbose context of a live dense query, in order
 STATS_KEYS = ["batches", "rows_scanned", "stagedBytes",
               "peakBatchStagedBytes", "overflowReruns", "ladderReruns",
+              "sortBatches", "sortExec", "sortMerge",
               "foreignTransfer", "transfer", "batchExec", "resultFetch",
               "hostFetches", "compile", "memoryRequired", "postprocess"]
 QUERY_STAGES = ("compile", "admission", "foreignTransfer", "transfer",
